@@ -1,0 +1,73 @@
+"""The port's fused cc_mult step against the JAX package's step.
+
+The JAX engine makes the keys and ciphertexts; ``interop.from_jax`` carries
+its evk and ciphertexts into the port, and both ``make_mult_step`` steps
+(rescale -> tensor product -> relinearize) run on them.  Both outputs are
+canonical [0, q) residues, so the tolerance is none: byte-identical.  The
+decrypt error of the port's result stays under the bound of the JAX
+package's own tests for that size.
+"""
+
+import jax
+import numpy as np
+import pytest
+
+from tiberate_tpu.config.toy import toy_config
+from tiberate_tpu.engine import CkksEngine as JaxEngine
+from tiberate_tpu.parallel import sharded as jsharded
+from tiberate_tpu_torch import interop
+from tiberate_tpu_torch.engine import CkksEngine as TorchEngine
+from tiberate_tpu_torch.parallel import sharded as tsharded
+
+
+def _toy():
+    return toy_config(logN=7, num_scales=4, num_special_primes=2,
+                      scale_bits=30)
+
+
+# (config, decrypt-error bound): tests/test_engine.py's toy bound and
+# tests/test_golden.py's logN14 bound
+CASES = {"toy": (_toy, 5e-5), "logN14": (lambda: "logN14", 1e-3)}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_port_step_matches_jax_step(case):
+    make_cfg, tol = CASES[case]
+    jeng = JaxEngine(make_cfg(), seed=21, nonce=5)
+    rng = np.random.default_rng(9)
+    m1, m2 = (rng.uniform(-1, 1, jeng.num_slots) for _ in range(2))
+    ca, cb = jeng.encodecrypt(m1), jeng.encodecrypt(m2)
+
+    jstep = jax.jit(jsharded.make_mult_step(jeng, 0))
+    want = jstep(ca.data[0], ca.data[1], cb.data[0], cb.data[1],
+                 jsharded.prepare_step_ksk(jeng, 0),
+                 jsharded.mult_step_params(jeng, 0))
+
+    teng = TorchEngine(jeng.ckksCfg, device="cpu", seed=21)
+    teng.sk = interop.from_jax(jeng.sk)
+    teng.evk = interop.from_jax(jeng.evk)
+    ta, tb = interop.from_jax(ca), interop.from_jax(cb)
+    step = tsharded.make_mult_step(teng, 0)
+    got = step(ta.data[0], ta.data[1], tb.data[0], tb.data[1],
+               tsharded.prepare_step_ksk(teng, 0),
+               tsharded.mult_step_params(teng, 0))
+    for w, g in zip(want, got):
+        assert np.array_equal(np.asarray(w), g.numpy())
+
+    out = teng.decryptcode(teng.cc_mult(ta, tb), is_real=True)
+    assert np.abs(out - m1 * m2).max() < tol
+
+
+def test_port_rescale_matches_jax_rescale():
+    """``CkksEngine.rescale`` on a JAX ciphertext carried across, twice in a
+    row: canonical residues, so byte-identical at each level."""
+    jeng = JaxEngine(_toy(), seed=21, nonce=5)
+    teng = TorchEngine(jeng.ckksCfg, device="cpu", seed=21)
+    m = np.random.default_rng(10).uniform(-1, 1, jeng.num_slots)
+    jct = jeng.encodecrypt(m)
+    tct = interop.from_jax(jct)
+    for level in (1, 2):
+        jct, tct = jeng.rescale(jct), teng.rescale(tct)
+        assert jct.level == tct.level == level
+        for w, g in zip(jct.data, tct.data):
+            assert np.array_equal(np.asarray(w), g.numpy())

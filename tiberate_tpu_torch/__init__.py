@@ -1,0 +1,31 @@
+"""tiberate_tpu_torch — the CKKS engine of ``tiberate_tpu`` on PyTorch and
+hand-written CUDA kernels for NVIDIA Hopper (H100).
+
+A port beside the JAX package, which stays the reference: same presets and
+prime chains, same Montgomery (R = 2^62) residues, same ``CkksEngine``
+method names.  Polynomials are int64 tensors shaped ``[..., C, N]``; the
+NTTs, the tensor product, the keyswitch part loop and the P-division run
+as CUDA kernels (``csrc/``) on CUDA tensors and as their plain torch
+versions on CPU tensors.
+
+This package never imports jax.  Its random draws come from a
+``torch.Generator`` and are NOT cryptographically secure (see
+``rng/sampler.py``).
+"""
+
+from tiberate_tpu_torch import errors
+from tiberate_tpu_torch.config import CkksConfig, Preset
+
+__version__ = "0.1.0"
+
+__all__ = ["CkksConfig", "CkksEngine", "Preset", "errors", "__version__"]
+
+
+def __getattr__(name):
+    if name == "CkksEngine":
+        from tiberate_tpu_torch.engine import CkksEngine
+
+        return CkksEngine
+    raise AttributeError(
+        f"module 'tiberate_tpu_torch' has no attribute {name!r}"
+    )

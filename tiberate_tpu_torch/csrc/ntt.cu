@@ -1,0 +1,204 @@
+// Forward and inverse negacyclic NTT with prologues and epilogues.
+//
+// Replaces the Pallas kernel _make_kernel run by _run_group
+// (tiberate_tpu/ops/pallas_mxu.py:445, :1395) behind the entry points
+//   ntt        (K1, pallas_mxu.py:1708)  enter (x R) or plain,
+//   intt       (K2, pallas_mxu.py:1713)  x N^-1 with "mont" / "exit" /
+//                                         "exit_reduce" epilogues,
+//   ntt_keymul (K3, pallas_mxu.py:1791)  forward NTT, then t_i = X k_i R^-1
+//                                         for one or two keys,
+//   intt_pdiv  (K4, pallas_mxu.py:1835)  "mont" inverse NTT, then the
+//                                         P-division x c_x - sum p0_i c_i,
+//                                         canonical [0, q).
+// The TPU kernel is a 4-step int8-limb matmul with Shoup folds because
+// Mosaic has no 64-bit vectors.  Here each transform is the radix-2 64-bit
+// butterfly NTT of ops/ntt.py in two passes (ntt.cuh), with the prologue
+// fused into the first pass's load and the epilogue into the second
+// pass's store.
+//
+// What bounds it on the H100: the 64-bit REDC.  Each butterfly is one
+// 64x64->128 multiply pair plus a 62-bit multiply (about 20 32-bit integer
+// multiply-adds), and a logN15 row needs 15 x 16384 of them, against
+// 2 reads and 2 writes of 8 B per coefficient.  At the main path's shapes
+// that is integer-multiply throughput, not HBM.  The design keeps every
+// stage in shared memory (two device-memory round trips per transform, not
+// logN) and fuses the epilogues so no transform is re-read; a wgmma int8
+// 4-step is the later lever for the multiply bound.
+#include <cuda_runtime.h>
+
+#include "ntt.cuh"
+
+// ---------------------------------------------------------------------
+// Forward pass 2: stages [L1, logN) on contiguous chunks, in place on buf,
+// then the key-multiply epilogue for NKEYS keys ([C, N] each).
+// ---------------------------------------------------------------------
+template <int NKEYS>
+__global__ void fwd_pass2(i64* buf, i64* out1, Geo g, int C,
+                          const i64* __restrict__ qv,
+                          const i64* __restrict__ kv,
+                          const i64* __restrict__ psi,
+                          const i64* __restrict__ key0,
+                          const i64* __restrict__ key1) {
+    extern __shared__ i64 s[];
+    const int row = blockIdx.y;
+    const int c = row % C;
+    const int j1 = blockIdx.x;
+    const u64 q = (u64)qv[c], k = (u64)kv[c];
+    const size_t off = ((size_t)row << g.logN) + ((size_t)j1 << g.L2);
+    for (int e = threadIdx.x; e < g.N2; e += blockDim.x) s[e] = buf[off + e];
+    __syncthreads();
+    fwd_contig(s, g, j1, psi + ((size_t)c << g.logN), q, k);
+    const size_t koff = ((size_t)c << g.logN) + ((size_t)j1 << g.L2);
+    for (int e = threadIdx.x; e < g.N2; e += blockDim.x) {
+        const i64 v = s[e];
+        if (NKEYS == 0) {
+            buf[off + e] = v;
+        } else {
+            buf[off + e] = redc(v, key0[koff + e], q, k);
+            if (NKEYS == 2) out1[off + e] = redc(v, key1[koff + e], q, k);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------
+// Inverse pass A: stages logN .. L1+1 on contiguous chunks.  Output row
+// b * C + c reads input row b * C_in + c (C_in >= C: intt_pdiv reads only
+// the ordinary rows of a with-special accumulator).
+// ---------------------------------------------------------------------
+__global__ void inv_passA(const i64* __restrict__ x, i64* __restrict__ out,
+                          Geo g, int C, int C_in,
+                          const i64* __restrict__ qv,
+                          const i64* __restrict__ kv,
+                          const i64* __restrict__ ipsi) {
+    extern __shared__ i64 s[];
+    const int row = blockIdx.y;
+    const int c = row % C;
+    const int b = row / C;
+    const int j1 = blockIdx.x;
+    const u64 q = (u64)qv[c], k = (u64)kv[c];
+    const size_t chunk = (size_t)j1 << g.L2;
+    const i64* src = x + (((size_t)b * C_in + c) << g.logN) + chunk;
+    for (int e = threadIdx.x; e < g.N2; e += blockDim.x) s[e] = src[e];
+    __syncthreads();
+    inv_contig(s, g, j1, ipsi + ((size_t)c << g.logN), q, k);
+    i64* dst = out + ((size_t)row << g.logN) + chunk;
+    for (int e = threadIdx.x; e < g.N2; e += blockDim.x) dst[e] = s[e];
+}
+
+enum { EPI_MONT = 0, EPI_EXIT = 1, EPI_EXIT_REDUCE = 2, EPI_PDIV = 3 };
+
+// ---------------------------------------------------------------------
+// Inverse pass B: stages L1 .. 1 on strided tiles, x N^-1 R (the "mont"
+// variant), then the epilogue, in place on buf [B * C, N].
+//   EPI_PDIV: out = X c_x - sum_i p0_i c_i (mod q), canonical, with
+//   pdc[c] = [c_x, c_0 R, ..., c_{S-1} R] and p0 [B, S, N] plain rows.
+// ---------------------------------------------------------------------
+template <int EPI>
+__global__ void inv_passB(i64* buf, Geo g, int C,
+                          const i64* __restrict__ qv,
+                          const i64* __restrict__ kv,
+                          const i64* __restrict__ ipsi,
+                          const i64* __restrict__ Ninv,
+                          const i64* __restrict__ p0,
+                          const i64* __restrict__ pdc, int S) {
+    extern __shared__ i64 s[];
+    const int row = blockIdx.y;
+    const int c = row % C;
+    const int b = row / C;
+    const int ct = blockIdx.x;
+    const u64 q = (u64)qv[c], k = (u64)kv[c];
+    const size_t base = (size_t)row << g.logN;
+    const int n = g.N1 * g.TC;
+    for (int e = threadIdx.x; e < n; e += blockDim.x)
+        s[e] = buf[base + strided_x(g, ct, e)];
+    __syncthreads();
+    inv_strided(s, g, ipsi + ((size_t)c << g.logN), q, k);
+    const i64 ninv = Ninv[c];
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+        const int xi = strided_x(g, ct, e);
+        i64 v = redc(s[e], ninv, q, k);
+        if (EPI == EPI_EXIT || EPI == EPI_EXIT_REDUCE) v = redc(v, 1, q, k);
+        if (EPI == EPI_EXIT_REDUCE) v = v < (i64)q ? v : v - (i64)q;
+        if (EPI == EPI_PDIV) {
+            const i64* cc = pdc + (size_t)c * (1 + S);
+            v = canon(redc(v, cc[0], q, k), (i64)q);
+            for (int i = 0; i < S; ++i) {
+                const i64 p = p0[(((size_t)b * S + i) << g.logN) + xi];
+                v -= canon(redc(p, cc[1 + i], q, k), (i64)q);
+                v = v < 0 ? v + (i64)q : v;
+            }
+        }
+        buf[base + xi] = v;
+    }
+}
+
+// ---------------------------------------------------------------------
+// Host entry points (plain C interface, loaded with ctypes).  Each
+// returns cudaGetLastError() after its launches.
+// ---------------------------------------------------------------------
+// K1 (nkeys = 0) and K3 (nkeys = 1 or 2).  out0 may alias nothing of x;
+// out1 is written only for nkeys == 2.  Rs == NULL: no x R entry.
+extern "C" int tt_ntt_fwd(const i64* x, i64* out0, i64* out1, int rows,
+                          int C, int logN, const i64* q, const i64* k,
+                          const i64* psi, const i64* Rs, const i64* key0,
+                          const i64* key1, int nkeys, void* stream) {
+    const Geo g = make_geo(logN);
+    cudaStream_t st = (cudaStream_t)stream;
+    const size_t sm1 = (size_t)g.N1 * g.TC * sizeof(i64);
+    const size_t sm2 = (size_t)g.N2 * sizeof(i64);
+    dim3 g1(g.N2 / g.TC, rows), g2(g.N1, rows);
+    if (Rs)
+        fwd_pass1<true><<<g1, TT_THREADS, sm1, st>>>(x, out0, g, C, q, k,
+                                                     psi, Rs);
+    else
+        fwd_pass1<false><<<g1, TT_THREADS, sm1, st>>>(x, out0, g, C, q, k,
+                                                      psi, Rs);
+    TT_CHECK();
+    const int t2 = contig_threads(g);
+    if (nkeys == 0)
+        fwd_pass2<0><<<g2, t2, sm2, st>>>(out0, out1, g, C, q, k, psi,
+                                          key0, key1);
+    else if (nkeys == 1)
+        fwd_pass2<1><<<g2, t2, sm2, st>>>(out0, out1, g, C, q, k, psi,
+                                          key0, key1);
+    else
+        fwd_pass2<2><<<g2, t2, sm2, st>>>(out0, out1, g, C, q, k, psi,
+                                          key0, key1);
+    TT_CHECK();
+    return 0;
+}
+
+// K2 (epi 0..2) and K4 (epi 3).  x: [B, C_in, N]; out: [B, C, N].
+extern "C" int tt_ntt_inv(const i64* x, i64* out, int rows, int C,
+                          int C_in, int logN, const i64* q, const i64* k,
+                          const i64* ipsi, const i64* Ninv, int epi,
+                          const i64* p0, const i64* pdc, int S,
+                          void* stream) {
+    const Geo g = make_geo(logN);
+    cudaStream_t st = (cudaStream_t)stream;
+    const size_t sm1 = (size_t)g.N1 * g.TC * sizeof(i64);
+    const size_t sm2 = (size_t)g.N2 * sizeof(i64);
+    dim3 g1(g.N2 / g.TC, rows), g2(g.N1, rows);
+    inv_passA<<<g2, contig_threads(g), sm2, st>>>(x, out, g, C, C_in, q, k,
+                                                  ipsi);
+    TT_CHECK();
+    switch (epi) {
+        case EPI_MONT:
+            inv_passB<EPI_MONT><<<g1, TT_THREADS, sm1, st>>>(
+                out, g, C, q, k, ipsi, Ninv, p0, pdc, S);
+            break;
+        case EPI_EXIT:
+            inv_passB<EPI_EXIT><<<g1, TT_THREADS, sm1, st>>>(
+                out, g, C, q, k, ipsi, Ninv, p0, pdc, S);
+            break;
+        case EPI_EXIT_REDUCE:
+            inv_passB<EPI_EXIT_REDUCE><<<g1, TT_THREADS, sm1, st>>>(
+                out, g, C, q, k, ipsi, Ninv, p0, pdc, S);
+            break;
+        default:
+            inv_passB<EPI_PDIV><<<g1, TT_THREADS, sm1, st>>>(
+                out, g, C, q, k, ipsi, Ninv, p0, pdc, S);
+    }
+    TT_CHECK();
+    return 0;
+}

@@ -1,0 +1,176 @@
+// Two-pass 64-bit negacyclic NTT stages in shared memory.
+//
+// A logN15 row is 32768 x 8 B = 256 KB, more than the 227 KB of shared
+// memory one block may use, so a transform never holds a whole row.  Split
+// N = N1 * N2 (N1 = 2^L1, L1 = logN/2, N2 = N / N1) and view the row as
+// [N1, N2]:
+//
+//   * forward stages logm < L1 pair x with x + t, t >= N2: they never mix
+//     columns, so a "strided" block owns TC columns of all N1 rows;
+//   * forward stages logm >= L1 have t < N2: a "contiguous" block owns
+//     one chunk of N2 consecutive coefficients.
+//
+// The inverse runs the same split in the opposite order.  Each stage is the
+// radix-2 butterfly of ops/ntt.py with the same twiddle psi[m + i], the
+// same operand order and the same lazy reductions, so the output equals the
+// plain torch transform bit for bit, in the same bit-reversed order.
+//
+// Per block one row (one batch entry x one RNS channel): q, k and the
+// twiddle row are the channel's.  Twiddles are read from global memory
+// (the [C, N] tables stay in L2); data lives in shared memory between
+// stages.
+#pragma once
+
+#include "mont.cuh"
+
+#define TT_TC 16          // columns per strided block (128 B per j1 row)
+#define TT_THREADS 256
+
+struct Geo {
+    int logN, L1, L2, N1, N2, TC;
+};
+
+static inline Geo make_geo(int logN) {
+    Geo g;
+    g.logN = logN;
+    g.L1 = logN / 2;
+    g.L2 = logN - g.L1;
+    g.N1 = 1 << g.L1;
+    g.N2 = 1 << g.L2;
+    g.TC = g.N2 < TT_TC ? g.N2 : TT_TC;
+    return g;
+}
+
+// Forward stages [0, L1) on a strided tile s[j1 * TC + col].
+__device__ __forceinline__ void fwd_strided(i64* s, const Geo& g,
+                                            const i64* psi, u64 q, u64 k) {
+    const i64 q2 = (i64)(q << 1);
+    const int nb = (g.N1 >> 1) * g.TC;
+    for (int logm = 0; logm < g.L1; ++logm) {
+        const int sh = g.L1 - 1 - logm;
+        for (int w = threadIdx.x; w < nb; w += blockDim.x) {
+            const int col = w % g.TC;
+            const int b = w / g.TC;
+            const int grp = b >> sh;
+            const int ju = (grp << (sh + 1)) + (b & ((1 << sh) - 1));
+            const int jv = ju + (1 << sh);
+            const i64 S = psi[(1 << logm) + grp];
+            const i64 U = s[ju * g.TC + col];
+            const i64 V = redc(S, s[jv * g.TC + col], q, k);
+            s[ju * g.TC + col] = lazy_add(U, V, q2);
+            s[jv * g.TC + col] = lazy_sub(U, V, q2);
+        }
+        __syncthreads();
+    }
+}
+
+// Forward stages [L1, logN) on the contiguous chunk j1: s[0, N2).
+__device__ __forceinline__ void fwd_contig(i64* s, const Geo& g, int j1,
+                                           const i64* psi, u64 q, u64 k) {
+    const i64 q2 = (i64)(q << 1);
+    const int nb = g.N2 >> 1;
+    for (int logm = g.L1; logm < g.logN; ++logm) {
+        const int sh = g.logN - 1 - logm;
+        const i64* tw = psi + (1 << logm) + (j1 << (logm - g.L1));
+        for (int b = threadIdx.x; b < nb; b += blockDim.x) {
+            const int grp = b >> sh;
+            const int u = (grp << (sh + 1)) + (b & ((1 << sh) - 1));
+            const int v = u + (1 << sh);
+            const i64 U = s[u];
+            const i64 V = redc(tw[grp], s[v], q, k);
+            s[u] = lazy_add(U, V, q2);
+            s[v] = lazy_sub(U, V, q2);
+        }
+        __syncthreads();
+    }
+}
+
+// Inverse stages logm = logN .. L1+1 on the contiguous chunk j1.
+__device__ __forceinline__ void inv_contig(i64* s, const Geo& g, int j1,
+                                           const i64* ipsi, u64 q, u64 k) {
+    const i64 q2 = (i64)(q << 1);
+    const int nb = g.N2 >> 1;
+    for (int logm = g.logN; logm > g.L1; --logm) {
+        const int sh = g.logN - logm;
+        const i64* tw = ipsi + (1 << (logm - 1)) + (j1 << (logm - 1 - g.L1));
+        for (int b = threadIdx.x; b < nb; b += blockDim.x) {
+            const int grp = b >> sh;
+            const int u = (grp << (sh + 1)) + (b & ((1 << sh) - 1));
+            const int v = u + (1 << sh);
+            const i64 U = s[u];
+            const i64 V = s[v];
+            s[u] = lazy_add(U, V, q2);
+            s[v] = redc(tw[grp], lazy_sub(U, V, q2), q, k);
+        }
+        __syncthreads();
+    }
+}
+
+// Inverse stages logm = L1 .. 1 on a strided tile s[j1 * TC + col].
+__device__ __forceinline__ void inv_strided(i64* s, const Geo& g,
+                                            const i64* ipsi, u64 q, u64 k) {
+    const i64 q2 = (i64)(q << 1);
+    const int nb = (g.N1 >> 1) * g.TC;
+    for (int logm = g.L1; logm >= 1; --logm) {
+        const int sh = g.L1 - logm;
+        for (int w = threadIdx.x; w < nb; w += blockDim.x) {
+            const int col = w % g.TC;
+            const int b = w / g.TC;
+            const int grp = b >> sh;
+            const int ju = (grp << (sh + 1)) + (b & ((1 << sh) - 1));
+            const int jv = ju + (1 << sh);
+            const i64 S = ipsi[(1 << (logm - 1)) + grp];
+            const i64 U = s[ju * g.TC + col];
+            const i64 V = s[jv * g.TC + col];
+            s[ju * g.TC + col] = lazy_add(U, V, q2);
+            s[jv * g.TC + col] = redc(S, lazy_sub(U, V, q2), q, k);
+        }
+        __syncthreads();
+    }
+}
+
+// Global coefficient index of strided-tile element e (column tile ct).
+__device__ __forceinline__ int strided_x(const Geo& g, int ct, int e) {
+    return (e / g.TC) * g.N2 + ct * g.TC + (e % g.TC);
+}
+
+static inline int contig_threads(const Geo& g) {
+    int t = g.N2 >> 1;
+    return t < TT_THREADS ? t : TT_THREADS;
+}
+
+// ---------------------------------------------------------------------
+// Forward pass 1: optional x R entry, stages [0, L1) on strided tiles.
+// Grid (N2 / TC, rows); row = batch * C + channel.  Shared by ntt.cu,
+// tensor.cu and keyswitch.cu.
+// ---------------------------------------------------------------------
+template <bool ENTER>
+__global__ void fwd_pass1(const i64* __restrict__ x, i64* out, Geo g, int C,
+                          const i64* __restrict__ qv,
+                          const i64* __restrict__ kv,
+                          const i64* __restrict__ psi,
+                          const i64* __restrict__ Rs) {
+    extern __shared__ i64 s[];
+    const int row = blockIdx.y;
+    const int c = row % C;
+    const int ct = blockIdx.x;
+    const u64 q = (u64)qv[c], k = (u64)kv[c];
+    const size_t base = (size_t)row << g.logN;
+    const int n = g.N1 * g.TC;
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+        i64 v = x[base + strided_x(g, ct, e)];
+        if (ENTER) v = redc(v, Rs[c], q, k);
+        s[e] = v;
+    }
+    __syncthreads();
+    fwd_strided(s, g, psi + ((size_t)c << g.logN), q, k);
+    for (int e = threadIdx.x; e < n; e += blockDim.x)
+        out[base + strided_x(g, ct, e)] = s[e];
+}
+
+#define TT_CHECK()                                   \
+    do {                                             \
+        cudaError_t err_ = cudaGetLastError();       \
+        if (err_ != cudaSuccess) return (int)err_;   \
+    } while (0)
+

@@ -1,0 +1,657 @@
+"""The CKKS engine over torch tensors: the encrypt -> cc_mult -> decrypt
+slice of ``tiberate_tpu/engine/ckks_engine.py``.
+
+Each core below is the torch twin of the jnp core of the same name, with a
+batch written out as leading dimensions where the JAX package ``vmap``s.
+The NTTs, the tensor product, the keyswitch part loop and the P-division
+go through the kernel wrappers of :mod:`tiberate_tpu_torch.ops.ntt_kernels`:
+one code path, which launches the Hopper kernels for CUDA tensors and runs
+their plain versions for CPU tensors.  Outputs are bit-identical to the JAX
+package's jnp path on the same inputs.
+"""
+
+import functools
+from hashlib import sha256
+
+import numpy as np
+import torch
+
+from tiberate_tpu_torch import errors
+from tiberate_tpu_torch.config import CkksConfig, Preset
+from tiberate_tpu_torch.context.ntt_context import CkksParams, PartPack
+from tiberate_tpu_torch.ops import mont
+from tiberate_tpu_torch.ops import ntt_kernels as kern
+from tiberate_tpu_torch.rng.sampler import Sampler
+from tiberate_tpu_torch.typing import (
+    FLAGS,
+    Ciphertext,
+    EvaluationKey,
+    KeySwitchKey,
+    PublicKey,
+    SecretKey,
+)
+from tiberate_tpu_torch.utils import encoding as codec
+
+# ======================================================================
+# Cores.
+# ======================================================================
+
+
+def _keygen_sk_core(ternary, lp):
+    """uniform ternary -> NTT+Montgomery secret key."""
+    return kern.ntt(mont.tile_unsigned(ternary, lp.pack), lp, enter=True)
+
+
+def _keygen_pk_core(e, a, sk, lp):
+    """pk0 = e - a*s (NTT domain)."""
+    pk = lp.pack
+    e_t = kern.ntt(mont.tile_unsigned(e, pk), lp, enter=True)
+    return mont.mont_sub(e_t, mont.mont_mult(a, sk, pk), pk)
+
+
+def _ksk_shard_core(pk0, Psk, lo, alpha, pack_part):
+    """Add the P-scaled source-key shard into a ksk part's pk0."""
+    out = pk0.clone()
+    out[lo : lo + alpha] = mont.mont_add(pk0[lo : lo + alpha], Psk,
+                                         pack_part)
+    return out
+
+
+def _encrypt_core(pt, dc_rns, e0, e1, v, pk0, pk1, lp):
+    """pt/e0/e1/v: [..., N] signed int64; pk0/pk1: [C, N]; dc_rns: [..., C]
+    bias-guard DC residues (zeros when bias_guard is off).
+    -> (ct0, ct1), each [..., C, N]."""
+    pk = lp.pack
+    e0_t = mont.tile_unsigned(e0, pk)
+    e1_t = mont.tile_unsigned(e1, pk)
+    pt_t = mont.tile_unsigned(pt, pk).clone()
+    pt_t[..., 0] += dc_rns
+    pt_t = mont.mont_enter(pt_t, lp.Rs_scale, pk)
+    pt_t = mont.mont_reduce(pt_t, pk)
+    pte0 = mont.mont_add(pt_t, e0_t, pk)
+
+    v_t = mont.tile_unsigned(v, pk).contiguous()
+    vpk0, vpk1 = kern.ntt_keymul(v_t, lp, (pk0, pk1), enter=True)
+    vpk0 = kern.intt(vpk0, lp, "exit")
+    vpk1 = kern.intt(vpk1, lp, "exit")
+
+    ct0 = mont.reduce_2q(mont.mont_add(vpk0, pte0, pk), pk)
+    ct1 = mont.reduce_2q(mont.mont_add(vpk1, e1_t, pk), pk)
+    return ct0, ct1
+
+
+def _final_scale(pt, base_lp, final_scalar, rounding_half, base_at,
+                 final_round):
+    """Common decrypt epilogue: (base - scaler) * q_lvl^-1, signed,
+    rounded.  pt: [..., C, N] -> [..., 1, N]."""
+    bpk = base_lp.pack
+    base = pt[..., base_at : base_at + 1, :]
+    scaler = pt[..., 0:1, :]
+    scaled = mont.mont_sub(base, scaler, bpk)
+    scaled = mont.mont_mult(scaled, final_scalar, bpk)
+    scaled = mont.reduce_2q(scaled, bpk)
+    scaled = mont.make_signed(scaled, bpk)
+    if final_round:
+        scaled = scaled + (scaler > rounding_half).to(scaled.dtype)
+    return scaled
+
+
+def _decrypt_double_core(ct0, ct1, sk, lp, base_lp, final_scalar,
+                         rounding_half, base_at, final_round):
+    """-> (scaled [..., 1, N], pt [..., C, N])."""
+    pk = lp.pack
+    (sa,) = kern.ntt_keymul(ct1, lp, (sk,), enter=True)
+    sa = kern.intt(sa, lp, "exit")
+    pt = mont.reduce_2q(mont.mont_add(ct0, sa, pk), pk)
+    scaled = _final_scale(pt, base_lp, final_scalar, rounding_half,
+                          base_at, final_round)
+    return scaled, pt
+
+
+def _rescale_core(d, rescale_scale, lp_next, round_at):
+    """Drop the top RNS channel with exact rounding.  d: [..., C, N] in
+    [0, q) -> [..., C-1, N]."""
+    rescaler = d[..., 0:1, :]
+    data = d[..., 1:, :] - rescaler
+    data = mont.mont_mult(data, rescale_scale, lp_next.pack)
+    data = data + (rescaler > round_at).to(data.dtype)
+    # REDC of a signed difference can land marginally below zero
+    data = mont.make_unsigned(data, lp_next.pack)
+    return mont.reduce_2q(data, lp_next.pack)
+
+
+def _ccmult_tensor_core(x0, x1, y0, y1, lp):
+    """Tensor product in the NTT domain: d0 = x0y0, d1 = x0y1 + x1y0,
+    d2 = x1y1."""
+    return kern.ntt_tensor(x0, x1, y0, y1, lp)
+
+
+def _pre_extend(a_part, part: PartPack, plp):
+    """Mixed-radix (Garner) digits of the part residues.
+
+    a_part: [..., alpha, N] values in [0, q); returns [..., alpha, N]
+    signed digits.
+    """
+    alpha = part.alpha
+    pk = plp.pack
+    rows = [a_part[..., 0, :]] * alpha
+    for i in range(alpha - 1):
+        ql, qh = pk.ql[i + 1], pk.qh[i + 1]
+        kl, kh = pk.kl[i + 1], pk.kh[i + 1]
+        y = a_part[..., i + 1, :] - rows[i + 1]
+        y = mont.mont_mult_raw(y, part.Y_scalar[i], ql, qh, kl, kh)
+        rows[i + 1] = y
+        if i + 2 < alpha:
+            suffix = pk[i + 2 : alpha]
+            ynew = mont.mont_mult_raw(
+                y[..., None, :], part.L_scalar[i],
+                suffix.ql, suffix.qh, suffix.kl, suffix.kh,
+            )
+            for j, r in enumerate(range(i + 2, alpha)):
+                rows[r] = rows[r] + ynew[..., j, :]
+    return torch.stack(rows, dim=-2)
+
+
+def _pdiv_fused(acc, lp_sp, lp_ord, PiRs, S):
+    """iNTT + P-division of one keyswitch accumulator [..., C+S, N].
+
+    Phase 1 ([..., S, N]): inverse-transform the special rows and replay
+    the successive rescale on the special block alone, giving the plain
+    row each division subtracts.  Phase 2: one ``intt_pdiv`` on the
+    ordinary rows.  Returns canonical [0, q) ordinary rows.
+    """
+    C = lp_ord.num_channels
+    lp_spec = lp_sp[C:]
+    cur = kern.intt(acc[..., C:, :].contiguous(), lp_spec, "exit_reduce")
+    rows = []
+    for i in range(S):
+        r = cur[..., S - 1 - i, :]
+        rows.append(r)
+        if i < S - 1:
+            upd = mont.mont_sub(cur, r[..., None, :], lp_spec.pack)
+            cur = mont.mont_mult(upd, PiRs[i][C:], lp_spec.pack)
+    return kern.intt_pdiv(acc, torch.stack(rows, dim=-2), lp_ord, PiRs)
+
+
+def _parts_digits(a, parts, lp_ord, amax):
+    """Every part's mixed-radix digits, zero-padded to ``amax`` rows:
+    [..., n_parts, amax, N] (the ``ntt_keymul_parts`` operand)."""
+    sts = []
+    for part in parts:
+        st = _pre_extend(a[..., part.lo : part.hi, :], part,
+                         lp_ord[part.lo : part.hi])
+        if part.alpha < amax:
+            pad = st.new_zeros((*st.shape[:-2], amax - part.alpha,
+                                st.shape[-1]))
+            st = torch.cat([st, pad], dim=-2)
+        sts.append(st)
+    return torch.stack(sts, dim=-3)
+
+
+def _parts_consts(params, level):
+    """(ec, alphas) of the all-parts keyswitch at ``level``: the extension
+    constants [n_parts, C_sp, amax] (``Rs``, then the part's ``L_enter``
+    rows, zero past its alpha) and the int32 alphas."""
+    parts = params.parts[level]
+    lp_sp = params.lp(level, True)
+    amax = max(pt.alpha for pt in parts)
+    zrow = torch.zeros_like(lp_sp.Rs)
+    ec = torch.stack([
+        torch.cat(
+            [lp_sp.Rs]
+            + [pt.L_enter[i][level:] if pt.alpha > i + 1 else zrow
+               for i in range(amax - 1)],
+            dim=-1,
+        )
+        for pt in parts
+    ])
+    alphas = torch.tensor([pt.alpha for pt in parts], dtype=torch.int32,
+                          device=params.device)
+    return ec.contiguous(), alphas
+
+
+def _switcher_body(a, parts, lp_sp, lp_ord, PiRs, S, parts_fused):
+    """Key switching of ``a`` [..., C, N] (coefficient domain, [0, q)):
+    returns (c0, c1) ordinary rows.
+
+    ``parts_fused`` = (k0, k1, ec, alphas) from
+    :meth:`CkksEngine._ksk_parts_fused`: every part's digits go to ONE
+    ``ntt_keymul_parts`` call, which extends, transforms, multiplies by
+    both evk components and sums the parts.
+    """
+    k0, k1, ec, alphas = parts_fused
+    st = _parts_digits(a, parts, lp_ord, ec.shape[-1])
+    acc0, acc1 = kern.ntt_keymul_parts(st, ec, alphas, (k0, k1), lp_sp)
+    c0 = _pdiv_fused(acc0, lp_sp, lp_ord, PiRs, S)
+    c1 = _pdiv_fused(acc1, lp_sp, lp_ord, PiRs, S)
+    return c0, c1
+
+
+def _relin_core(d0, d1, d2, parts, lp_sp, lp_ord, PiRs, S, parts_fused):
+    """relinearize a triplet in the NTT domain -> (ct0, ct1)."""
+    d0 = kern.intt(d0, lp_ord, "exit_reduce")
+    d1 = kern.intt(d1, lp_ord, "exit_reduce")
+    d2 = kern.intt(d2, lp_ord, "exit_reduce")
+    c0, c1 = _switcher_body(d2, parts, lp_sp, lp_ord, PiRs, S, parts_fused)
+    ct0 = mont.reduce_2q(d0 + c0, lp_ord.pack)
+    ct1 = mont.reduce_2q(d1 + c1, lp_ord.pack)
+    return ct0, ct1
+
+
+# ======================================================================
+# The engine.
+# ======================================================================
+
+
+class CkksEngine:
+    """CKKS engine on one device.
+
+    ``device`` is explicit: "cuda" (the default) raises when no GPU is
+    present; pass "cpu" to run the plain torch versions.
+    """
+
+    def __init__(self, ckks_config=None, device="cuda", *,
+                 bias_guard: bool = True, seed=None):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' explicitly for the CPU path"
+            )
+        if ckks_config is None:
+            ckks_config = Preset.logN15
+        if isinstance(ckks_config, CkksConfig) or (
+            hasattr(ckks_config, "q") and hasattr(ckks_config, "logN")
+        ):
+            # any duck-typed config carrying a prime chain (toy configs)
+            self.ckksCfg = ckks_config
+        else:
+            self.ckksCfg = CkksConfig.parse(ckks_config)
+
+        self.params = CkksParams(self.ckksCfg, self.device)
+        self.montCtx = self.params.montCtx
+        self.rng = Sampler(self.ckksCfg.N, self.ckksCfg.sigma, seed=seed)
+        self.bias_guard = bias_guard
+        self.__sk = None
+        self.__pk = None
+        self.__evk = None
+        self._steps = {}    # level -> (fused step, its parameters)
+        self._consts = {}   # level -> all-parts keyswitch constants
+
+    # ------------------------------------------------------------------
+
+    @property
+    def num_levels(self) -> int:
+        return self.ckksCfg.num_scales
+
+    @property
+    def num_slots(self) -> int:
+        return self.ckksCfg.N // 2
+
+    @functools.cached_property
+    def hash(self) -> str:
+        q_str = ",".join(map(str, self.montCtx.q))
+        return sha256(f"{self.ckksCfg!r}_{q_str}".encode()).hexdigest()
+
+    def _meta(self):
+        return dict(logN=self.ckksCfg.logN, creator_hash=self.hash)
+
+    def _lp(self, lvl, special=False):
+        return self.params.lp(lvl, special)
+
+    def _to_dev(self, x):
+        return torch.as_tensor(x, dtype=torch.int64).to(self.device)
+
+    @property
+    def _rounding_half(self):
+        # decrypt rounding prime: q list index [-S-2]
+        return self.params.q[-self.ckksCfg.num_special_primes - 2] // 2
+
+    # ------------------------------------------------------------------
+    # Keys (setting sk drops the keys derived from it).
+    # ------------------------------------------------------------------
+
+    @property
+    def sk(self) -> SecretKey:
+        if self.__sk is None:
+            self.sk = self._create_secret_key()
+        return self.__sk
+
+    @sk.setter
+    def sk(self, sk: SecretKey):
+        self.__pk = None
+        self.__evk = None
+        self.__sk = sk
+
+    @property
+    def pk(self) -> PublicKey:
+        if self.__pk is None:
+            self.__pk = self._create_public_key(self.sk)
+        return self.__pk
+
+    @pk.setter
+    def pk(self, pk: PublicKey):
+        self.__pk = pk
+
+    @property
+    def evk(self) -> EvaluationKey:
+        if self.__evk is None:
+            self.__evk = self._create_evk(self.sk)
+        return self.__evk
+
+    @evk.setter
+    def evk(self, evk: EvaluationKey):
+        self.__evk = evk
+
+    def _create_secret_key(self) -> SecretKey:
+        lp = self._lp(0, True)
+        ternary = self._to_dev(self.rng.ternary())
+        return SecretKey(
+            data=_keygen_sk_core(ternary, lp),
+            flags=FLAGS.INCLUDE_SPECIAL | FLAGS.MONTGOMERY_STATE
+            | FLAGS.NTT_STATE,
+            level=0,
+            **self._meta(),
+        )
+
+    def _create_public_key(self, sk: SecretKey = None, *,
+                           include_special: bool = False, a=None
+                           ) -> PublicKey:
+        """pk = (e - a*s, a), optionally under a given uniform ``a``."""
+        sk = sk or self.sk
+        if include_special and not sk.has_flag(FLAGS.INCLUDE_SPECIAL):
+            raise errors.SecretKeyNotIncludeSpecialPrime()
+        lp = self._lp(0, include_special)
+        C = lp.num_channels
+        e = self._to_dev(self.rng.discrete_gaussian(1)[0])
+        if a is None:
+            a = self.rng.uniform(self.params.q[:C])
+        a = self._to_dev(a)
+        pk0 = _keygen_pk_core(e, a, sk.data[:C], lp)
+        return PublicKey(
+            data=(pk0, a),
+            flags=(FLAGS.INCLUDE_SPECIAL if include_special else FLAGS(0))
+            | FLAGS.MONTGOMERY_STATE | FLAGS.NTT_STATE,
+            level=0,
+            **self._meta(),
+        )
+
+    def create_key_switching_key(self, sk_from: SecretKey, sk_to: SecretKey,
+                                 a=None) -> KeySwitchKey:
+        """Per-part P-scaled source-key shards folded into fresh public
+        keys under ``sk_to``; ``a`` optionally gives each part's uniform
+        polynomial ([P+S, N] each)."""
+        for key in (sk_from, sk_to):
+            if not key.has_flag(FLAGS.NTT_STATE):
+                raise errors.NTTStateError(expected=True)
+            if not key.has_flag(FLAGS.MONTGOMERY_STATE):
+                raise errors.MontgomeryStateError(expected=True)
+        P = self.params.P
+        lp_ord = self._lp(0, False)
+        Psk = mont.mont_mult(sk_from.data[:P], self.params.mont_PR,
+                             lp_ord.pack)
+        ksk_parts = []
+        for part_id, part in enumerate(self.params.parts[0]):
+            crs = a[part_id] if a is not None else None
+            pk = self._create_public_key(sk_to, include_special=True, a=crs)
+            pk0, pk1 = pk.data
+            part_pack = self.params.pack[part.g0 : part.g0 + part.alpha]
+            pk0 = _ksk_shard_core(pk0, Psk[part.lo : part.hi], part.g0,
+                                  part.alpha, part_pack)
+            ksk_parts.append((pk0, pk1))
+        return KeySwitchKey(
+            data=tuple(ksk_parts),
+            flags=FLAGS.INCLUDE_SPECIAL | FLAGS.MONTGOMERY_STATE
+            | FLAGS.NTT_STATE,
+            level=0,
+            **self._meta(),
+        )
+
+    def _create_evk(self, sk: SecretKey = None) -> EvaluationKey:
+        sk = sk or self.sk
+        lp = self._lp(0, True)
+        sk2 = SecretKey(
+            data=mont.mont_mult(sk.data, sk.data, lp.pack),
+            flags=FLAGS.MONTGOMERY_STATE | FLAGS.NTT_STATE
+            | FLAGS.INCLUDE_SPECIAL,
+            level=0,
+            **self._meta(),
+        )
+        return EvaluationKey.wrap(self.create_key_switching_key(sk2, sk))
+
+    def _parts_consts(self, level: int):
+        if level not in self._consts:
+            self._consts[level] = _parts_consts(self.params, level)
+        return self._consts[level]
+
+    def _ksk_parts_fused(self, ksk: KeySwitchKey, level: int):
+        """(k0, k1, ec, alphas) for ``ntt_keymul_parts`` at ``level``: the
+        live parts' evk rows stacked [n_parts, C_sp, N] and
+        :meth:`_parts_consts`.  Cached on the key."""
+        cache = ksk.misc.get("_parts_fused")
+        if cache is None:
+            cache = ksk.misc["_parts_fused"] = {}
+        if level not in cache:
+            alloc = self.params.parts_alloc[level]
+            keys = tuple(
+                torch.stack([ksk.data[g][i][level:] for g in alloc])
+                for i in range(2)
+            )
+            cache[level] = (*keys, *self._parts_consts(level))
+        return cache[level]
+
+    # ------------------------------------------------------------------
+    # Encode / decode (host codec).
+    # ------------------------------------------------------------------
+
+    def encode(self, m, level: int = 0, padding=True):
+        """Message -> signed integer coefficients [N] (CPU int64)."""
+        if padding:
+            m = codec.padding(m, num_slots=self.num_slots)
+        return codec.encode(
+            m, scale=self.ckksCfg.scale, rng=self.rng,
+            deviation=self.params.deviations[level],
+        )
+
+    def decode(self, m, level=0, is_real: bool = False):
+        """Signed coefficients [N] (or [1, N]) -> message slots."""
+        m = np.asarray(torch.as_tensor(m).cpu()).reshape(-1)
+        decoded = codec.decode(
+            m, scale=self.ckksCfg.scale,
+            correction=self.params.corrections[level],
+        )[: self.num_slots]
+        return decoded.real if is_real else decoded
+
+    # ------------------------------------------------------------------
+    # Encrypt / decrypt.
+    # ------------------------------------------------------------------
+
+    def _encrypt(self, pt, dc_rns, pk, level):
+        include_special = pk.has_flag(FLAGS.INCLUDE_SPECIAL)
+        lp = self._lp(level, include_special)
+        C = lp.num_channels
+        e0e1 = self._to_dev(self.rng.discrete_gaussian(2))
+        v = self._to_dev(self.rng.binary())
+        ct0, ct1 = _encrypt_core(
+            self._to_dev(pt), self._to_dev(dc_rns), e0e1[0], e0e1[1], v,
+            pk.data[0][level : level + C], pk.data[1][level : level + C], lp,
+        )
+        return Ciphertext(
+            data=(ct0, ct1),
+            flags=FLAGS.INCLUDE_SPECIAL if include_special else FLAGS(0),
+            level=level,
+            **self._meta(),
+        )
+
+    def encrypt(self, pt, pk: PublicKey = None, *, level: int = 0
+                ) -> Ciphertext:
+        """Encrypt encoded coefficients pt ([N] int64)."""
+        pk = pk or self.pk
+        C = self._lp(level, pk.has_flag(FLAGS.INCLUDE_SPECIAL)).num_channels
+        return self._encrypt(pt, np.zeros(C, dtype=np.int64), pk, level)
+
+    def encodecrypt(self, m, pk: PublicKey = None, *, level: int = 0,
+                    padding=True) -> Ciphertext:
+        pk = pk or self.pk
+        if padding:
+            m = codec.padding(m, num_slots=self.num_slots)
+        deviation = self.params.deviations[level]
+        C = self._lp(level, pk.has_flag(FLAGS.INCLUDE_SPECIAL)).num_channels
+        dc_rns = np.zeros(C, dtype=np.int64)
+        if self.bias_guard:
+            # move the DC integral part out of the rounded coefficients and
+            # add it back exactly as RNS residues
+            pt = codec.encode(
+                m, scale=self.ckksCfg.scale, deviation=deviation,
+                rng=self.rng, return_without_scaling=True,
+            ).copy()
+            dc_integral = float(pt[0]) // 1
+            pt[0] -= dc_integral
+            dc_scale = int(dc_integral) * int(self.ckksCfg.scale)
+            dc_rns = np.array(
+                [dc_scale % self.params.q[i] for i in range(level, level + C)],
+                dtype=np.int64,
+            )
+            pt = self.rng.randround(pt * np.float64(self.ckksCfg.scale))
+        else:
+            pt = codec.encode(m, scale=self.ckksCfg.scale,
+                              deviation=deviation, rng=self.rng)
+        return self._encrypt(pt, dc_rns, pk, level)
+
+    def _decrypt_args(self, level):
+        C = self._lp(level, False).num_channels
+        return (self._lp(level, False), self.params.base_lp(),
+                self.params.final_scalar[level], self._rounding_half, C - 1)
+
+    def decrypt_double(self, ct: Ciphertext, sk: SecretKey = None):
+        """-> signed scaled coefficients [1, N]."""
+        sk = sk or self.sk
+        if not sk.has_flag(FLAGS.NTT_STATE):
+            raise errors.NTTStateError(expected=True)
+        lp, base_lp, fs, rh, base_at = self._decrypt_args(ct.level)
+        C = base_at + 1
+        scaled, _ = _decrypt_double_core(
+            ct.data[0][..., :C, :], ct.data[1][..., :C, :],
+            sk.data[ct.level : ct.level + C], lp, base_lp, fs, rh,
+            base_at, final_round=True,
+        )
+        return scaled
+
+    def decryptcode(self, ct: Ciphertext, sk: SecretKey = None, *,
+                    is_real=False):
+        """Decrypt and decode one ciphertext; with bias_guard (and >= 3
+        channels left) the DC slot is recovered exactly by a 3-prime CRT."""
+        sk = sk or self.sk
+        if not sk.has_flag(FLAGS.NTT_STATE):
+            raise errors.NTTStateError(expected=True)
+        if not sk.has_flag(FLAGS.MONTGOMERY_STATE):
+            raise errors.MontgomeryStateError(expected=True)
+        level = ct.level
+        lp, base_lp, fs, rh, base_at = self._decrypt_args(level)
+        C = base_at + 1
+        use_bias_guard = C >= 3 and self.bias_guard
+        args = (ct.data[0][..., :C, :], ct.data[1][..., :C, :],
+                sk.data[level : level + C], lp, base_lp, fs, rh, base_at)
+        dc = 0
+        if use_bias_guard:
+            _, pt = _decrypt_double_core(*args, final_round=False)
+            dc0, dc1, dc2 = (int(v) for v in pt[[base_at, 0, 1], 0].cpu())
+            q = self.params.q
+            q0, q1, q2 = q[level + base_at], q[level], q[level + 1]
+            Q = q0 * q1 * q2
+            Q0, Q1, Q2 = q1 * q2, q0 * q2, q0 * q1
+            dc = (
+                dc0 * pow(Q0, -1, q0) * Q0
+                + dc1 * pow(Q1, -1, q1) * Q1
+                + dc2 * pow(Q2, -1, q2) * Q2
+            ) % Q
+            dc = dc if dc <= Q // 2 else dc - Q
+            dc = (dc + (q1 - 1)) // q1
+            pt_z = pt.clone()
+            pt_z[base_at, 0] = 0
+            pt_z[0, 0] = 0
+            scaled = _final_scale(pt_z, base_lp, fs, rh, base_at,
+                                  final_round=True)
+        else:
+            scaled, _ = _decrypt_double_core(*args, final_round=True)
+
+        correction = self.params.corrections[level]
+        decoded = codec.decode(
+            np.asarray(scaled.cpu()).reshape(-1),
+            scale=self.ckksCfg.scale, correction=correction,
+            return_without_scaling=True,
+        )[: self.num_slots]
+        decoded = decoded / self.ckksCfg.scale * correction
+        if use_bias_guard:
+            decoded = decoded + dc / self.ckksCfg.scale * correction
+        return decoded.real if is_real else decoded
+
+    # ------------------------------------------------------------------
+    # Rescale / multiply.
+    # ------------------------------------------------------------------
+
+    def rescale(self, ct: Ciphertext) -> Ciphertext:
+        """Drop the top RNS channel of both polynomials, rounding exactly."""
+        level = ct.level
+        if level + 1 >= self.num_levels:
+            raise errors.MaximumLevelError(level=level,
+                                           level_max=self.num_levels)
+        lp_next = self._lp(level + 1, False)
+        round_at = self.params.q[level] // 2
+        data = tuple(
+            _rescale_core(d, self.params.rescale_scales[level], lp_next,
+                          round_at)
+            for d in ct.data
+        )
+        return Ciphertext(data=data, level=level + 1, **self._meta())
+
+    def _fused_mult_step(self, level: int):
+        """(step, prm) of the fused step at ``level``, built once."""
+        if level not in self._steps:
+            from tiberate_tpu_torch.parallel import sharded
+
+            self._steps[level] = (sharded.make_mult_step(self, level),
+                                  sharded.mult_step_params(self, level))
+        return self._steps[level]
+
+    def cc_mult(self, a: Ciphertext, b: Ciphertext,
+                evk: EvaluationKey = None) -> Ciphertext:
+        """rescale -> tensor product -> relinearize, through the fused step
+        (``parallel/sharded.make_mult_step``).  Both operands must share a
+        level; leading batch dimensions of their data are carried."""
+        if a.level != b.level:
+            raise errors.NotMatchType(origin=f"levels {a.level}/{b.level}",
+                                      to="cc_mult (align levels first)")
+        if a.level + 1 >= self.num_levels:
+            raise errors.MaximumLevelError(level=a.level,
+                                           level_max=self.num_levels)
+        from tiberate_tpu_torch.parallel.sharded import prepare_step_ksk
+
+        step, prm = self._fused_mult_step(a.level)
+        ksk = prepare_step_ksk(self, a.level, ksk=evk)
+        ct0, ct1 = step(a.data[0], a.data[1], b.data[0], b.data[1], ksk,
+                        prm)
+        return Ciphertext(data=(ct0, ct1), level=a.level + 1,
+                          **self._meta())
+
+
+def stack_ciphertexts(cts) -> Ciphertext:
+    """Stack same-level ciphertexts into one with a leading batch dim."""
+    level = cts[0].level
+    if any(ct.level != level for ct in cts):
+        raise errors.NotMatchType(origin="mixed levels", to="a batch")
+    return Ciphertext(
+        data=tuple(torch.stack([ct.data[i] for ct in cts]) for i in (0, 1)),
+        level=level, **dict(cts[0].misc),
+    )
+
+
+def unstack_ciphertext(ct: Ciphertext) -> list:
+    """Split a batched ciphertext along its leading dim."""
+    return [
+        Ciphertext(data=(d0, d1), level=ct.level, **dict(ct.misc))
+        for d0, d1 in zip(ct.data[0], ct.data[1])
+    ]
+
+
+__all__ = ["CkksEngine", "stack_ciphertexts", "unstack_ciphertext"]

@@ -1,0 +1,98 @@
+"""Build and load the Hopper kernels (``csrc/*.cu``) at first use.
+
+``nvcc`` compiles the sources into one shared library with a plain C
+interface under ``tiberate_tpu_torch/_build/`` (named by a hash of the
+sources, so an edited source is rebuilt), and ``ctypes`` loads it.  Nothing
+here runs at import time: a machine without ``nvcc`` or a GPU imports the
+package and runs the plain torch versions on CPU tensors.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("ntt.cu", "tensor.cu", "keyswitch.cu")
+HEADERS = ("mont.cuh", "ntt.cuh")
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# C entry point -> argument types (pointers and the stream as void*)
+_SIGNATURES = {
+    "tt_ntt_fwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P],
+    "tt_ntt_inv": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I,
+                   _P],
+    "tt_ntt_tensor": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                      _P, _P, _P],
+    "tt_ntt_keymul_parts": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _P, _P, _P, _P],
+}
+
+_lib = None
+build_log = ""
+
+
+def _nvcc():
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on the PATH, else the CUDA
+    toolkit's default install prefix."""
+    homes = [os.environ.get(v) for v in ("CUDA_HOME", "CUDA_PATH")]
+    for home in filter(None, homes):
+        path = os.path.join(home, "bin", "nvcc")
+        if os.path.exists(path):
+            return path
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _digest():
+    h = hashlib.sha256(ARCH.encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + f.read())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the kernels if needed; returns the library path.
+
+    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and spills per
+    kernel) and keeps the compiler's output in :data:`build_log`.
+    """
+    global build_log
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib_path = os.path.join(BUILD_DIR, f"libtiberate_kernels_{_digest()}.so")
+    if os.path.exists(lib_path) and not verbose:
+        return lib_path
+    tmp_path = f"{lib_path}.{os.getpid()}.tmp"  # concurrent builds
+    cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
+           "-fPIC", "-o", tmp_path]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += [os.path.join(CSRC, s) for s in SOURCES]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp_path, lib_path)
+    return lib_path
+
+
+def lib():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib

@@ -1,0 +1,384 @@
+"""The Hopper kernels of the cc_mult path: wrappers and plain versions.
+
+Each TPU kernel of ``tiberate_tpu/ops/pallas_mxu.py`` on the path has a
+wrapper here and a plain torch version beside it:
+
+========  =====================  ===========================================
+kernel    wrapper                what it computes
+========  =====================  ===========================================
+K1        :func:`ntt`            forward NTT, optional x R entry
+K2        :func:`intt`           inverse NTT x N^-1, "mont"/"exit"/
+                                 "exit_reduce"
+K3        :func:`ntt_keymul`     forward NTT, then one or two key products
+K4        :func:`intt_pdiv`      inverse NTT + P-division, canonical
+K5        :func:`ntt_tensor`     four enter-NTTs + the ciphertext tensor
+                                 product
+K6        :func:`ntt_keymul_parts` all keyswitch parts: signed-digit basis
+                                 extension, NTT, both evk products, part-sum
+========  =====================  ===========================================
+
+A wrapper dispatches on the device of its input: a CPU tensor runs the
+plain version, a CUDA tensor launches the kernel (built from ``csrc/`` at
+first use, :mod:`tiberate_tpu_torch.ops.cuda_build`); any other device
+raises.  There is no fallback from a CUDA tensor to the plain version.
+Every launch adds one to :data:`LAUNCHES` under the wrapper's name.
+
+The kernels run the plain versions' butterflies, twiddles, operand order
+and lazy reductions, so their outputs are bit-identical to the plain
+versions, lazy outputs included.
+"""
+
+import math
+
+import torch
+
+from tiberate_tpu_torch.ops import cuda_build, mont
+from tiberate_tpu_torch.ops import ntt as ntt_ops
+
+LAUNCHES = dict.fromkeys(
+    ("ntt", "intt", "ntt_keymul", "intt_pdiv", "ntt_tensor",
+     "ntt_keymul_parts"),
+    0,
+)
+
+_INTT_EPILOGUES = {"mont": 0, "exit": 1, "exit_reduce": 2}
+_MAX_ROWS = 65535  # a launch's grid.y: one block row per polynomial row
+_EPI_PDIV = 3
+
+
+def reset_launch_counts():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ----------------------------------------------------------------------
+# Dispatch and checks.
+# ----------------------------------------------------------------------
+
+
+def _on_cpu(x) -> bool:
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device} (cpu or cuda)")
+    return False
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check(device, **tensors):
+    """Every operand on ``device``, int64 (int32 for ``alphas``) and
+    contiguous — the kernels take raw pointers."""
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        want = torch.int32 if name == "alphas" else torch.int64
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != want:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {want}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_rows(rows):
+    if rows > _MAX_ROWS:
+        raise ValueError(f"{rows} polynomial rows in one launch; the "
+                         f"kernels take at most {_MAX_ROWS}")
+
+
+def _geometry(x, C):
+    """(rows, logN) of a [..., C, N] operand; N a power of two in 2^4..2^17."""
+    if x.dim() < 2 or x.shape[-2] != C:
+        raise ValueError(f"expected [..., {C}, N], got {tuple(x.shape)}")
+    N = x.shape[-1]
+    logN = N.bit_length() - 1
+    if N != 1 << logN or not 4 <= logN <= 17:
+        raise ValueError(f"N={N} must be a power of two in [2^4, 2^17]")
+    rows = math.prod(x.shape[:-1])
+    _check_rows(rows)
+    return rows, logN
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(rc, name):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+# ----------------------------------------------------------------------
+# K1 — forward NTT.
+# ----------------------------------------------------------------------
+
+
+def ntt_plain(x, lp, enter: bool):
+    if enter:
+        return ntt_ops.enter_ntt(x, lp.Rs, lp.psi, lp.pack)
+    return ntt_ops.ntt(x, lp.psi, lp.pack)
+
+
+def ntt(x, lp, enter: bool):
+    """Forward NTT of ``x`` [..., C, N] (``enter``: x R first)."""
+    if _on_cpu(x):
+        return ntt_plain(x, lp, enter)
+    C = lp.num_channels
+    rows, logN = _geometry(x, C)
+    _check(x.device, x=x, q=lp.pack.q, k=lp.pack.k, psi=lp.psi, Rs=lp.Rs)
+    out = torch.empty_like(x)
+    rc = cuda_build.lib().tt_ntt_fwd(
+        _ptr(x), _ptr(out), None, rows, C, logN, _ptr(lp.pack.q),
+        _ptr(lp.pack.k), _ptr(lp.psi), _ptr(lp.Rs) if enter else None,
+        None, None, 0, _stream(x.device),
+    )
+    _raise_on(rc, "ntt")
+    LAUNCHES["ntt"] += 1
+    return out
+
+
+# ----------------------------------------------------------------------
+# K2 — inverse NTT.
+# ----------------------------------------------------------------------
+
+
+def intt_plain(x, lp, epilogue: str):
+    if epilogue == "mont":
+        return ntt_ops.intt(x, lp.ipsi, lp.Ninv, lp.pack)
+    if epilogue == "exit":
+        return ntt_ops.intt_exit(x, lp.ipsi, lp.Ninv, lp.pack)
+    if epilogue == "exit_reduce":
+        return ntt_ops.intt_exit_reduce(x, lp.ipsi, lp.Ninv, lp.pack)
+    raise ValueError(f"unknown epilogue {epilogue!r}")
+
+
+def intt(x, lp, epilogue: str):
+    """Inverse NTT x N^-1 of ``x`` [..., C, N]; ``epilogue`` "mont" keeps
+    R, "exit" strips it, "exit_reduce" also reduces to [0, q)."""
+    if _on_cpu(x):
+        return intt_plain(x, lp, epilogue)
+    if epilogue not in _INTT_EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    C = lp.num_channels
+    rows, logN = _geometry(x, C)
+    _check(x.device, x=x, q=lp.pack.q, k=lp.pack.k, ipsi=lp.ipsi,
+           Ninv=lp.Ninv)
+    out = torch.empty_like(x)
+    rc = cuda_build.lib().tt_ntt_inv(
+        _ptr(x), _ptr(out), rows, C, C, logN, _ptr(lp.pack.q),
+        _ptr(lp.pack.k), _ptr(lp.ipsi), _ptr(lp.Ninv),
+        _INTT_EPILOGUES[epilogue], None, None, 0, _stream(x.device),
+    )
+    _raise_on(rc, "intt")
+    LAUNCHES["intt"] += 1
+    return out
+
+
+# ----------------------------------------------------------------------
+# K3 — forward NTT fused with key multiplies.
+# ----------------------------------------------------------------------
+
+
+def ntt_keymul_plain(x, lp, keys, enter: bool):
+    X = ntt_plain(x, lp, enter)
+    return tuple(mont.mont_mult(X, key, lp.pack) for key in keys)
+
+
+def ntt_keymul(x, lp, keys, enter: bool):
+    """``t_i = NTT(x) * keys[i] * R^-1`` for one or two ``[C, N]`` keys
+    (NTT-domain, Montgomery form)."""
+    if _on_cpu(x):
+        return ntt_keymul_plain(x, lp, keys, enter)
+    if len(keys) not in (1, 2):
+        raise ValueError("ntt_keymul takes one or two keys")
+    C = lp.num_channels
+    rows, logN = _geometry(x, C)
+    key0 = keys[0]
+    key1 = keys[1] if len(keys) == 2 else None
+    for key in keys:
+        if tuple(key.shape) != tuple(x.shape[-2:]):
+            raise ValueError(f"key shape {tuple(key.shape)} != [C, N]")
+    _check(x.device, x=x, q=lp.pack.q, k=lp.pack.k, psi=lp.psi, Rs=lp.Rs,
+           key0=key0, key1=key1)
+    out0 = torch.empty_like(x)
+    out1 = torch.empty_like(x) if key1 is not None else None
+    rc = cuda_build.lib().tt_ntt_fwd(
+        _ptr(x), _ptr(out0), _ptr(out1), rows, C, logN, _ptr(lp.pack.q),
+        _ptr(lp.pack.k), _ptr(lp.psi), _ptr(lp.Rs) if enter else None,
+        _ptr(key0), _ptr(key1), len(keys), _stream(x.device),
+    )
+    _raise_on(rc, "ntt_keymul")
+    LAUNCHES["ntt_keymul"] += 1
+    return (out0,) if key1 is None else (out0, out1)
+
+
+# ----------------------------------------------------------------------
+# K4 — inverse NTT fused with the P-division.
+# ----------------------------------------------------------------------
+
+
+def intt_pdiv_plain(acc, p0, lp_ord, PiRs):
+    """The successive rescale of ``_switcher_body`` restricted to the
+    ordinary rows: iNTT-exit, enter, S x (subtract P0, multiply P^-1),
+    exit, reduce."""
+    C = lp_ord.num_channels
+    pk = lp_ord.pack
+    d = intt_plain(acc[..., :C, :], lp_ord, "exit_reduce")
+    d = mont.mont_enter(d, lp_ord.Rs, pk)
+    for i in range(p0.shape[-2]):
+        P0 = mont.mont_enter(p0[..., i : i + 1, :], lp_ord.Rs, pk)
+        d = mont.mont_sub(d, P0, pk)
+        d = mont.mont_mult(d, PiRs[i][:C], pk)
+    return mont.reduce_2q(mont.mont_reduce(d, pk), pk)
+
+
+def intt_pdiv(acc, p0, lp_ord, PiRs):
+    """Divide a keyswitch accumulator by P: ``acc`` [..., C+S, N] (NTT
+    domain; only its C ordinary rows are read), ``p0`` [..., S, N] the
+    plain special rows of the successive division, in division order.
+    Returns canonical [0, q) ordinary rows [..., C, N].
+
+    The kernel evaluates the division in its affine form with
+    ``lp_ord.pdc`` (see ``CkksParams``); the plain version runs the
+    successive chain with ``PiRs``.  Both give the canonical residue.
+    """
+    if _on_cpu(acc):
+        return intt_pdiv_plain(acc, p0, lp_ord, PiRs)
+    C = lp_ord.num_channels
+    S = p0.shape[-2]
+    C_in = acc.shape[-2]
+    if C_in != C + S or lp_ord.pdc.shape[-1] != 1 + S:
+        raise ValueError("acc must carry C + S rows and pdc 1 + S columns")
+    rows_in, logN = _geometry(acc, C_in)
+    B = rows_in // C_in
+    if tuple(p0.shape) != (*acc.shape[:-2], S, acc.shape[-1]):
+        raise ValueError(f"p0 shape {tuple(p0.shape)} does not match acc")
+    _check(acc.device, acc=acc, p0=p0, q=lp_ord.pack.q, k=lp_ord.pack.k,
+           ipsi=lp_ord.ipsi, Ninv=lp_ord.Ninv, pdc=lp_ord.pdc)
+    out = torch.empty((*acc.shape[:-2], C, acc.shape[-1]),
+                      dtype=acc.dtype, device=acc.device)
+    rc = cuda_build.lib().tt_ntt_inv(
+        _ptr(acc), _ptr(out), B * C, C, C_in, logN, _ptr(lp_ord.pack.q),
+        _ptr(lp_ord.pack.k), _ptr(lp_ord.ipsi), _ptr(lp_ord.Ninv),
+        _EPI_PDIV, _ptr(p0), _ptr(lp_ord.pdc), S, _stream(acc.device),
+    )
+    _raise_on(rc, "intt_pdiv")
+    LAUNCHES["intt_pdiv"] += 1
+    return out
+
+
+# ----------------------------------------------------------------------
+# K5 — tensor product.
+# ----------------------------------------------------------------------
+
+
+def ntt_tensor_plain(x0, x1, y0, y1, lp):
+    pk = lp.pack
+    x0 = ntt_plain(x0, lp, enter=True)
+    x1 = ntt_plain(x1, lp, enter=True)
+    y0 = ntt_plain(y0, lp, enter=True)
+    y1 = ntt_plain(y1, lp, enter=True)
+    d0 = mont.mont_mult(x0, y0, pk)
+    d1 = mont.mont_add(
+        mont.mont_mult(x0, y1, pk), mont.mont_mult(x1, y0, pk), pk
+    )
+    d2 = mont.mont_mult(x1, y1, pk)
+    return d0, d1, d2
+
+
+def ntt_tensor(x0, x1, y0, y1, lp):
+    """Enter-NTT all four and return ``(x0y0, x0y1 + x1y0, x1y1)``."""
+    if _on_cpu(x0):
+        return ntt_tensor_plain(x0, x1, y0, y1, lp)
+    C = lp.num_channels
+    rows, logN = _geometry(x0, C)
+    for t in (x1, y0, y1):
+        if t.shape != x0.shape:
+            raise ValueError("ntt_tensor operands must share one shape")
+    _check(x0.device, x0=x0, x1=x1, y0=y0, y1=y1, q=lp.pack.q, k=lp.pack.k,
+           psi=lp.psi, Rs=lp.Rs)
+    tmp = torch.empty((4, *x0.shape), dtype=x0.dtype, device=x0.device)
+    d0, d1, d2 = (torch.empty_like(x0) for _ in range(3))
+    rc = cuda_build.lib().tt_ntt_tensor(
+        _ptr(x0), _ptr(x1), _ptr(y0), _ptr(y1), _ptr(tmp), _ptr(d0),
+        _ptr(d1), _ptr(d2), rows, C, logN, _ptr(lp.pack.q), _ptr(lp.pack.k),
+        _ptr(lp.psi), _ptr(lp.Rs), _stream(x0.device),
+    )
+    _raise_on(rc, "ntt_tensor")
+    LAUNCHES["ntt_tensor"] += 1
+    return d0, d1, d2
+
+
+# ----------------------------------------------------------------------
+# K6 — all keyswitch parts.
+# ----------------------------------------------------------------------
+
+
+def ntt_keymul_parts_plain(st, ec, alphas, keys, lp_sp):
+    """Per part: basis extension of the digits (``_extend``), NTT, both
+    key products; parts summed with ``mont_add`` in part order."""
+    pk = lp_sp.pack
+    k0, k1 = keys
+    d0 = d1 = None
+    for p, alpha in enumerate(alphas.tolist()):
+        ext = mont.mont_enter(st[..., p, 0:1, :], ec[p, :, 0:1], pk)
+        for i in range(1, alpha):
+            Y = mont.mont_mult(st[..., p, i : i + 1, :], ec[p, :, i : i + 1],
+                               pk)
+            ext = mont.mont_add(ext, Y, pk)
+        ext = ntt_plain(ext, lp_sp, enter=False)
+        t0 = mont.mont_mult(ext, k0[p], pk)
+        t1 = mont.mont_mult(ext, k1[p], pk)
+        if d0 is None:
+            d0, d1 = t0, t1
+        else:
+            d0 = mont.mont_add(d0, t0, pk)
+            d1 = mont.mont_add(d1, t1, pk)
+    return d0, d1
+
+
+def ntt_keymul_parts(st, ec, alphas, keys, lp_sp):
+    """The whole keyswitch part loop.
+
+    st: [..., n_parts, amax, N] signed mixed-radix digits (zero-padded to
+    ``amax``); ec: [n_parts, C_sp, amax] extension constants (``Rs``, then
+    the part's ``L_enter`` rows); alphas: [n_parts] int32 digit counts;
+    keys: (k0, k1), each [n_parts, C_sp, N].  Returns the two lazy
+    accumulators, each [..., C_sp, N].
+    """
+    if _on_cpu(st):
+        return ntt_keymul_parts_plain(st, ec, alphas, keys, lp_sp)
+    C_sp = lp_sp.num_channels
+    n_parts, amax, N = st.shape[-3:]
+    k0, k1 = keys
+    if tuple(ec.shape) != (n_parts, C_sp, amax):
+        raise ValueError(f"ec shape {tuple(ec.shape)} != "
+                         f"{(n_parts, C_sp, amax)}")
+    if tuple(alphas.shape) != (n_parts,):
+        raise ValueError("alphas must hold one count per part")
+    for key in keys:
+        if tuple(key.shape) != (n_parts, C_sp, N):
+            raise ValueError(f"key shape {tuple(key.shape)} != "
+                             f"{(n_parts, C_sp, N)}")
+    lead = st.shape[:-3]
+    B = math.prod(lead)
+    _check_rows(B * n_parts * C_sp)
+    _, logN = _geometry(k0[0], C_sp)
+    _check(st.device, st=st, ec=ec, alphas=alphas, k0=k0, k1=k1,
+           q=lp_sp.pack.q, k=lp_sp.pack.k, psi=lp_sp.psi)
+    tmp = torch.empty((B, n_parts, C_sp, N), dtype=st.dtype,
+                      device=st.device)
+    acc0 = torch.empty((*lead, C_sp, N), dtype=st.dtype, device=st.device)
+    acc1 = torch.empty_like(acc0)
+    rc = cuda_build.lib().tt_ntt_keymul_parts(
+        _ptr(st), _ptr(ec), _ptr(alphas), _ptr(tmp), _ptr(k0), _ptr(k1),
+        _ptr(acc0), _ptr(acc1), B, n_parts, amax, C_sp, logN,
+        _ptr(lp_sp.pack.q), _ptr(lp_sp.pack.k), _ptr(lp_sp.psi),
+        _stream(st.device),
+    )
+    _raise_on(rc, "ntt_keymul_parts")
+    LAUNCHES["ntt_keymul_parts"] += 1
+    return acc0, acc1

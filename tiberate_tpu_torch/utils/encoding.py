@@ -1,0 +1,191 @@
+"""CKKS codec: canonical-embedding encode/decode and slot permutations.
+
+A numpy copy of the encode/decode half of ``tiberate_tpu/utils/encoding.py``
+(the port cannot import the JAX package; the rotation and conjugation
+tables come with the port's rotations).  The codec is host-side, low-rate
+work where fp64 precision matters more than throughput, so it runs in numpy
+(complex128).
+
+Math: encode = pre-permute slots (circular-shift ∘ folded canonical
+permutation conjugation), twist by ``e^{-iπn/N}``, FFT, keep real part,
+scale, stochastic-round; decode reverses with the ``skewer``.
+"""
+
+from functools import lru_cache
+
+import numpy as np
+
+
+def padding(m, num_slots: int):
+    if isinstance(m, (int, float, complex)):
+        m = [m]
+    m = np.asarray(m)
+    if m.ndim != 1:
+        raise ValueError(f"message must be 1-D, got {m.ndim}-D")
+    if len(m) > num_slots:
+        raise ValueError(f"message too long: {len(m)} > {num_slots} slots")
+    return np.pad(m, (0, num_slots - len(m)))
+
+
+# ---------------------------------------------------------------
+# Permutations.
+# ---------------------------------------------------------------
+
+
+def circular_shift_permutation(N, shift=1):
+    left = np.roll(np.arange(N // 2), shift)
+    right = np.roll(np.arange(N // 2), -shift) + N // 2
+    return np.concatenate([left, right])
+
+
+def canon_permutation(N, k=1):
+    """mu_p(n) = p*n mod 2N with p = 2k+1 (length 2N)."""
+    M = 2 * N
+    p = int(2 * k + 1)
+    return p * np.arange(M) % M
+
+
+def fold_permutation(p):
+    """Fold the FFT at Nyquist: select odd entries, map (x-1)/2."""
+    return (p[1::2] - 1) // 2
+
+
+def permutation_cycles(perm):
+    pi = {i: int(perm[i]) for i in range(len(perm))}
+    cycles = []
+    while pi:
+        start = next(iter(pi))
+        cur = pi[start]
+        nxt = pi[cur]
+        cycle = []
+        while True:
+            cycle.append(cur)
+            del pi[cur]
+            cur = nxt
+            if nxt in pi:
+                nxt = pi[nxt]
+            else:
+                break
+        cycles.append(cycle)
+    return cycles
+
+
+def conjugate_permutation(p, q):
+    """Conjugate permutations p and q by stacking p on top of q."""
+    pc = permutation_cycles(p)
+    qc = permutation_cycles(q)
+    if [len(c) for c in pc] != [len(c) for c in qc]:
+        raise ValueError("cycle structures must match")
+    pe = np.array([i for c in pc for i in c])
+    qe = np.array([i for c in qc for i in c])
+    r = np.zeros_like(p)
+    r[qe] = pe
+    return r
+
+
+def inverse_permutation(p):
+    return np.arange(len(p))[np.argsort(p)]
+
+
+@lru_cache(maxsize=None)
+def prepost_perms(N):
+    """(pre_perm [N/2], post_perm [N]) for poly degree N."""
+    circ_shift = circular_shift_permutation(N)
+    canon_perm = canon_permutation(N)
+    fold_perm = fold_permutation(canon_perm)
+    post_perm = conjugate_permutation(circ_shift, fold_perm)
+    pre_perm = inverse_permutation(post_perm)[: N // 2]
+    return pre_perm, post_perm
+
+
+@lru_cache(maxsize=None)
+def _twister(N):
+    return np.exp(-1j * np.pi * np.arange(N, dtype=np.float64) / N)
+
+
+@lru_cache(maxsize=None)
+def _skewer(N):
+    return np.exp(1j * np.pi * np.arange(N, dtype=np.float64) / N)
+
+
+def pre_permute(m, pre_perm):
+    """[N/2] slots -> [N] conjugate-mirrored pre-permuted message."""
+    N2 = len(m) * 2
+    permed = np.zeros(N2, dtype=np.complex128)
+    permed[pre_perm] = m
+    return permed + np.conj(permed)[::-1]
+
+
+def post_permute(m, post_perm):
+    permed = np.zeros_like(m)
+    permed[post_perm] = m
+    return permed
+
+
+# ---------------------------------------------------------------
+# Negacyclic FFT.
+# ---------------------------------------------------------------
+
+
+def _fft(x, norm):
+    return np.fft.fft(x, norm=norm)
+
+
+def _ifft(x, norm):
+    return np.fft.ifft(x, norm=norm)
+
+
+def m2poly(m, twister, norm="backward"):
+    return (_fft(m, norm) * twister).real
+
+
+def poly2m(poly, skewer, norm="backward"):
+    return _ifft(poly * skewer, norm)
+
+
+# ---------------------------------------------------------------
+# Encode / decode.
+# ---------------------------------------------------------------
+
+
+def encode(
+    m,
+    rng=None,
+    scale=2**40,
+    deviation=1.0,
+    norm="forward",
+    return_without_scaling=False,
+):
+    """Message slots [N/2] -> signed integer coefficients [N] (numpy int64).
+
+    With ``return_without_scaling`` the raw float coefficients are returned
+    (used by the engine's bias_guard DC split, reference
+    ``ckks_engine.py:1806-1826``).
+    """
+    m = np.asarray(m)
+    N = len(m) * 2
+    pre_perm, _ = prepost_perms(N)
+    mm = m * deviation
+    mm = pre_permute(mm, pre_perm)
+    coeffs = m2poly(mm, _twister(N), norm)
+    if return_without_scaling:
+        return coeffs
+    return rng.randround(coeffs * np.float64(scale))
+
+
+def decode(
+    m,
+    scale=2**40,
+    correction=1.0,
+    norm="forward",
+    return_without_scaling=False,
+):
+    """Signed integer coefficients [N] -> complex slots [N] (pre-truncation)."""
+    m = np.asarray(m)
+    N = len(m)
+    _, post_perm = prepost_perms(N)
+    if return_without_scaling:
+        mm = poly2m(m, _skewer(N), norm=norm)
+        return post_permute(mm, post_perm)
+    mm = poly2m(m, _skewer(N), norm=norm) / scale * correction
+    return post_permute(mm, post_perm)

@@ -6,23 +6,38 @@
 Phases (any failure exits non-zero):
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from ``tiberate_tpu_torch/csrc`` (nvcc), and
-   print ptxas's register and spill counts;
+2. build the CUDA kernels from ``tiberate_tpu_torch/csrc`` (one nvcc per
+   source, in parallel), and print ptxas's register and spill counts;
 3. at the logN15 step shapes (batch 8, 16/17/18 channels, N = 32768) hold
    each kernel against its plain torch version on the same card tensors —
    byte for byte, lazy outputs included — and time both;
 4. drive the main path at Preset.logN15 on the card: keygen, encodecrypt
-   of 8 message pairs, the fused cc_mult step on the batch, decryptcode;
-   the step's output for one pair must equal, byte for byte, the same step
-   run on CPU tensors through the plain versions, the decrypt error must
-   stay below 1e-6, and every kernel's launch count must have risen;
-   ``CkksEngine.rescale`` of the batch must equal the CPU's for one pair;
-5. time the step (median of 3 loops after a warm-up), and the same step
+   of 8 message pairs, the fused cc_mult step on the batch (all keyswitch
+   parts in one kernel), decryptcode; the step's output for one pair must
+   equal, byte for byte, the same step run on CPU tensors through the
+   plain versions, the decrypt error must stay below 1e-6, and every
+   kernel of the path must have launched; ``CkksEngine.rescale`` of the
+   batch must equal the CPU's for one pair;
+5. time the logN15 step (median of 3 loops after a warm-up), the same step
    with every wrapper swapped for its plain version (torch ops on the
-   card); profile one step with torch.profiler: device time by kernel,
-   and the device's busy share of that profiled step's wall time (the
-   profiler slows the host, so this share is lower than an unprofiled
-   step's).
+   card), and the step through the per-part keyswitch chain instead of the
+   all-parts kernel (byte-identical); profile one step with
+   torch.profiler: device time by kernel, and the device's busy share of
+   that profiled step's wall time (the profiler slows the host, so this
+   share is lower than an unprofiled step's);
+6. at Preset.logN17 (N = 2^17, 73 + 6 primes; one engine for the whole
+   phase): the kernels at the step's shapes (batch 8, level 1: 72 / 78
+   channels) against their plain versions, the chain kernel with no skip
+   range and with one part's range (median of 3 single calls each);
+7. the logN17 main path: keygen, encodecrypt of 8 pairs, the cc_mult step
+   through the per-part chain (13 ``ntt_keymul_accum`` launches, no
+   all-parts launch), decryptcode (error below 1e-4, the JAX package's
+   logN17 bound); the step equals the plain-version step byte for byte;
+8. logN17 ``switch_key``: a ciphertext under a second secret key switched
+   to the engine's key decrypts within 1e-6;
+9. logN17 timing: the step with the kernels and with the plain versions,
+   the route A/B (chain against the all-parts kernel, byte-identical, with
+   each run's peak device memory), and one profiled step.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is the device record.
@@ -41,22 +56,32 @@ import torch
 
 BATCH = 8
 SEED = 1234
-DECRYPT_TOL = 1e-6
+DECRYPT_TOL = 1e-6       # fresh ciphertext; the JAX logN14/15 tests
+DECRYPT_TOL_17 = 1e-4    # cc_mult at logN17: tests/test_full_presets.py
 
-# kernel -> (source, the TPU kernel it replaces).  K1-K4 are entry points
-# of _run_group (:1395), K5 of _run_tensor_group, K6 of _run_parts_group.
+# kernel -> (source, the TPU kernel it replaces).  K1-K4 and the K3 chain
+# variant are entry points of _run_group (:1395), K5 of _run_tensor_group,
+# K6 of _run_parts_group.
 _PALLAS = "tiberate_tpu/ops/pallas_mxu.py"
 KERNELS = {
     "ntt": ("tiberate_tpu_torch/csrc/ntt.cu", f"{_PALLAS}:1395"),
     "intt": ("tiberate_tpu_torch/csrc/ntt.cu", f"{_PALLAS}:1395"),
     "ntt_keymul": ("tiberate_tpu_torch/csrc/ntt.cu", f"{_PALLAS}:1395"),
+    "ntt_keymul_accum": ("tiberate_tpu_torch/csrc/ntt.cu",
+                         f"{_PALLAS}:1395"),
     "intt_pdiv": ("tiberate_tpu_torch/csrc/ntt.cu", f"{_PALLAS}:1395"),
     "ntt_tensor": ("tiberate_tpu_torch/csrc/tensor.cu", f"{_PALLAS}:1194"),
     "ntt_keymul_parts": ("tiberate_tpu_torch/csrc/keyswitch.cu",
                          f"{_PALLAS}:868"),
 }
-# the kernels the fused step itself launches
-STEP_KERNELS = ("intt", "intt_pdiv", "ntt_tensor", "ntt_keymul_parts")
+# the kernels each driven path launches (keygen, encrypt, step, decrypt),
+# and those the fused step itself launches
+PATH_15 = ("ntt", "intt", "ntt_keymul", "intt_pdiv", "ntt_tensor",
+           "ntt_keymul_parts")
+STEP_15 = ("intt", "intt_pdiv", "ntt_tensor", "ntt_keymul_parts")
+PATH_17 = ("ntt", "intt", "ntt_keymul", "ntt_keymul_accum", "intt_pdiv",
+           "ntt_tensor")
+STEP_17 = ("intt", "ntt_keymul_accum", "intt_pdiv", "ntt_tensor")
 
 
 def log(msg):
@@ -95,16 +120,20 @@ def plain_wrappers(kern):
             setattr(kern, name, fn)
 
 
-def uniform(gen, q, shape, device):
-    """Residues uniform in [0, q_c) per channel; q: [C] tensor."""
-    x = torch.randint(0, 1 << 62, shape, generator=gen, dtype=torch.int64)
-    return (x % q.cpu()[:, None]).to(device)
+def uniform(gen, q, shape):
+    """Residues uniform in [0, q_c) per channel, drawn on the card; q: [C]
+    tensor on the card."""
+    x = torch.randint(0, 1 << 62, shape, generator=gen, dtype=torch.int64,
+                      device=q.device)
+    return x % q[:, None]
 
 
-def check_kernels(eng, kern, mod):
-    """Phase 3: every kernel against its plain version at step shapes."""
+def check_kernels(eng, kern, mod, tag, loops, with_parts=True):
+    """Every kernel against its plain version at the step shapes of
+    ``eng`` (batch 8, work level 1); the chain kernel with no skip range
+    and with one part's range.  ``loops`` = (reps, inner) of cuda_ms."""
     dev = eng.device
-    gen = torch.Generator().manual_seed(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
     N = eng.ckksCfg.N
     lp_ord, lp_sp = eng._lp(1, False), eng._lp(1, True)
     lp0 = eng._lp(0, False)
@@ -112,46 +141,60 @@ def check_kernels(eng, kern, mod):
     q_ord, q_sp, q0 = lp_ord.pack.q, lp_sp.pack.q, lp0.pack.q
     PiRs = eng.params.PiRs[1]
     parts = eng.params.parts[1]
-    ec, alphas = eng._parts_consts(1)
-    n_parts, amax = ec.shape[0], ec.shape[-1]
+    part = parts[min(1, len(parts) - 1)]
 
-    x = uniform(gen, q_ord, (BATCH, C, N), dev)
-    x4 = [uniform(gen, q_ord, (BATCH, C, N), dev) for _ in range(4)]
-    x17 = uniform(gen, q0, (BATCH, C + 1, N), dev)
-    keys17 = (uniform(gen, q0, (C + 1, N), dev),
-              uniform(gen, q0, (C + 1, N), dev))
-    acc = uniform(gen, q_sp, (BATCH, C_sp, N), dev)
-    p0 = uniform(gen, q_sp[C:], (BATCH, S, N), dev)
-    a = uniform(gen, q_ord, (BATCH, C, N), dev)
-    st = mod._parts_digits(a, parts, lp_ord, amax).contiguous()
-    pkeys = tuple(
-        torch.stack([uniform(gen, q_sp, (C_sp, N), dev)
-                     for _ in range(n_parts)])
-        for _ in range(2)
-    )
+    x = uniform(gen, q_ord, (BATCH, C, N))
+    x4 = [uniform(gen, q_ord, (BATCH, C, N)) for _ in range(4)]
+    x0 = uniform(gen, q0, (BATCH, C + 1, N))
+    keys0 = (uniform(gen, q0, (C + 1, N)), uniform(gen, q0, (C + 1, N)))
+    acc = uniform(gen, q_sp, (BATCH, C_sp, N))
+    p0 = uniform(gen, q_sp[C:], (BATCH, S, N))
+    ext = uniform(gen, q_sp, (BATCH, C_sp, N))
+    keys_sp = (uniform(gen, q_sp, (C_sp, N)), uniform(gen, q_sp, (C_sp, N)))
+
+    def accum_case(skip):
+        accs = [tuple(uniform(gen, 2 * q_sp, (BATCH, C_sp, N))
+                      for _ in range(2))]
+        accs.append(tuple(a.clone() for a in accs[0]))
+        return (
+            lambda: kern.ntt_keymul_accum(ext, lp_sp, keys_sp, accs[0], skip),
+            lambda: kern.ntt_keymul_accum_plain(ext, lp_sp, keys_sp, accs[1],
+                                                skip),
+        )
+
     cases = {
         "ntt": (lambda: kern.ntt(x, lp_ord, enter=True),
                 lambda: kern.ntt_plain(x, lp_ord, enter=True)),
         "intt": (lambda: kern.intt(x, lp_ord, "exit_reduce"),
                  lambda: kern.intt_plain(x, lp_ord, "exit_reduce")),
-        "ntt_keymul": (lambda: kern.ntt_keymul(x17, lp0, keys17, True),
-                       lambda: kern.ntt_keymul_plain(x17, lp0, keys17,
-                                                     True)),
+        "ntt_keymul": (lambda: kern.ntt_keymul(x0, lp0, keys0, True),
+                       lambda: kern.ntt_keymul_plain(x0, lp0, keys0, True)),
+        "ntt_keymul_accum": accum_case(None),
+        f"ntt_keymul_accum[skip {part.lo}:{part.hi}]":
+            accum_case((part.lo, part.hi)),
         "intt_pdiv": (lambda: kern.intt_pdiv(acc, p0, lp_ord, PiRs),
                       lambda: kern.intt_pdiv_plain(acc, p0, lp_ord, PiRs)),
         "ntt_tensor": (lambda: kern.ntt_tensor(*x4, lp_ord),
                        lambda: kern.ntt_tensor_plain(*x4, lp_ord)),
-        "ntt_keymul_parts": (
+    }
+    shapes = {"ntt": [BATCH, C, N], "intt": [BATCH, C, N],
+              "ntt_keymul": [BATCH, C + 1, N], "intt_pdiv": [BATCH, C_sp, N],
+              "ntt_tensor": [BATCH, C, N]}
+    if with_parts:
+        ec, alphas = eng._parts_consts(1)
+        n_parts, amax = ec.shape[0], ec.shape[-1]
+        a = uniform(gen, q_ord, (BATCH, C, N))
+        st = mod._parts_digits(a, parts, lp_ord, amax).contiguous()
+        pkeys = tuple(
+            torch.stack([uniform(gen, q_sp, (C_sp, N))
+                         for _ in range(n_parts)])
+            for _ in range(2)
+        )
+        cases["ntt_keymul_parts"] = (
             lambda: kern.ntt_keymul_parts(st, ec, alphas, pkeys, lp_sp),
             lambda: kern.ntt_keymul_parts_plain(st, ec, alphas, pkeys,
-                                                lp_sp)),
-    }
-    shapes = {
-        "ntt": [BATCH, C, N], "intt": [BATCH, C, N],
-        "ntt_keymul": [BATCH, C + 1, N], "intt_pdiv": [BATCH, C_sp, N],
-        "ntt_tensor": [BATCH, C, N],
-        "ntt_keymul_parts": [BATCH, n_parts, amax, N],
-    }
+                                                lp_sp))
+        shapes["ntt_keymul_parts"] = [BATCH, n_parts, amax, N]
     results = {}
     for name, (kfn, pfn) in cases.items():
         got, want = kfn(), pfn()
@@ -160,19 +203,40 @@ def check_kernels(eng, kern, mod):
         want = want if isinstance(want, tuple) else (want,)
         same = all(torch.equal(g, w) for g, w in zip(got, want))
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        ms, plain_ms = cuda_ms(kfn), cuda_ms(pfn)
-        log(f"kernel {name}: input {shapes[name]} byte-identical={same} "
+        ms = cuda_ms(kfn, *loops)
+        plain_ms = cuda_ms(pfn, *loops)
+        shape = shapes.get(name, [BATCH, C_sp, N])
+        log(f"{tag} kernel {name}: input {shape} byte-identical={same} "
             f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} "
             f"ms")
         if not same:
-            raise AssertionError(f"{name} disagrees with its plain version")
+            raise AssertionError(f"{tag} {name} disagrees with its plain "
+                                 f"version")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    skip_name = next(k for k in results if k.startswith("ntt_keymul_accum["))
+    results["ntt_keymul_accum"]["with_skip"] = results.pop(skip_name)
     return results
 
 
-def main_path(kern, CkksEngine, Preset, stack, unstack):
-    """Phase 4: the main path on the card, then one pair on the CPU."""
-    eng = CkksEngine(Preset.logN15, device="cuda", seed=SEED)
+def count_launches(kern, fn):
+    """Run ``fn`` with every launch count set to 0; returns (result, the
+    counts it made)."""
+    kern.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(kern.LAUNCHES)
+
+
+def require(counts, names, what):
+    missing = [k for k in names if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on {what}: {missing}")
+
+
+def drive(eng, kern, stack, unstack, tol, tag):
+    """keygen, encodecrypt of 8 pairs, cc_mult on the batch, decryptcode,
+    with the launch counts set to 0 before and read after; the step's own
+    counts separately.  Returns (A, B, out, launches, step counts, err)."""
     rng = np.random.default_rng(SEED)
     m1 = rng.uniform(-1, 1, (BATCH, eng.num_slots))
     m2 = rng.uniform(-1, 1, (BATCH, eng.num_slots))
@@ -182,39 +246,43 @@ def main_path(kern, CkksEngine, Preset, stack, unstack):
     eng.sk, eng.pk, eng.evk  # noqa: B018 — keygen
     torch.cuda.synchronize()
     t_keygen = time.perf_counter() - t0
+    t0 = time.perf_counter()
     A = stack([eng.encodecrypt(m) for m in m1])
     B = stack([eng.encodecrypt(m) for m in m2])
     torch.cuda.synchronize()
-    before_step = dict(kern.LAUNCHES)
+    t_enc = time.perf_counter() - t0
+    before = dict(kern.LAUNCHES)
     t0 = time.perf_counter()
     out = eng.cc_mult(A, B)
     torch.cuda.synchronize()
     t_first_step = time.perf_counter() - t0
-    step_launches = {k: kern.LAUNCHES[k] - before_step[k]
-                     for k in kern.LAUNCHES}
+    step_counts = {k: kern.LAUNCHES[k] - before[k] for k in kern.LAUNCHES}
+    t0 = time.perf_counter()
     decoded = np.stack([eng.decryptcode(ct, is_real=True)
                         for ct in unstack(out)])
     torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
     launches = dict(kern.LAUNCHES)
-    log(f"main path launches {launches}; during the step {step_launches}")
-    log(f"keygen {t_keygen:.3f} s, first step {t_first_step:.3f} s")
-    missing = [k for k, v in launches.items() if v == 0]
-    missing += [k for k in STEP_KERNELS if step_launches[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the path: {missing}")
-
+    log(f"{tag} main path launches {launches}; during the step "
+        f"{step_counts}")
+    log(f"{tag} keygen {t_keygen:.3f} s, encodecrypt of {2 * BATCH} "
+        f"{t_enc:.3f} s, first step {t_first_step:.3f} s, decryptcode of "
+        f"{BATCH} {t_dec:.3f} s")
     for d in out.data:
         if tuple(d.shape) != (BATCH, eng._lp(1).num_channels, eng.ckksCfg.N):
-            raise AssertionError(f"step output shape {tuple(d.shape)}")
+            raise AssertionError(f"{tag} step output shape {tuple(d.shape)}")
     if not np.all(np.isfinite(decoded)):
-        raise AssertionError("non-finite decrypt")
+        raise AssertionError(f"{tag} non-finite decrypt")
     err = float(np.abs(decoded - m1 * m2).max())
-    log(f"logN15 cc_mult decrypt max error vs m1*m2 over {BATCH} pairs: "
-        f"{err:.3e} (limit {DECRYPT_TOL})")
-    if not err < DECRYPT_TOL:
-        raise AssertionError("decrypt error above the limit")
+    log(f"{tag} cc_mult decrypt max error vs m1*m2 over {BATCH} pairs: "
+        f"{err:.3e} (limit {tol})")
+    if not err < tol:
+        raise AssertionError(f"{tag} decrypt error above the limit")
+    return A, B, out, launches, step_counts, err
 
-    # the same step on CPU tensors, through the plain versions
+
+def check_against_cpu(eng, CkksEngine, Preset, A, B, out):
+    """logN15: the step and rescale on pair 0 against CPU tensors."""
     eng_cpu = CkksEngine(Preset.logN15, device="cpu", seed=SEED)
     cpu = torch.device("cpu")
     evk = eng.evk
@@ -234,17 +302,104 @@ def main_path(kern, CkksEngine, Preset, stack, unstack):
     if not same:
         raise AssertionError("GPU step differs from the CPU step")
 
-    # CkksEngine.rescale on the card against the CPU, on pair 0
     r_gpu, r_cpu = eng.rescale(A), eng_cpu.rescale(pair[0])
     same = r_gpu.level == r_cpu.level == 1 and all(
         torch.equal(c, g[0].cpu()) for c, g in zip(r_cpu.data, r_gpu.data))
     log(f"rescale of pair 0: GPU == CPU byte for byte: {same}")
     if not same:
         raise AssertionError("GPU rescale differs from the CPU rescale")
-    return eng, A, B, launches, err
 
 
-def profile_step(fn, top=12):
+def time_step(eng, kern, A, B, tag, smi, loops, plain_reps):
+    """The step with the kernels and with the plain versions (byte-
+    identical); returns (step_ms, plain_step_ms)."""
+    step_ms = cuda_ms(lambda: eng.cc_mult(A, B), *loops)
+    with plain_wrappers(kern):
+        plain_out = eng.cc_mult(A, B)
+        plain_step_ms = cuda_ms(lambda: eng.cc_mult(A, B), reps=plain_reps,
+                                inner=1)
+    same = all(torch.equal(p, k)
+               for p, k in zip(plain_out.data, eng.cc_mult(A, B).data))
+    log(f"{tag} fused cc_mult step, batch {BATCH}: {step_ms:.3f} ms/step, "
+        f"{step_ms / BATCH:.3f} ms/ct; with the plain versions on the card "
+        f"{plain_step_ms:.3f} ms/step, {plain_step_ms / BATCH:.3f} ms/ct, "
+        f"byte-identical={same} ({smi})")
+    if not same:
+        raise AssertionError(f"{tag} plain-version step differs on the card")
+    return step_ms, plain_step_ms
+
+
+def route_ab(eng, kern, sharded, A, B, tag, loops):
+    """The same step through the per-part chain and through the all-parts
+    kernel: byte-identical outputs, each route's time, launches and peak
+    device memory."""
+    step = eng._fused_mult_step(A.level)
+    ksk = sharded.prepare_step_ksk(eng, A.level)
+    prm = sharded.mult_step_params(eng, A.level)
+    routes = {
+        "chain": dict(prm, parts_fused=None),
+        "parts_kernel": dict(
+            prm, parts_fused=eng._ksk_parts_stacked(eng.evk, A.level + 1)),
+    }
+    outs, res = {}, {}
+    for name, p in routes.items():
+        def run(p=p):
+            return step(A.data[0], A.data[1], B.data[0], B.data[1], ksk, p)
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs[name], counts = count_launches(kern, run)
+        peak = torch.cuda.max_memory_allocated()
+        ms = cuda_ms(run, *loops)
+        res[name] = dict(ms=ms, peak_bytes=peak, resident_bytes=base,
+                         accum=counts["ntt_keymul_accum"],
+                         parts=counts["ntt_keymul_parts"])
+        log(f"{tag} route {name}: {ms:.3f} ms/step, peak device memory "
+            f"{peak / 2**30:.3f} GiB (resident before the step "
+            f"{base / 2**30:.3f} GiB), ntt_keymul_accum x"
+            f"{counts['ntt_keymul_accum']}, ntt_keymul_parts x"
+            f"{counts['ntt_keymul_parts']}")
+    n_parts = len(eng.params.parts[A.level + 1])
+    if (res["chain"]["accum"], res["chain"]["parts"]) != (n_parts, 0) or (
+            res["parts_kernel"]["accum"], res["parts_kernel"]["parts"]) != (
+            0, 1):
+        raise AssertionError(f"{tag} route A/B took the wrong kernels")
+    same = all(torch.equal(c, k)
+               for c, k in zip(outs["chain"], outs["parts_kernel"]))
+    log(f"{tag} route A/B: chain == all-parts kernel byte for byte: {same}")
+    if not same:
+        raise AssertionError(f"{tag} the two keyswitch routes differ")
+    return res
+
+
+def switch_key_17(eng, kern, stack, unstack):
+    """A batch of ciphertexts under a second secret key, switched to the
+    engine's key; launches counted from 0.  Returns (err, counts)."""
+    rng = np.random.default_rng(SEED + 1)
+    m = rng.uniform(-1, 1, (2, eng.num_slots))
+    sk2 = eng._create_secret_key()
+    pk2 = eng._create_public_key(sk2)
+    ct = stack([eng.encodecrypt(mi, pk=pk2) for mi in m])
+    ksk = eng.create_key_switching_key(sk2, eng.sk)
+    t0 = time.perf_counter()
+    out, counts = count_launches(kern, lambda: eng.switch_key(ct, ksk))
+    t_sw = time.perf_counter() - t0
+    dec = np.stack([eng.decryptcode(c, is_real=True) for c in unstack(out)])
+    err = float(np.abs(dec - m).max())
+    n_parts = len(eng.params.parts[0])
+    log(f"logN17 switch_key of 2 ciphertexts: {t_sw:.3f} s (first call), "
+        f"launches {counts}; decrypt max error under the engine's key "
+        f"{err:.3e} (limit {DECRYPT_TOL})")
+    if counts["ntt_keymul"] != 1 or counts["ntt_keymul_accum"] != (
+            n_parts - 1) or counts["ntt_keymul_parts"] != 0:
+        raise AssertionError("switch_key did not run the per-part chain")
+    if not np.all(np.isfinite(dec)) or not err < DECRYPT_TOL:
+        raise AssertionError("switch_key decrypt error above the limit")
+    return err, counts
+
+
+def profile_step(fn, tag, top=12):
     """Device time by kernel over one step (CUDA kernel events only), and
     the busy share of its wall time (kernel times summed; kernels on one
     stream do not overlap)."""
@@ -263,15 +418,15 @@ def profile_step(fn, top=12):
             if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in rows)
     if busy_us == 0:
-        log("profiler: no device time recorded (not measured)")
+        log(f"{tag} profiler: no device time recorded (not measured)")
         return
-    log(f"profile of one step: wall {wall_us:.0f} us under the profiler, "
-        f"device busy {busy_us:.0f} us ({100 * busy_us / wall_us:.1f}% of "
-        f"that profiled wall), "
+    log(f"{tag} profile of one step: wall {wall_us:.0f} us under the "
+        f"profiler, device busy {busy_us:.0f} us "
+        f"({100 * busy_us / wall_us:.1f}% of that profiled wall), "
         f"{sum(e.count for e in rows)} kernel launches")
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:top]:
-        log(f"  {e.self_device_time_total:9.1f} us  x{e.count:<4d} "
+        log(f"  {e.self_device_time_total:11.1f} us  x{e.count:<5d} "
             f"{e.key[:90]}")
 
 
@@ -279,6 +434,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     from tiberate_tpu_torch import Preset
     from tiberate_tpu_torch.engine import (
         CkksEngine,
@@ -288,6 +444,7 @@ def main():
     from tiberate_tpu_torch.engine import ckks_engine as mod
     from tiberate_tpu_torch.ops import cuda_build
     from tiberate_tpu_torch.ops import ntt_kernels as kern
+    from tiberate_tpu_torch.parallel import sharded
 
     # 1. the card
     smi = subprocess.run(
@@ -311,39 +468,86 @@ def main():
         f"{spill} bytes of spill stores and loads")
     cuda_build.lib()
 
-    # 3. kernels against their plain versions
+    # 3. logN15 kernels against their plain versions
     eng_k = CkksEngine(Preset.logN15, device="cuda", seed=SEED)
-    results = check_kernels(eng_k, kern, mod)
+    results15 = check_kernels(eng_k, kern, mod, "logN15", (3, 3))
     del eng_k
 
-    # 4. the main path
-    eng, A, B, launches, err = main_path(kern, CkksEngine, Preset,
-                                         stack_ciphertexts,
-                                         unstack_ciphertext)
+    # 4. the logN15 main path
+    eng = CkksEngine(Preset.logN15, device="cuda", seed=SEED)
+    A, B, out, launches15, step15, err15 = drive(
+        eng, kern, stack_ciphertexts, unstack_ciphertext, DECRYPT_TOL,
+        "logN15")
+    require(launches15, PATH_15, "the logN15 main path")
+    require(step15, STEP_15, "the logN15 step")
+    check_against_cpu(eng, CkksEngine, Preset, A, B, out)
 
-    # 5. step timing and profile
-    step_ms = cuda_ms(lambda: eng.cc_mult(A, B))
-    with plain_wrappers(kern):
-        plain_out = eng.cc_mult(A, B)
-        plain_step_ms = cuda_ms(lambda: eng.cc_mult(A, B), inner=1)
-    same = all(torch.equal(p, k)
-               for p, k in zip(plain_out.data, eng.cc_mult(A, B).data))
-    log(f"fused cc_mult step, batch {BATCH}: {step_ms:.3f} ms/step, "
-        f"{step_ms / BATCH:.3f} ms/ct; with the plain versions on the card "
-        f"{plain_step_ms:.3f} ms/step, {plain_step_ms / BATCH:.3f} ms/ct, "
-        f"byte-identical={same} ({smi})")
-    if not same:
-        raise AssertionError("plain-version step differs on the card")
-    profile_step(lambda: eng.cc_mult(A, B))
+    # 5. logN15 timing, route A/B, profile
+    step_ms, plain_step_ms = time_step(eng, kern, A, B, "logN15", smi,
+                                       (3, 3), 3)
+    ab15 = route_ab(eng, kern, sharded, A, B, "logN15", (3, 3))
+    profile_step(lambda: eng.cc_mult(A, B), "logN15")
+    del eng, A, B, out
+    torch.cuda.empty_cache()
 
-    kernels = [
-        dict(name=name, route="cuda", source=src, replaces=rep,
-             launches=launches[name], **results[name])
-        for name, (src, rep) in KERNELS.items()
-    ]
-    log(json.dumps({"step_ms": step_ms, "step_ms_per_ct": step_ms / BATCH,
-                    "plain_step_ms": plain_step_ms,
-                    "batch": BATCH, "decrypt_max_err": err, "card": smi}))
+    # 6. logN17 kernels (one engine for phases 6-9: its CkksParams build
+    # alone takes about 20 s of host time)
+    t0 = time.perf_counter()
+    eng17 = CkksEngine(Preset.logN17, device="cuda", seed=SEED)
+    log(f"logN17 engine built in {time.perf_counter() - t0:.1f} s: "
+        f"{len(eng17.params.q)} primes, {len(eng17.params.parts[1])} "
+        f"keyswitch parts at level 1")
+    results17 = check_kernels(eng17, kern, mod, "logN17", (3, 1),
+                              with_parts=False)
+
+    # 7. the logN17 main path
+    A, B, out, launches17, step17, err17 = drive(
+        eng17, kern, stack_ciphertexts, unstack_ciphertext, DECRYPT_TOL_17,
+        "logN17")
+    require(launches17, PATH_17, "the logN17 main path")
+    require(step17, STEP_17, "the logN17 step")
+    n_parts = len(eng17.params.parts[1])
+    if step17["ntt_keymul_accum"] != n_parts or step17["ntt_keymul_parts"]:
+        raise AssertionError(
+            f"logN17 step: {step17['ntt_keymul_accum']} chain launches "
+            f"(want {n_parts}), {step17['ntt_keymul_parts']} all-parts")
+
+    # 8. logN17 switch_key
+    err_sw, sw_counts = switch_key_17(eng17, kern, stack_ciphertexts,
+                                      unstack_ciphertext)
+
+    # 9. logN17 timing (3 single-step loops; one for the plain versions,
+    # whose step takes seconds), route A/B, profile
+    step17_ms, plain_step17_ms = time_step(eng17, kern, A, B, "logN17", smi,
+                                           (3, 1), 1)
+    ab17 = route_ab(eng17, kern, sharded, A, B, "logN17", (3, 1))
+    profile_step(lambda: eng17.cc_mult(A, B), "logN17", top=16)
+
+    counts = {k: launches15[k] + launches17[k] + sw_counts[k]
+              for k in KERNELS}
+    require(counts, KERNELS, "the driven paths")
+    kernels = []
+    for name, (src, rep) in KERNELS.items():
+        res = results17.get(name, results15[name])
+        entry = dict(name=name, route="cuda", source=src, replaces=rep,
+                     launches=counts[name], **res,
+                     shape="logN17" if name in results17 else "logN15")
+        if name in results17:
+            entry["logN15"] = results15[name]
+        kernels.append(entry)
+    log(json.dumps({
+        "card": smi, "batch": BATCH,
+        "logN15": {"step_ms": step_ms, "step_ms_per_ct": step_ms / BATCH,
+                   "plain_step_ms": plain_step_ms,
+                   "decrypt_max_err": err15, "route_ab": ab15},
+        "logN17": {"step_ms": step17_ms,
+                   "step_ms_per_ct": step17_ms / BATCH,
+                   "plain_step_ms": plain_step17_ms,
+                   "decrypt_max_err": err17,
+                   "switch_key_decrypt_max_err": err_sw,
+                   "route_ab": ab17},
+        "seconds": time.perf_counter() - t_start,
+    }))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

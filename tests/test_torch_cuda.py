@@ -1,7 +1,10 @@
 """tiberate_tpu_torch's CUDA kernels on the card (marked ``cuda``).
 
-Every test here needs a GPU and skips without one.  The file imports no
-jax, so it also runs on a machine that has only torch:
+Every test here needs a GPU and skips without one: the kernels against
+their plain versions (the keyswitch-chain kernel with and without a skip
+range), the chain step against the all-parts step, and the card's step
+against the CPU's.  The file imports no jax, so it also runs on a machine
+that has only torch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
@@ -19,6 +22,8 @@ from tiberate_tpu_torch.config.toy import toy_config
 from tiberate_tpu_torch.context.ntt_context import CkksParams
 from tiberate_tpu_torch.engine import ckks_engine as teng
 from tiberate_tpu_torch.ops import ntt_kernels as K
+from tiberate_tpu_torch.parallel import sharded
+from tiberate_tpu_torch.typing import Ciphertext
 
 LEVEL = 1
 BATCH = 2
@@ -81,6 +86,73 @@ def test_kernels_match_plain_on_card(card, logN):
         want = want if isinstance(want, tuple) else (want,)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logN", [7, 10])
+def test_ntt_keymul_accum_matches_plain_on_card(card, logN):
+    """The chain kernel with no skip range and with each part's range of
+    the S = 6 toy: accumulators updated in place, skipped rows untouched,
+    byte-identical to the plain version."""
+    tp = CkksParams(toy_config(logN=logN, num_scales=14,
+                               num_special_primes=6, scale_bits=30), card)
+    lp = tp.lp(LEVEL, True)
+    C, N = lp.num_channels, 1 << logN
+    gen = torch.Generator().manual_seed(100 + logN)
+
+    def uni(shape, bound):
+        x = torch.randint(0, 1 << 62, shape, generator=gen)
+        return (x % bound.cpu()[:, None]).to(card)
+
+    x = uni((BATCH, C, N), lp.pack.q)
+    keys = (uni((C, N), lp.pack.q), uni((C, N), lp.pack.q))
+    skips = [None] + [(p.lo, p.hi) for p in tp.parts[LEVEL]]
+    for skip in skips:
+        acc = (uni((BATCH, C, N), 2 * lp.pack.q),
+               uni((BATCH, C, N), 2 * lp.pack.q))
+        want = K.ntt_keymul_accum_plain(x, lp, keys,
+                                        tuple(a.clone() for a in acc), skip)
+        before = tuple(a.clone() for a in acc)
+        got = K.ntt_keymul_accum(x, lp, keys, acc, skip)
+        torch.cuda.synchronize()
+        for g, a, w, b in zip(got, acc, want, before):
+            assert g is a
+            assert torch.equal(g, w), skip
+            if skip is not None:
+                assert torch.equal(g[..., skip[0] : skip[1], :],
+                                   b[..., skip[0] : skip[1], :])
+
+
+@pytest.mark.cuda
+def test_chain_step_equals_parts_kernel_step_on_card(card):
+    """The fused step through the per-part chain (13 parts at logN17, 4
+    here) equals the step through the all-parts kernel, byte for byte;
+    each route launches only its own keyswitch kernel."""
+    eng = teng.CkksEngine(toy_config(logN=10, num_scales=14,
+                                     num_special_primes=6, scale_bits=30),
+                          device=card, seed=6)
+    rng = np.random.default_rng(4)
+    m1, m2 = (rng.uniform(-1, 1, (BATCH, eng.num_slots)) for _ in range(2))
+    a = teng.stack_ciphertexts([eng.encodecrypt(m) for m in m1])
+    b = teng.stack_ciphertexts([eng.encodecrypt(m) for m in m2])
+    step = eng._fused_mult_step(0)
+    ksk = sharded.prepare_step_ksk(eng, 0)
+    prm = sharded.mult_step_params(eng, 0)
+    outs = []
+    for route in (prm, dict(prm, parts_fused=None)):
+        K.reset_launch_counts()
+        outs.append(step(a.data[0], a.data[1], b.data[0], b.data[1], ksk,
+                         route))
+        torch.cuda.synchronize()
+        chain = route["parts_fused"] is None
+        assert K.LAUNCHES["ntt_keymul_accum"] == (4 if chain else 0)
+        assert K.LAUNCHES["ntt_keymul_parts"] == (0 if chain else 1)
+    for k6, ch in zip(*outs):
+        assert torch.equal(k6, ch)
+    out = Ciphertext(data=outs[1], level=1)
+    dec = np.stack([eng.decryptcode(ct, is_real=True)
+                    for ct in teng.unstack_ciphertext(out)])
+    assert np.abs(dec - m1 * m2).max() < 5e-5
 
 
 @pytest.mark.cuda

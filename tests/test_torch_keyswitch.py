@@ -1,0 +1,248 @@
+"""The per-part keyswitch chain of tiberate_tpu_torch against the JAX package.
+
+At ``toy_config(logN=7, num_scales=14, num_special_primes=6)`` the parts at
+level 1 are (lo, hi) = (0, 5), (5, 11), (11, 13), (13, 14): the logN17
+pattern (alpha 5, then 6, then short tail parts) in small.
+
+* ``ntt_keymul_accum_plain`` against the jnp chain ``ntt`` -> ``mont_mult``
+  -> ``mont_add``, with the skipped channels passed through;
+* the port's ``_extend`` against the JAX ``_extend``;
+* the port's ``_switcher_body`` (per-part chain with and without the in-part
+  shortcut, and the all-parts kernel) against the JAX ``_switcher_body``,
+  which on the CPU runs its jnp branch;
+* ``create_switcher`` on an NTT-domain input against the same;
+* ``switch_key`` on a JAX ciphertext and key-switching key carried across
+  with ``interop.from_jax``, through both keyswitch routes.
+
+Inputs are numpy draws from a seed.  Tolerance: none — byte-identical
+(lazy accumulators included where the reference is the same lazy chain).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tiberate_tpu.config.toy import toy_config as jax_toy_config
+from tiberate_tpu.context.ntt_context import CkksParams as JParams
+from tiberate_tpu.engine import CkksEngine as JaxEngine
+from tiberate_tpu.engine import ckks_engine as jeng
+from tiberate_tpu.ops import mont as jmont
+from tiberate_tpu.ops import ntt as jntt
+from tiberate_tpu_torch import interop
+from tiberate_tpu_torch.config.toy import toy_config
+from tiberate_tpu_torch.engine import CkksEngine as TorchEngine
+from tiberate_tpu_torch.engine import ckks_engine as teng
+from tiberate_tpu_torch.ops import ntt_kernels as K
+from tiberate_tpu_torch.typing import FLAGS, Ciphertext, KeySwitchKey
+
+torch.set_num_threads(1)
+
+LEVEL = 1
+BATCH = 2
+CFG = dict(logN=7, num_scales=14, num_special_primes=6, scale_bits=30)
+
+
+def _uniform(rng, q, shape):
+    """numpy residues uniform in [0, q_c) per channel (axis -2)."""
+    q = np.asarray(q, dtype=np.int64)[:, None]
+    return rng.integers(0, 1 << 62, size=shape, dtype=np.int64) % q
+
+
+def _eq(j, t):
+    return np.array_equal(np.asarray(j), t.numpy())
+
+
+def _q(lp):
+    return np.asarray(lp.pack._2q)[:, 0] // 2
+
+
+@pytest.fixture(scope="module")
+def params():
+    return JParams(jax_toy_config(**CFG)), TorchEngine(toy_config(**CFG),
+                                                       device="cpu", seed=0)
+
+
+def test_parts_follow_the_logN17_pattern(params):
+    jp, eng = params
+    spans = [(p.lo, p.hi) for p in eng.params.parts[LEVEL]]
+    assert spans == [(0, 5), (5, 11), (11, 13), (13, 14)]
+    assert spans == [(p.lo, p.hi) for p in jp.parts[LEVEL]]
+
+
+# (a) the kernel's plain version ----------------------------------------
+
+SKIPS = {"none": None, "head": (0, 2), "interior": (5, 11),
+         "to_the_end": (11, 20)}
+
+
+@pytest.mark.parametrize("skip", sorted(SKIPS))
+def test_ntt_keymul_accum_plain_matches_jnp(params, skip):
+    jp, eng = params
+    skip = SKIPS[skip]
+    jlp, tlp = jp.lp(LEVEL, True), eng._lp(LEVEL, True)
+    C, N = jlp.num_channels, jp.N
+    assert C == 20
+    rng = np.random.default_rng(40)
+    q = _q(jlp)
+    x = _uniform(rng, q, (BATCH, C, N))
+    keys = [_uniform(rng, q, (C, N)) for _ in range(2)]
+    acc = [_uniform(rng, 2 * q, (BATCH, C, N)) for _ in range(2)]
+
+    X = jntt.ntt(x, jlp.psi, jlp.pack)
+    want = []
+    for a, k in zip(acc, keys):
+        w = np.array(jmont.mont_add(a, jmont.mont_mult(X, k, jlp.pack),
+                                    jlp.pack))
+        if skip is not None:
+            w[..., skip[0] : skip[1], :] = a[..., skip[0] : skip[1], :]
+        want.append(w)
+
+    tacc = tuple(torch.from_numpy(a.copy()) for a in acc)
+    got = K.ntt_keymul_accum_plain(
+        torch.from_numpy(x), tlp, tuple(torch.from_numpy(k) for k in keys),
+        tacc, skip)
+    for w, g, t in zip(want, got, tacc):
+        assert g is t  # updated in place
+        assert _eq(w, g)
+
+
+def test_ntt_keymul_accum_rejects_bad_skip(params):
+    _, eng = params
+    lp = eng._lp(LEVEL, True)
+    x = torch.zeros((lp.num_channels, 128), dtype=torch.int64)
+    acc = (torch.zeros_like(x), torch.zeros_like(x))
+    for skip in ((3, 3), (5, 2), (-1, 2), (0, lp.num_channels + 1)):
+        with pytest.raises(ValueError):
+            K.ntt_keymul_accum(x, lp, (x[0:lp.num_channels],) * 2, acc, skip)
+
+
+# (b) the basis extension ----------------------------------------------
+
+
+@pytest.mark.parametrize("part_id", range(4))
+def test_extend_matches_jax(params, part_id):
+    jp, eng = params
+    jpart, tpart = jp.parts[LEVEL][part_id], eng.params.parts[LEVEL][part_id]
+    jlp_ord = jp.lp(LEVEL, False)
+    rng = np.random.default_rng(41 + part_id)
+    a = _uniform(rng, _q(jlp_ord), (BATCH, jlp_ord.num_channels, jp.N))
+    sl = slice(jpart.lo, jpart.hi)
+    states = [jeng._pre_extend(a[b, sl], jpart, jlp_ord[sl])
+              for b in range(BATCH)]
+    got = teng._extend(torch.from_numpy(np.stack(states)), tpart,
+                       eng._lp(LEVEL, True), LEVEL)
+    for b, st in enumerate(states):
+        want = jeng._extend(st, jpart, jp.lp(LEVEL, True), LEVEL)
+        assert _eq(want, got[b])
+
+
+# (c) the switcher body, three routes ---------------------------------
+
+
+@pytest.fixture(scope="module")
+def switch_case(params):
+    """A random ksk, a batch of NTT-domain inputs and their coefficient
+    form, and the JAX jnp _switcher_body on each batch entry."""
+    jp, eng = params
+    rng = np.random.default_rng(42)
+    q_all = np.asarray(jp.q, dtype=np.int64)
+    data = tuple(tuple(_uniform(rng, q_all, (len(q_all), jp.N))
+                       for _ in range(2))
+                 for _ in jp.parts[0])
+    jlp_ord, jlp_sp = jp.lp(LEVEL, False), jp.lp(LEVEL, True)
+    a_ntt = _uniform(rng, _q(jlp_ord), (BATCH, jlp_ord.num_channels, jp.N))
+    a = np.array(jntt.intt_exit_reduce(a_ntt, jlp_ord.ipsi, jlp_ord.Ninv,
+                                       jlp_ord.pack))
+    alloc = jp.parts_alloc[LEVEL]
+    want = [
+        jeng._switcher_body(a[b], tuple(data[g] for g in alloc),
+                            tuple(jp.parts[LEVEL]), jlp_sp, jlp_ord,
+                            tuple(jp.PiRs[LEVEL]), LEVEL, jp.S, False)
+        for b in range(BATCH)
+    ]
+    ksk = KeySwitchKey(
+        data=tuple(tuple(torch.from_numpy(k) for k in pair) for pair in data),
+        flags=FLAGS.INCLUDE_SPECIAL | FLAGS.MONTGOMERY_STATE
+        | FLAGS.NTT_STATE,
+        level=0,
+    )
+    return ksk, torch.from_numpy(a), torch.from_numpy(a_ntt), want
+
+
+@pytest.mark.parametrize("route", ["chain_inpart", "chain", "parts_kernel"])
+def test_switcher_body_matches_jax(params, switch_case, route):
+    _, eng = params
+    ksk, a, a_ntt, want = switch_case
+    ksk_parts, parts = eng._ksk_args(ksk, LEVEL)
+    kw = {}
+    if route == "chain_inpart":
+        kw = dict(a_ntt=a_ntt, inpart=eng._ksk_inpart(ksk, LEVEL))
+    elif route == "parts_kernel":
+        kw = dict(parts_fused=eng._ksk_parts_stacked(ksk, LEVEL))
+    K.reset_launch_counts()
+    got = teng._switcher_body(
+        a, ksk_parts, parts, eng._lp(LEVEL, True), eng._lp(LEVEL, False),
+        tuple(eng.params.PiRs[LEVEL]), LEVEL, eng.params.S, False, **kw)
+    assert all(v == 0 for v in K.LAUNCHES.values())  # CPU: plain versions
+    for b, (w0, w1) in enumerate(want):
+        assert _eq(w0, got[0][b]) and _eq(w1, got[1][b])
+
+
+def test_inpart_diag_keys_are_each_channels_part_key(params, switch_case):
+    _, eng = params
+    ksk = switch_case[0]
+    (d0, d1), skips = eng._ksk_inpart(ksk, LEVEL)
+    assert skips == ((0, 5), (5, 11), (11, 13), (13, 14))
+    for (lo, hi), g in zip(skips, eng.params.parts_alloc[LEVEL]):
+        for d, k in zip((d0, d1), ksk.data[g]):
+            assert torch.equal(d[lo:hi], k[LEVEL + lo : LEVEL + hi])
+
+
+# (d) switch_key on JAX objects -----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_switch():
+    """A JAX engine, a ciphertext under a second secret key, the ksk from
+    that key to the engine's, and the JAX switch_key result."""
+    jeng_ = JaxEngine(jax_toy_config(**CFG), seed=31, nonce=2)
+    sk2 = jeng_._create_secret_key()
+    pk2 = jeng_._create_public_key(sk2)
+    m = np.random.default_rng(43).uniform(-1, 1, jeng_.num_slots)
+    ct = jeng_.encodecrypt(m, pk=pk2)
+    ksk = jeng_.create_key_switching_key(sk2, jeng_.sk)
+    return jeng_, ct, ksk, jeng_.switch_key(ct, ksk), m
+
+
+@pytest.mark.parametrize("route", ["default", "chain"])
+def test_switch_key_matches_jax(jax_switch, route):
+    jeng_, jct, jksk, want, m = jax_switch
+    eng = TorchEngine(jeng_.ckksCfg, device="cpu", seed=0)
+    eng.sk = interop.from_jax(jeng_.sk)
+    ct, ksk = interop.from_jax(jct), interop.from_jax(jksk)
+    if route == "default":
+        got = eng.switch_key(ct, ksk)
+        assert got.level == want.level and got._flags == ct._flags
+        got = got.data
+    else:
+        ksk_parts, parts = eng._ksk_args(ksk, ct.level)
+        got = teng._switch_key_core(
+            ct.data[0], ct.data[1], ksk_parts, parts, eng._lp(0, True),
+            eng._lp(0, False), tuple(eng.params.PiRs[0]), 0, eng.params.S,
+            False, parts_fused=None)
+    for w, g in zip(want.data, got):
+        assert _eq(w, g)
+    out = eng.decryptcode(Ciphertext(data=tuple(got), level=ct.level),
+                          is_real=True)
+    assert np.abs(out - m).max() < 5e-5
+
+
+def test_create_switcher_matches_jax(params, switch_case):
+    """``create_switcher`` at level 1 on the NTT-domain input
+    (``exit_ntt``): the JAX _switcher_body's result on its coefficient
+    form."""
+    _, eng = params
+    ksk, _, a_ntt, want = switch_case
+    got = eng.create_switcher(a_ntt, ksk, LEVEL, exit_ntt=True)
+    for b, (w0, w1) in enumerate(want):
+        assert _eq(w0, got[0][b]) and _eq(w1, got[1][b])

@@ -2,10 +2,13 @@
 
 The JAX engine makes the keys and ciphertexts; ``interop.from_jax`` carries
 its evk and ciphertexts into the port, and both ``make_mult_step`` steps
-(rescale -> tensor product -> relinearize) run on them.  Both outputs are
-canonical [0, q) residues, so the tolerance is none: byte-identical.  The
-decrypt error of the port's result stays under the bound of the JAX
-package's own tests for that size.
+(rescale -> tensor product -> relinearize) run on them.  The port's step
+runs through both keyswitch routes: the all-parts kernel (its default below
+logN17) and the per-part chain with the in-part shortcut (forced by
+``parts_fused=None`` in ``prm``).  Both outputs are canonical [0, q)
+residues, so the tolerance is none: byte-identical.  The decrypt error of
+the port's result stays under the bound of the JAX package's own tests for
+that size.
 """
 
 import jax
@@ -25,9 +28,17 @@ def _toy():
                       scale_bits=30)
 
 
+def _toy_s6():
+    """Six special primes: keyswitch parts of alpha 5, 6, 2 and 1 at the
+    step's work level, the logN17 pattern in small."""
+    return toy_config(logN=7, num_scales=14, num_special_primes=6,
+                      scale_bits=30)
+
+
 # (config, decrypt-error bound): tests/test_engine.py's toy bound and
 # tests/test_golden.py's logN14 bound
-CASES = {"toy": (_toy, 5e-5), "logN14": (lambda: "logN14", 1e-3)}
+CASES = {"toy": (_toy, 5e-5), "toy_s6": (_toy_s6, 5e-5),
+         "logN14": (lambda: "logN14", 1e-3)}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -48,11 +59,13 @@ def test_port_step_matches_jax_step(case):
     teng.evk = interop.from_jax(jeng.evk)
     ta, tb = interop.from_jax(ca), interop.from_jax(cb)
     step = tsharded.make_mult_step(teng, 0)
-    got = step(ta.data[0], ta.data[1], tb.data[0], tb.data[1],
-               tsharded.prepare_step_ksk(teng, 0),
-               tsharded.mult_step_params(teng, 0))
-    for w, g in zip(want, got):
-        assert np.array_equal(np.asarray(w), g.numpy())
+    prm = tsharded.mult_step_params(teng, 0)
+    assert prm["parts_fused"] is not None  # below logN17: all-parts kernel
+    for route in (prm, dict(prm, parts_fused=None)):
+        got = step(ta.data[0], ta.data[1], tb.data[0], tb.data[1],
+                   tsharded.prepare_step_ksk(teng, 0), route)
+        for w, g in zip(want, got):
+            assert np.array_equal(np.asarray(w), g.numpy())
 
     out = teng.decryptcode(teng.cc_mult(ta, tb), is_real=True)
     assert np.abs(out - m1 * m2).max() < tol

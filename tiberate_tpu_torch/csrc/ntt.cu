@@ -7,6 +7,12 @@
 //                                         "exit_reduce" epilogues,
 //   ntt_keymul (K3, pallas_mxu.py:1791)  forward NTT, then t_i = X k_i R^-1
 //                                         for one or two keys,
+//   ntt_keymul_accum (K3 with accum= and a skip_range table view, the
+//              per-part keyswitch chain: the acc epilogue at
+//              pallas_mxu.py:603-627, the gap fill at :1659-1702)
+//                                         acc_i (+)= X k_i R^-1 in place,
+//                                         the part's own channels passed
+//                                         through untransformed,
 //   intt_pdiv  (K4, pallas_mxu.py:1835)  "mont" inverse NTT, then the
 //                                         P-division x c_x - sum p0_i c_i,
 //                                         canonical [0, q).
@@ -23,17 +29,25 @@
 // that is integer-multiply throughput, not HBM.  The design keeps every
 // stage in shared memory (two device-memory round trips per transform, not
 // logN) and fuses the epilogues so no transform is re-read; a wgmma int8
-// 4-step is the later lever for the multiply bound.
+// 4-step is the later lever for the multiply bound.  The accumulating
+// variant reads and writes its two accumulators once each in pass 2, the
+// same traffic as K3's two outputs plus two reads: the TPU kernel's donated
+// accumulator becomes an in-place update.
 #include <cuda_runtime.h>
 
 #include "ntt.cuh"
 
 // ---------------------------------------------------------------------
-// Forward pass 2: stages [L1, logN) on contiguous chunks, in place on buf,
-// then the key-multiply epilogue for NKEYS keys ([C, N] each).
+// Forward pass 2: stages [L1, logN) on contiguous chunks of buf, then the
+// epilogue for NKEYS keys ([C, N] each): NKEYS == 0 stores the transform
+// in out0; otherwise out_i = REDC(X k_i), and with ACC the lazy [0, 2q)
+// running part-sum out_i = out_i (+) REDC(X k_i) of the keyswitch chain,
+// so the fresh key products never reach device memory.  buf may be out0
+// (in place).  Channels in [skip_lo, skip_hi) are not touched.
 // ---------------------------------------------------------------------
-template <int NKEYS>
-__global__ void fwd_pass2(i64* buf, i64* out1, Geo g, int C,
+template <int NKEYS, bool ACC>
+__global__ void fwd_pass2(const i64* buf, i64* out0, i64* out1, Geo g,
+                          int C, int skip_lo, int skip_hi,
                           const i64* __restrict__ qv,
                           const i64* __restrict__ kv,
                           const i64* __restrict__ psi,
@@ -42,8 +56,10 @@ __global__ void fwd_pass2(i64* buf, i64* out1, Geo g, int C,
     extern __shared__ i64 s[];
     const int row = blockIdx.y;
     const int c = row % C;
+    if (c >= skip_lo && c < skip_hi) return;
     const int j1 = blockIdx.x;
     const u64 q = (u64)qv[c], k = (u64)kv[c];
+    const i64 q2 = (i64)(q << 1);
     const size_t off = ((size_t)row << g.logN) + ((size_t)j1 << g.L2);
     for (int e = threadIdx.x; e < g.N2; e += blockDim.x) s[e] = buf[off + e];
     __syncthreads();
@@ -52,10 +68,16 @@ __global__ void fwd_pass2(i64* buf, i64* out1, Geo g, int C,
     for (int e = threadIdx.x; e < g.N2; e += blockDim.x) {
         const i64 v = s[e];
         if (NKEYS == 0) {
-            buf[off + e] = v;
-        } else {
-            buf[off + e] = redc(v, key0[koff + e], q, k);
-            if (NKEYS == 2) out1[off + e] = redc(v, key1[koff + e], q, k);
+            out0[off + e] = v;
+            continue;
+        }
+        i64 t0 = redc(v, key0[koff + e], q, k);
+        if (ACC) t0 = lazy_add(out0[off + e], t0, q2);
+        out0[off + e] = t0;
+        if (NKEYS == 2) {
+            i64 t1 = redc(v, key1[koff + e], q, k);
+            if (ACC) t1 = lazy_add(out1[off + e], t1, q2);
+            out1[off + e] = t1;
         }
     }
 }
@@ -148,22 +170,48 @@ extern "C" int tt_ntt_fwd(const i64* x, i64* out0, i64* out1, int rows,
     const size_t sm2 = (size_t)g.N2 * sizeof(i64);
     dim3 g1(g.N2 / g.TC, rows), g2(g.N1, rows);
     if (Rs)
-        fwd_pass1<true><<<g1, TT_THREADS, sm1, st>>>(x, out0, g, C, q, k,
-                                                     psi, Rs);
+        fwd_pass1<true><<<g1, TT_THREADS, sm1, st>>>(x, out0, g, C, 0, 0, q,
+                                                     k, psi, Rs);
     else
-        fwd_pass1<false><<<g1, TT_THREADS, sm1, st>>>(x, out0, g, C, q, k,
-                                                      psi, Rs);
+        fwd_pass1<false><<<g1, TT_THREADS, sm1, st>>>(x, out0, g, C, 0, 0, q,
+                                                      k, psi, Rs);
     TT_CHECK();
     const int t2 = contig_threads(g);
     if (nkeys == 0)
-        fwd_pass2<0><<<g2, t2, sm2, st>>>(out0, out1, g, C, q, k, psi,
-                                          key0, key1);
+        fwd_pass2<0, false><<<g2, t2, sm2, st>>>(out0, out0, out1, g, C, 0,
+                                                 0, q, k, psi, key0, key1);
     else if (nkeys == 1)
-        fwd_pass2<1><<<g2, t2, sm2, st>>>(out0, out1, g, C, q, k, psi,
-                                          key0, key1);
+        fwd_pass2<1, false><<<g2, t2, sm2, st>>>(out0, out0, out1, g, C, 0,
+                                                 0, q, k, psi, key0, key1);
     else
-        fwd_pass2<2><<<g2, t2, sm2, st>>>(out0, out1, g, C, q, k, psi,
-                                          key0, key1);
+        fwd_pass2<2, false><<<g2, t2, sm2, st>>>(out0, out0, out1, g, C, 0,
+                                                 0, q, k, psi, key0, key1);
+    TT_CHECK();
+    return 0;
+}
+
+// K3 with accumulators (the per-part keyswitch chain): on every channel
+// outside [skip_lo, skip_hi), acc_i = acc_i (+) REDC(NTT(x) key_i), in
+// place; the other channels' rows of acc0/acc1 are left as they were and
+// are not transformed.  x, tmp, acc0, acc1: [rows, N] with rows = B * C;
+// key0, key1: [C, N].  tmp is scratch for the first pass.
+extern "C" int tt_ntt_keymul_accum(const i64* x, i64* tmp, i64* acc0,
+                                   i64* acc1, int rows, int C, int logN,
+                                   const i64* q, const i64* k,
+                                   const i64* psi, const i64* key0,
+                                   const i64* key1, int skip_lo, int skip_hi,
+                                   void* stream) {
+    const Geo g = make_geo(logN);
+    cudaStream_t st = (cudaStream_t)stream;
+    const size_t sm1 = (size_t)g.N1 * g.TC * sizeof(i64);
+    const size_t sm2 = (size_t)g.N2 * sizeof(i64);
+    dim3 g1(g.N2 / g.TC, rows), g2(g.N1, rows);
+    fwd_pass1<false><<<g1, TT_THREADS, sm1, st>>>(x, tmp, g, C, skip_lo,
+                                                  skip_hi, q, k, psi,
+                                                  nullptr);
+    TT_CHECK();
+    fwd_pass2<2, true><<<g2, contig_threads(g), sm2, st>>>(
+        tmp, acc0, acc1, g, C, skip_lo, skip_hi, q, k, psi, key0, key1);
     TT_CHECK();
     return 0;
 }

@@ -141,11 +141,13 @@ static inline int contig_threads(const Geo& g) {
 
 // ---------------------------------------------------------------------
 // Forward pass 1: optional x R entry, stages [0, L1) on strided tiles.
-// Grid (N2 / TC, rows); row = batch * C + channel.  Shared by ntt.cu,
-// tensor.cu and keyswitch.cu.
+// Grid (N2 / TC, rows); row = batch * C + channel.  Blocks of channels in
+// [skip_lo, skip_hi) return at once (the keyswitch in-part shortcut; an
+// empty range skips nothing).  Shared by ntt.cu and tensor.cu.
 // ---------------------------------------------------------------------
 template <bool ENTER>
 __global__ void fwd_pass1(const i64* __restrict__ x, i64* out, Geo g, int C,
+                          int skip_lo, int skip_hi,
                           const i64* __restrict__ qv,
                           const i64* __restrict__ kv,
                           const i64* __restrict__ psi,
@@ -153,6 +155,7 @@ __global__ void fwd_pass1(const i64* __restrict__ x, i64* out, Geo g, int C,
     extern __shared__ i64 s[];
     const int row = blockIdx.y;
     const int c = row % C;
+    if (c >= skip_lo && c < skip_hi) return;
     const int ct = blockIdx.x;
     const u64 q = (u64)qv[c], k = (u64)kv[c];
     const size_t base = (size_t)row << g.logN;

@@ -63,7 +63,8 @@ extern "C" int tt_ntt_tensor(const i64* x0, const i64* x1, const i64* y0,
     const i64* in[4] = {x0, x1, y0, y1};
     for (int i = 0; i < 4; ++i) {
         fwd_pass1<true><<<g1, TT_THREADS, sm1, st>>>(in[i], tmp + i * plane,
-                                                     g, C, q, k, psi, Rs);
+                                                     g, C, 0, 0, q, k, psi,
+                                                     Rs);
         TT_CHECK();
     }
     tensor_pass2<<<g2, contig_threads(g), 4 * g.N2 * sizeof(i64), st>>>(

@@ -1,10 +1,12 @@
 """The CKKS engine over torch tensors: the encrypt -> cc_mult -> decrypt
-slice of ``tiberate_tpu/engine/ckks_engine.py``.
+and switch_key slice of ``tiberate_tpu/engine/ckks_engine.py``.
 
 Each core below is the torch twin of the jnp core of the same name, with a
 batch written out as leading dimensions where the JAX package ``vmap``s.
-The NTTs, the tensor product, the keyswitch part loop and the P-division
-go through the kernel wrappers of :mod:`tiberate_tpu_torch.ops.ntt_kernels`:
+The NTTs, the tensor product, the keyswitch (all parts in one kernel at
+logN <= 16, the per-part chain at logN 17, as the JAX package routes it)
+and the P-division go through the kernel wrappers of
+:mod:`tiberate_tpu_torch.ops.ntt_kernels`:
 one code path, which launches the Hopper kernels for CUDA tensors and runs
 their plain versions for CPU tensors.  Outputs are bit-identical to the JAX
 package's jnp path on the same inputs.
@@ -152,6 +154,18 @@ def _pre_extend(a_part, part: PartPack, plp):
     return torch.stack(rows, dim=-2)
 
 
+def _extend(state, part: PartPack, lp_sp, lvl: int):
+    """Basis-extend mixed-radix digits [..., alpha, N] onto the full
+    with-special basis: [..., C_sp, N] in Montgomery form."""
+    pk = lp_sp.pack
+    ext = mont.mont_enter(state[..., 0:1, :], lp_sp.Rs, pk)
+    for i in range(part.alpha - 1):
+        Y = mont.mont_mult(state[..., i + 1 : i + 2, :],
+                           part.L_enter[i][lvl:], pk)
+        ext = mont.mont_add(ext, Y, pk)
+    return ext
+
+
 def _pdiv_fused(acc, lp_sp, lp_ord, PiRs, S):
     """iNTT + P-division of one keyswitch accumulator [..., C+S, N].
 
@@ -210,29 +224,79 @@ def _parts_consts(params, level):
     return ec.contiguous(), alphas
 
 
-def _switcher_body(a, parts, lp_sp, lp_ord, PiRs, S, parts_fused):
-    """Key switching of ``a`` [..., C, N] (coefficient domain, [0, q)):
-    returns (c0, c1) ordinary rows.
+def _switcher_body(a, ksk_parts, parts, lp_sp, lp_ord, PiRs, lvl, S,
+                   exit_ntt, a_ntt=None, inpart=None, parts_fused=None):
+    """Key switching of ``a`` [..., C, N] (coefficient domain, [0, q); NTT
+    domain with ``exit_ntt``): returns (c0, c1) canonical ordinary rows.
 
     ``parts_fused`` = (k0, k1, ec, alphas) from
     :meth:`CkksEngine._ksk_parts_fused`: every part's digits go to ONE
     ``ntt_keymul_parts`` call, which extends, transforms, multiplies by
     both evk components and sums the parts.
+
+    ``parts_fused`` None: the per-part chain over ``ksk_parts`` (each
+    part's (k0, k1) evk rows at the level, :meth:`CkksEngine._ksk_args`):
+    per part ``_pre_extend`` + ``_extend``, then one ``ntt_keymul_accum``
+    that adds both key products into the running accumulators in place.
+    ``a_ntt`` + ``inpart`` (= (diag_keys, skips), see
+    :meth:`CkksEngine._ksk_inpart`) enable the in-part shortcut: the
+    extension is the identity on a part's own channels, so with the NTT
+    form of ``a`` at hand (relinearize: the tensor product's d2) those
+    rows' key products seed the accumulators and each part transforms only
+    its out-of-part rows.  Without the shortcut the first part has no
+    accumulator yet and runs the plain two-key ``ntt_keymul``.
     """
-    k0, k1, ec, alphas = parts_fused
-    st = _parts_digits(a, parts, lp_ord, ec.shape[-1])
-    acc0, acc1 = kern.ntt_keymul_parts(st, ec, alphas, (k0, k1), lp_sp)
-    c0 = _pdiv_fused(acc0, lp_sp, lp_ord, PiRs, S)
-    c1 = _pdiv_fused(acc1, lp_sp, lp_ord, PiRs, S)
+    if exit_ntt:
+        a = kern.intt(a, lp_ord, "exit_reduce")
+    if parts_fused is not None:
+        k0, k1, ec, alphas = parts_fused
+        st = _parts_digits(a, parts, lp_ord, ec.shape[-1])
+        acc = kern.ntt_keymul_parts(st, ec, alphas, (k0, k1), lp_sp)
+    else:
+        acc = None
+        skips = (None,) * len(parts)
+        if a_ntt is not None and inpart is not None:
+            diag_keys, skips = inpart
+            zeros = a_ntt.new_zeros(
+                (*a_ntt.shape[:-2], lp_sp.num_channels - lp_ord.num_channels,
+                 a_ntt.shape[-1]))
+            acc = tuple(
+                torch.cat([mont.mont_mult(a_ntt, dk, lp_ord.pack), zeros],
+                          dim=-2)
+                for dk in diag_keys
+            )
+        for part, skip, keys in zip(parts, skips, ksk_parts):
+            state = _pre_extend(a[..., part.lo : part.hi, :], part,
+                                lp_ord[part.lo : part.hi])
+            ext = _extend(state, part, lp_sp, lvl)
+            if acc is None:
+                acc = kern.ntt_keymul(ext, lp_sp, keys, enter=False)
+            else:
+                kern.ntt_keymul_accum(ext, lp_sp, keys, acc, skip)
+    c0 = _pdiv_fused(acc[0], lp_sp, lp_ord, PiRs, S)
+    c1 = _pdiv_fused(acc[1], lp_sp, lp_ord, PiRs, S)
     return c0, c1
 
 
-def _relin_core(d0, d1, d2, parts, lp_sp, lp_ord, PiRs, S, parts_fused):
+def _switch_key_core(ct0, a, ksk_parts, parts, lp_sp, lp_ord, PiRs, lvl, S,
+                     exit_ntt, parts_fused=None):
+    """switch_key: new ct0 = ct0 + c0, new ct1 = c1."""
+    c0, c1 = _switcher_body(a, ksk_parts, parts, lp_sp, lp_ord, PiRs, lvl,
+                            S, exit_ntt, parts_fused=parts_fused)
+    new0 = mont.reduce_2q(mont.mont_add(ct0, c0, lp_ord.pack), lp_ord.pack)
+    return new0, c1
+
+
+def _relin_core(d0, d1, d2, ksk_parts, parts, lp_sp, lp_ord, PiRs, lvl, S,
+                inpart=None, parts_fused=None):
     """relinearize a triplet in the NTT domain -> (ct0, ct1)."""
+    d2_ntt = d2
     d0 = kern.intt(d0, lp_ord, "exit_reduce")
     d1 = kern.intt(d1, lp_ord, "exit_reduce")
     d2 = kern.intt(d2, lp_ord, "exit_reduce")
-    c0, c1 = _switcher_body(d2, parts, lp_sp, lp_ord, PiRs, S, parts_fused)
+    c0, c1 = _switcher_body(d2, ksk_parts, parts, lp_sp, lp_ord, PiRs, lvl,
+                            S, False, a_ntt=d2_ntt, inpart=inpart,
+                            parts_fused=parts_fused)
     ct0 = mont.reduce_2q(d0 + c0, lp_ord.pack)
     ct1 = mont.reduce_2q(d1 + c1, lp_ord.pack)
     return ct0, ct1
@@ -275,7 +339,7 @@ class CkksEngine:
         self.__sk = None
         self.__pk = None
         self.__evk = None
-        self._steps = {}    # level -> (fused step, its parameters)
+        self._steps = {}    # level -> fused step
         self._consts = {}   # level -> all-parts keyswitch constants
 
     # ------------------------------------------------------------------
@@ -424,20 +488,58 @@ class CkksEngine:
             self._consts[level] = _parts_consts(self.params, level)
         return self._consts[level]
 
-    def _ksk_parts_fused(self, ksk: KeySwitchKey, level: int):
+    def _ksk_args(self, ksk: KeySwitchKey, level: int):
+        """(ksk_parts, parts) at ``level``: each live part's (k0, k1) evk
+        rows ``[level:]`` ([C_sp, N] views), in ``parts_alloc`` order."""
+        ksk_parts = tuple(
+            tuple(k[level:] for k in ksk.data[g])
+            for g in self.params.parts_alloc[level]
+        )
+        return ksk_parts, tuple(self.params.parts[level])
+
+    @staticmethod
+    def _key_cache(ksk: KeySwitchKey, name: str) -> dict:
+        cache = ksk.misc.get(name)
+        if cache is None:
+            cache = ksk.misc[name] = {}
+        return cache
+
+    def _ksk_parts_stacked(self, ksk: KeySwitchKey, level: int):
         """(k0, k1, ec, alphas) for ``ntt_keymul_parts`` at ``level``: the
         live parts' evk rows stacked [n_parts, C_sp, N] and
         :meth:`_parts_consts`.  Cached on the key."""
-        cache = ksk.misc.get("_parts_fused")
-        if cache is None:
-            cache = ksk.misc["_parts_fused"] = {}
+        cache = self._key_cache(ksk, "_parts_fused")
         if level not in cache:
-            alloc = self.params.parts_alloc[level]
-            keys = tuple(
-                torch.stack([ksk.data[g][i][level:] for g in alloc])
+            ksk_parts, _ = self._ksk_args(ksk, level)
+            keys = tuple(torch.stack([kp[i] for kp in ksk_parts])
+                         for i in range(2))
+            cache[level] = (*keys, *self._parts_consts(level))
+        return cache[level]
+
+    def _ksk_parts_fused(self, ksk: KeySwitchKey, level: int):
+        """The all-parts keyswitch's key form (:meth:`_ksk_parts_stacked`)
+        at logN <= 16; None at logN >= 17, where the keyswitch runs the
+        per-part chain, as the JAX package routes it."""
+        if self.ckksCfg.logN >= 17:
+            return None
+        return self._ksk_parts_stacked(ksk, level)
+
+    def _ksk_inpart(self, ksk: KeySwitchKey, level: int):
+        """(diag_keys, skips) for the keyswitch in-part shortcut:
+        ``diag_keys[i]`` [C, N] holds in row j row j of part(j)'s evk
+        component i (the key the identity extension row multiplies), and
+        ``skips`` each part's own channel range (lo, hi).  Cached on the
+        key."""
+        cache = self._key_cache(ksk, "_inpart")
+        if level not in cache:
+            ksk_parts, parts = self._ksk_args(ksk, level)
+            diag_keys = tuple(
+                torch.cat([kp[i][pt.lo : pt.hi]
+                           for kp, pt in zip(ksk_parts, parts)])
                 for i in range(2)
             )
-            cache[level] = (*keys, *self._parts_consts(level))
+            cache[level] = (diag_keys,
+                            tuple((pt.lo, pt.hi) for pt in parts))
         return cache[level]
 
     # ------------------------------------------------------------------
@@ -606,12 +708,11 @@ class CkksEngine:
         return Ciphertext(data=data, level=level + 1, **self._meta())
 
     def _fused_mult_step(self, level: int):
-        """(step, prm) of the fused step at ``level``, built once."""
+        """The fused step function at ``level``, built once."""
         if level not in self._steps:
             from tiberate_tpu_torch.parallel import sharded
 
-            self._steps[level] = (sharded.make_mult_step(self, level),
-                                  sharded.mult_step_params(self, level))
+            self._steps[level] = sharded.make_mult_step(self, level)
         return self._steps[level]
 
     def cc_mult(self, a: Ciphertext, b: Ciphertext,
@@ -625,13 +726,45 @@ class CkksEngine:
         if a.level + 1 >= self.num_levels:
             raise errors.MaximumLevelError(level=a.level,
                                            level_max=self.num_levels)
-        from tiberate_tpu_torch.parallel.sharded import prepare_step_ksk
+        from tiberate_tpu_torch.parallel import sharded
 
-        step, prm = self._fused_mult_step(a.level)
-        ksk = prepare_step_ksk(self, a.level, ksk=evk)
-        ct0, ct1 = step(a.data[0], a.data[1], b.data[0], b.data[1], ksk,
-                        prm)
+        evk = evk or self.evk
+        step = self._fused_mult_step(a.level)
+        ct0, ct1 = step(a.data[0], a.data[1], b.data[0], b.data[1],
+                        sharded.prepare_step_ksk(self, a.level, evk),
+                        sharded.mult_step_params(self, a.level, evk))
         return Ciphertext(data=(ct0, ct1), level=a.level + 1,
+                          **self._meta())
+
+    # ------------------------------------------------------------------
+    # Key switching.
+    # ------------------------------------------------------------------
+
+    def create_switcher(self, a, ksk: KeySwitchKey, level: int,
+                        exit_ntt: bool = False):
+        """Key-switch ``a`` [..., C, N] at ``level``: (c0, c1) with
+        c0 + c1 s_to = a s_from (approximately)."""
+        ksk_parts, parts = self._ksk_args(ksk, level)
+        return _switcher_body(
+            a, ksk_parts, parts, self._lp(level, True),
+            self._lp(level, False), tuple(self.params.PiRs[level]), level,
+            self.ckksCfg.num_special_primes, exit_ntt,
+            parts_fused=self._ksk_parts_fused(ksk, level),
+        )
+
+    def switch_key(self, ct: Ciphertext, ksk: KeySwitchKey) -> Ciphertext:
+        """Re-encrypt ``ct`` from ``ksk``'s source key to its target key
+        (``create_key_switching_key(sk_from, sk_to)``)."""
+        level = ct.level
+        ksk_parts, parts = self._ksk_args(ksk, level)
+        new0, new1 = _switch_key_core(
+            ct.data[0], ct.data[1], ksk_parts, parts,
+            self._lp(level, True), self._lp(level, False),
+            tuple(self.params.PiRs[level]), level,
+            self.ckksCfg.num_special_primes, ct.has_flag(FLAGS.NTT_STATE),
+            parts_fused=self._ksk_parts_fused(ksk, level),
+        )
+        return Ciphertext(data=(new0, new1), flags=ct._flags, level=level,
                           **self._meta())
 
 

@@ -1,8 +1,9 @@
 """Build and load the Hopper kernels (``csrc/*.cu``) at first use.
 
-``nvcc`` compiles the sources into one shared library with a plain C
+``nvcc`` compiles each source into an object file, all sources at once in
+parallel processes, and links them into one shared library with a plain C
 interface under ``tiberate_tpu_torch/_build/`` (named by a hash of the
-sources, so an edited source is rebuilt), and ``ctypes`` loads it.  Nothing
+sources, so an edited source is rebuilt); ``ctypes`` loads it.  Nothing
 here runs at import time: a machine without ``nvcc`` or a GPU imports the
 package and runs the plain torch versions on CPU tensors.
 """
@@ -26,6 +27,8 @@ _I = ctypes.c_int
 # C entry point -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "tt_ntt_fwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P],
+    "tt_ntt_keymul_accum": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                            _I, _I, _P],
     "tt_ntt_inv": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I,
                    _P],
     "tt_ntt_tensor": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
@@ -71,16 +74,41 @@ def build(verbose: bool = False) -> str:
     lib_path = os.path.join(BUILD_DIR, f"libtiberate_kernels_{_digest()}.so")
     if os.path.exists(lib_path) and not verbose:
         return lib_path
-    tmp_path = f"{lib_path}.{os.getpid()}.tmp"  # concurrent builds
-    cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-           "-fPIC", "-o", tmp_path]
+    tag = f"{os.getpid()}.tmp"  # concurrent builds
+    flags = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
     if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += [os.path.join(CSRC, s) for s in SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        flags += ["-Xptxas", "-v"]
+    jobs = []
+    for src in SOURCES:
+        obj = os.path.join(BUILD_DIR, f"{src}.{tag}.o")
+        log = open(f"{obj}.log", "w+")
+        cmd = [_nvcc(), *flags, "-c", "-o", obj, os.path.join(CSRC, src)]
+        jobs.append((obj, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT)))
+    logs, failed = [], []
+    for obj, log, proc in jobs:
+        if proc.wait() != 0:
+            failed.append(os.path.basename(obj))
+        log.seek(0)
+        logs.append(log.read())
+        log.close()
+        os.remove(log.name)
+    objs = [obj for obj, _, _ in jobs]
+    tmp_path = f"{lib_path}.{tag}"
+    if not failed:
+        proc = subprocess.run(
+            [_nvcc(), ARCH, "-shared", "-o", tmp_path, *objs],
+            capture_output=True, text=True,
+        )
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     os.replace(tmp_path, lib_path)
     return lib_path
 

@@ -10,6 +10,10 @@ K1        :func:`ntt`            forward NTT, optional x R entry
 K2        :func:`intt`           inverse NTT x N^-1, "mont"/"exit"/
                                  "exit_reduce"
 K3        :func:`ntt_keymul`     forward NTT, then one or two key products
+K3 accum  :func:`ntt_keymul_accum` one part of the keyswitch chain: forward
+                                 NTT, both key products added in place
+                                 into two accumulators, a skip range of
+                                 channels passed through
 K4        :func:`intt_pdiv`      inverse NTT + P-division, canonical
 K5        :func:`ntt_tensor`     four enter-NTTs + the ciphertext tensor
                                  product
@@ -36,8 +40,8 @@ from tiberate_tpu_torch.ops import cuda_build, mont
 from tiberate_tpu_torch.ops import ntt as ntt_ops
 
 LAUNCHES = dict.fromkeys(
-    ("ntt", "intt", "ntt_keymul", "intt_pdiv", "ntt_tensor",
-     "ntt_keymul_parts"),
+    ("ntt", "intt", "ntt_keymul", "ntt_keymul_accum", "intt_pdiv",
+     "ntt_tensor", "ntt_keymul_parts"),
     0,
 )
 
@@ -213,6 +217,74 @@ def ntt_keymul(x, lp, keys, enter: bool):
     _raise_on(rc, "ntt_keymul")
     LAUNCHES["ntt_keymul"] += 1
     return (out0,) if key1 is None else (out0, out1)
+
+
+def _skip_bounds(skip, C):
+    """(lo, hi) of a channel skip range; None skips nothing (0, 0)."""
+    if skip is None:
+        return 0, 0
+    lo, hi = skip
+    if not 0 <= lo < hi <= C:
+        raise ValueError(f"skip range {skip} must satisfy 0 <= lo < hi <= {C}")
+    return lo, hi
+
+
+def ntt_keymul_accum_plain(x, lp, keys, acc, skip):
+    """``mont_add(acc_i, mont_mult(ntt(x), k_i))`` on the channels outside
+    ``skip``, written into ``acc`` in place; returns ``acc``."""
+    C = lp.num_channels
+    lo, hi = _skip_bounds(skip, C)
+    for a, b in ((0, lo), (hi, C)):
+        if a == b:
+            continue
+        lps = lp[a:b]
+        X = ntt_plain(x[..., a:b, :], lps, enter=False)
+        for ac, key in zip(acc, keys):
+            ac[..., a:b, :] = mont.mont_add(
+                ac[..., a:b, :], mont.mont_mult(X, key[a:b], lps.pack),
+                lps.pack)
+    return acc
+
+
+def ntt_keymul_accum(x, lp, keys, acc, skip):
+    """One part of the per-part keyswitch chain.
+
+    ``x`` [..., C, N] the part's basis extension (Montgomery form, no x R
+    entry); ``keys`` the part's two evk rows, each [C, N]; ``acc`` two
+    lazy [0, 2q) accumulators shaped like ``x``, updated IN PLACE:
+    ``acc_i = acc_i (+) REDC(NTT(x) * k_i)`` on every channel outside
+    ``skip`` = (lo, hi) (None: all channels).  The skipped channels' rows
+    stay as they were and are not transformed: the in-part shortcut, whose
+    products the caller seeded into ``acc``.  Returns ``acc``.
+    """
+    if _on_cpu(x):
+        return ntt_keymul_accum_plain(x, lp, keys, acc, skip)
+    C = lp.num_channels
+    rows, logN = _geometry(x, C)
+    lo, hi = _skip_bounds(skip, C)
+    if len(keys) != 2 or len(acc) != 2:
+        raise ValueError("ntt_keymul_accum takes two keys and two "
+                         "accumulators")
+    key0, key1 = keys
+    acc0, acc1 = acc
+    for key in keys:
+        if tuple(key.shape) != tuple(x.shape[-2:]):
+            raise ValueError(f"key shape {tuple(key.shape)} != [C, N]")
+    for a in acc:
+        if a.shape != x.shape:
+            raise ValueError(f"accumulator shape {tuple(a.shape)} != "
+                             f"{tuple(x.shape)}")
+    _check(x.device, x=x, q=lp.pack.q, k=lp.pack.k, psi=lp.psi, key0=key0,
+           key1=key1, acc0=acc0, acc1=acc1)
+    tmp = torch.empty_like(x)
+    rc = cuda_build.lib().tt_ntt_keymul_accum(
+        _ptr(x), _ptr(tmp), _ptr(acc0), _ptr(acc1), rows, C, logN,
+        _ptr(lp.pack.q), _ptr(lp.pack.k), _ptr(lp.psi), _ptr(key0),
+        _ptr(key1), lo, hi, _stream(x.device),
+    )
+    _raise_on(rc, "ntt_keymul_accum")
+    LAUNCHES["ntt_keymul_accum"] += 1
+    return acc
 
 
 # ----------------------------------------------------------------------

@@ -37,10 +37,25 @@ Phases (any failure exits non-zero):
    to the engine's key decrypts within 1e-6;
 9. logN17 timing: the step with the kernels and with the plain versions,
    the route A/B (chain against the all-parts kernel, byte-identical, with
-   each run's peak device memory), and one profiled step.
+   each run's peak device memory), and one profiled step;
+10. the 30-bit mode (int32 residues, R = 2^30) at "logN15_30" (19 primes):
+    every 30-bit kernel (the ``_30`` lane) against its plain version at the
+    step's shapes; the main path (keygen, encodecrypt of 8 pairs, the step
+    through the all-parts kernel, decryptcode, error below 1e-2, the JAX
+    package's 30-bit bound), which must launch only ``_30`` kernels; the
+    step on one pair equal to the CPU's; step times with the kernels and
+    the plain versions, printed beside phase 5's 62-bit logN15 step; the
+    route A/B; one profiled step;
+11. "logN17_30" (17 primes): the 30-bit kernels at the step's shapes; the
+    main path through the per-part chain (8 ``ntt_keymul_accum_30``
+    launches, no all-parts launch; error below 1e-2); the step equal to the
+    plain-version step; the route A/B with peak memory; one profiled step.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is the device record.
+Each kernel's bound is the least time its bytes take at the H100's
+datasheet HBM rate (every input read once, the output written once); no
+integer-multiply rate is established for this card yet.  The second-to-
+last line is a JSON object with one entry per kernel and lane; the last
+line is the device record.
 """
 
 import contextlib
@@ -58,30 +73,42 @@ BATCH = 8
 SEED = 1234
 DECRYPT_TOL = 1e-6       # fresh ciphertext; the JAX logN14/15 tests
 DECRYPT_TOL_17 = 1e-4    # cc_mult at logN17: tests/test_full_presets.py
+DECRYPT_TOL_30 = 1e-2    # the 30-bit mode: tests/test_mode30.py
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM datasheet, at the 700 W power limit
 
-# kernel -> (source, the TPU kernel it replaces).  K1-K4 and the K3 chain
-# variant are entry points of _run_group (:1395), K5 of _run_tensor_group,
-# K6 of _run_parts_group.
+# kernel (its launch-count key) -> (source, the TPU kernel it replaces).
+# K1-K4 and the K3 chain variant are entry points of _run_group (:1395),
+# K5 of _run_tensor_group (:1194), K6 of _run_parts_group (:868); the _30
+# lane replaces each runner's single-lane u32 variant (tables.lane ==
+# "single": :1542, :1268, :1009).
 _PALLAS = "tiberate_tpu/ops/pallas_mxu.py"
+_SOURCES = {
+    "ntt": ("ntt.cu", 1395, 1542), "intt": ("ntt.cu", 1395, 1542),
+    "ntt_keymul": ("ntt.cu", 1395, 1542),
+    "ntt_keymul_accum": ("ntt.cu", 1395, 1542),
+    "intt_pdiv": ("ntt.cu", 1395, 1542),
+    "ntt_tensor": ("tensor.cu", 1194, 1268),
+    "ntt_keymul_parts": ("keyswitch.cu", 868, 1009),
+}
 KERNELS = {
-    "ntt": ("tiberate_tpu_torch/csrc/ntt.cu", f"{_PALLAS}:1395"),
-    "intt": ("tiberate_tpu_torch/csrc/ntt.cu", f"{_PALLAS}:1395"),
-    "ntt_keymul": ("tiberate_tpu_torch/csrc/ntt.cu", f"{_PALLAS}:1395"),
-    "ntt_keymul_accum": ("tiberate_tpu_torch/csrc/ntt.cu",
-                         f"{_PALLAS}:1395"),
-    "intt_pdiv": ("tiberate_tpu_torch/csrc/ntt.cu", f"{_PALLAS}:1395"),
-    "ntt_tensor": ("tiberate_tpu_torch/csrc/tensor.cu", f"{_PALLAS}:1194"),
-    "ntt_keymul_parts": ("tiberate_tpu_torch/csrc/keyswitch.cu",
-                         f"{_PALLAS}:868"),
+    name + sfx: (f"tiberate_tpu_torch/csrc/{src}",
+                 f"{_PALLAS}:{line30 if sfx else line}")
+    for sfx in ("", "_30")
+    for name, (src, line, line30) in _SOURCES.items()
 }
 # the kernels each driven path launches (keygen, encrypt, step, decrypt),
-# and those the fused step itself launches
+# and those the fused step itself launches; the 30-bit paths launch the
+# same kernels in their _30 lane
 PATH_15 = ("ntt", "intt", "ntt_keymul", "intt_pdiv", "ntt_tensor",
            "ntt_keymul_parts")
 STEP_15 = ("intt", "intt_pdiv", "ntt_tensor", "ntt_keymul_parts")
 PATH_17 = ("ntt", "intt", "ntt_keymul", "ntt_keymul_accum", "intt_pdiv",
            "ntt_tensor")
 STEP_17 = ("intt", "ntt_keymul_accum", "intt_pdiv", "ntt_tensor")
+
+
+def lane(names, sfx):
+    return tuple(n + sfx for n in names)
 
 
 def log(msg):
@@ -110,9 +137,9 @@ def cuda_ms(fn, reps=3, inner=3):
 def plain_wrappers(kern):
     """Route every kernel wrapper to its plain version (for timing the
     step without the kernels); restored on exit."""
-    saved = {name: getattr(kern, name) for name in KERNELS}
+    saved = {name: getattr(kern, name) for name in kern.WRAPPERS}
     try:
-        for name in KERNELS:
+        for name in kern.WRAPPERS:
             setattr(kern, name, getattr(kern, name + "_plain"))
         yield
     finally:
@@ -121,17 +148,24 @@ def plain_wrappers(kern):
 
 
 def uniform(gen, q, shape):
-    """Residues uniform in [0, q_c) per channel, drawn on the card; q: [C]
-    tensor on the card."""
+    """Residues uniform in [0, q_c) per channel, drawn on the card, in the
+    dtype of q (int64 or int32); q: [C] tensor on the card."""
     x = torch.randint(0, 1 << 62, shape, generator=gen, dtype=torch.int64,
                       device=q.device)
-    return x % q[:, None]
+    return (x % q.long()[:, None]).to(q.dtype)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def check_kernels(eng, kern, mod, tag, loops, with_parts=True):
     """Every kernel against its plain version at the step shapes of
-    ``eng`` (batch 8, work level 1); the chain kernel with no skip range
-    and with one part's range.  ``loops`` = (reps, inner) of cuda_ms."""
+    ``eng`` (batch 8, work level 1), in the lane of its storage dtype; the
+    chain kernel with no skip range and with one part's range.  ``loops``
+    = (reps, inner) of cuda_ms.  Each result carries its HBM bound: the
+    bytes of every input (data, twiddles, keys, constants) read once and
+    every output written once, at the datasheet rate."""
     dev = eng.device
     gen = torch.Generator(device=dev).manual_seed(SEED)
     N = eng.ckksCfg.N
@@ -162,6 +196,14 @@ def check_kernels(eng, kern, mod, tag, loops, with_parts=True):
                                                 skip),
         )
 
+    def accum_bytes(skip):
+        # only the channels outside the skip range are read and written
+        width = 0 if skip is None else skip[1] - skip[0]
+        rows = (C_sp - width) / C_sp
+        # x, twiddles, both keys, q, k; both accumulators read and written
+        return rows * (nbytes(ext, lp_sp.psi, *keys_sp, lp_sp.pack.q,
+                              lp_sp.pack.k) + 4 * nbytes(ext))
+
     cases = {
         "ntt": (lambda: kern.ntt(x, lp_ord, enter=True),
                 lambda: kern.ntt_plain(x, lp_ord, enter=True)),
@@ -176,6 +218,21 @@ def check_kernels(eng, kern, mod, tag, loops, with_parts=True):
                       lambda: kern.intt_pdiv_plain(acc, p0, lp_ord, PiRs)),
         "ntt_tensor": (lambda: kern.ntt_tensor(*x4, lp_ord),
                        lambda: kern.ntt_tensor_plain(*x4, lp_ord)),
+    }
+    consts = (lp_ord.pack.q, lp_ord.pack.k)
+    # bytes each call must move: inputs read once, outputs written once
+    io = {
+        "ntt": nbytes(x, lp_ord.psi, lp_ord.Rs, *consts, x),
+        "intt": nbytes(x, lp_ord.ipsi, lp_ord.Ninv, *consts, x),
+        "ntt_keymul": nbytes(x0, lp0.psi, lp0.Rs, *keys0, lp0.pack.q,
+                             lp0.pack.k, x0, x0),
+        "ntt_keymul_accum": accum_bytes(None),
+        f"ntt_keymul_accum[skip {part.lo}:{part.hi}]":
+            accum_bytes((part.lo, part.hi)),
+        "intt_pdiv": nbytes(acc[..., :C, :], p0, lp_ord.ipsi, lp_ord.Ninv,
+                            lp_ord.pdc, *consts, acc[..., :C, :]),
+        "ntt_tensor": nbytes(*x4, lp_ord.psi, lp_ord.Rs, *consts,
+                             *x4[:3]),
     }
     shapes = {"ntt": [BATCH, C, N], "intt": [BATCH, C, N],
               "ntt_keymul": [BATCH, C + 1, N], "intt_pdiv": [BATCH, C_sp, N],
@@ -195,6 +252,8 @@ def check_kernels(eng, kern, mod, tag, loops, with_parts=True):
             lambda: kern.ntt_keymul_parts_plain(st, ec, alphas, pkeys,
                                                 lp_sp))
         shapes["ntt_keymul_parts"] = [BATCH, n_parts, amax, N]
+        io["ntt_keymul_parts"] = nbytes(st, ec, alphas, *pkeys, lp_sp.psi,
+                                        lp_sp.pack.q, lp_sp.pack.k, ext, ext)
     results = {}
     for name, (kfn, pfn) in cases.items():
         got, want = kfn(), pfn()
@@ -206,13 +265,17 @@ def check_kernels(eng, kern, mod, tag, loops, with_parts=True):
         ms = cuda_ms(kfn, *loops)
         plain_ms = cuda_ms(pfn, *loops)
         shape = shapes.get(name, [BATCH, C_sp, N])
-        log(f"{tag} kernel {name}: input {shape} byte-identical={same} "
-            f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms")
+        bound_ms = io[name] / HBM_BYTES_PER_S * 1e3
+        log(f"{tag} kernel {name}: input {shape} {str(x.dtype)[6:]} "
+            f"byte-identical={same} max_abs_err={err} kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, HBM bound {bound_ms:.4f} ms "
+            f"({io[name] / 1e6:.1f} MB, {100 * bound_ms / ms:.1f}% of it)")
         if not same:
             raise AssertionError(f"{tag} {name} disagrees with its plain "
                                  f"version")
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by="bytes",
+                             library_ms=None, bytes=io[name])
     skip_name = next(k for k in results if k.startswith("ntt_keymul_accum["))
     results["ntt_keymul_accum"]["with_skip"] = results.pop(skip_name)
     return results
@@ -231,6 +294,13 @@ def require(counts, names, what):
     missing = [k for k in names if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on {what}: {missing}")
+
+
+def only_30(counts, what):
+    """A 30-bit path launches no 62-bit kernel."""
+    wrong = [k for k, n in counts.items() if n and not k.endswith("_30")]
+    if wrong:
+        raise AssertionError(f"62-bit kernels launched on {what}: {wrong}")
 
 
 def drive(eng, kern, stack, unstack, tol, tag):
@@ -281,9 +351,10 @@ def drive(eng, kern, stack, unstack, tol, tag):
     return A, B, out, launches, step_counts, err
 
 
-def check_against_cpu(eng, CkksEngine, Preset, A, B, out):
-    """logN15: the step and rescale on pair 0 against CPU tensors."""
-    eng_cpu = CkksEngine(Preset.logN15, device="cpu", seed=SEED)
+def check_against_cpu(eng, CkksEngine, preset, A, B, out, tag):
+    """The step and rescale on pair 0 against CPU tensors (the plain
+    versions) of an engine of the same preset."""
+    eng_cpu = CkksEngine(preset, device="cpu", seed=SEED)
     cpu = torch.device("cpu")
     evk = eng.evk
     eng_cpu.evk = type(evk)(
@@ -297,17 +368,18 @@ def check_against_cpu(eng, CkksEngine, Preset, A, B, out):
     t_cpu = time.perf_counter() - t0
     same = all(torch.equal(c, g[0].cpu())
                for c, g in zip(out_cpu.data, out.data))
-    log(f"step on pair 0: GPU == CPU plain path byte for byte: {same} "
-        f"(CPU step {t_cpu:.2f} s)")
+    log(f"{tag} step on pair 0: GPU == CPU plain path byte for byte: "
+        f"{same} (CPU step {t_cpu:.2f} s)")
     if not same:
-        raise AssertionError("GPU step differs from the CPU step")
+        raise AssertionError(f"{tag} GPU step differs from the CPU step")
 
     r_gpu, r_cpu = eng.rescale(A), eng_cpu.rescale(pair[0])
     same = r_gpu.level == r_cpu.level == 1 and all(
         torch.equal(c, g[0].cpu()) for c, g in zip(r_cpu.data, r_gpu.data))
-    log(f"rescale of pair 0: GPU == CPU byte for byte: {same}")
+    log(f"{tag} rescale of pair 0: GPU == CPU byte for byte: {same}")
     if not same:
-        raise AssertionError("GPU rescale differs from the CPU rescale")
+        raise AssertionError(f"{tag} GPU rescale differs from the CPU "
+                             f"rescale")
 
 
 def time_step(eng, kern, A, B, tag, smi, loops, plain_reps):
@@ -333,6 +405,7 @@ def route_ab(eng, kern, sharded, A, B, tag, loops):
     """The same step through the per-part chain and through the all-parts
     kernel: byte-identical outputs, each route's time, launches and peak
     device memory."""
+    sfx = kern.LANES[eng.params.dtype]
     step = eng._fused_mult_step(A.level)
     ksk = sharded.prepare_step_ksk(eng, A.level)
     prm = sharded.mult_step_params(eng, A.level)
@@ -353,13 +426,13 @@ def route_ab(eng, kern, sharded, A, B, tag, loops):
         peak = torch.cuda.max_memory_allocated()
         ms = cuda_ms(run, *loops)
         res[name] = dict(ms=ms, peak_bytes=peak, resident_bytes=base,
-                         accum=counts["ntt_keymul_accum"],
-                         parts=counts["ntt_keymul_parts"])
+                         accum=counts["ntt_keymul_accum" + sfx],
+                         parts=counts["ntt_keymul_parts" + sfx])
         log(f"{tag} route {name}: {ms:.3f} ms/step, peak device memory "
             f"{peak / 2**30:.3f} GiB (resident before the step "
-            f"{base / 2**30:.3f} GiB), ntt_keymul_accum x"
-            f"{counts['ntt_keymul_accum']}, ntt_keymul_parts x"
-            f"{counts['ntt_keymul_parts']}")
+            f"{base / 2**30:.3f} GiB), ntt_keymul_accum{sfx} x"
+            f"{res[name]['accum']}, ntt_keymul_parts{sfx} x"
+            f"{res[name]['parts']}")
     n_parts = len(eng.params.parts[A.level + 1])
     if (res["chain"]["accum"], res["chain"]["parts"]) != (n_parts, 0) or (
             res["parts_kernel"]["accum"], res["parts_kernel"]["parts"]) != (
@@ -480,7 +553,7 @@ def main():
         "logN15")
     require(launches15, PATH_15, "the logN15 main path")
     require(step15, STEP_15, "the logN15 step")
-    check_against_cpu(eng, CkksEngine, Preset, A, B, out)
+    check_against_cpu(eng, CkksEngine, Preset.logN15, A, B, out, "logN15")
 
     # 5. logN15 timing, route A/B, profile
     step_ms, plain_step_ms = time_step(eng, kern, A, B, "logN15", smi,
@@ -523,17 +596,74 @@ def main():
     ab17 = route_ab(eng17, kern, sharded, A, B, "logN17", (3, 1))
     profile_step(lambda: eng17.cc_mult(A, B), "logN17", top=16)
 
+    del eng17, A, B, out
+    torch.cuda.empty_cache()
+
+    # 10. the 30-bit mode at logN15_30: kernels, the main path (all parts in
+    # one kernel), the CPU comparison, timing, route A/B, profile
+    eng_k = CkksEngine("logN15_30", device="cuda", seed=SEED)
+    results15_30 = check_kernels(eng_k, kern, mod, "logN15_30", (3, 3))
+    del eng_k
+    eng = CkksEngine("logN15_30", device="cuda", seed=SEED)
+    A, B, out, launches15_30, step15_30, err15_30 = drive(
+        eng, kern, stack_ciphertexts, unstack_ciphertext, DECRYPT_TOL_30,
+        "logN15_30")
+    require(launches15_30, lane(PATH_15, "_30"), "the logN15_30 main path")
+    require(step15_30, lane(STEP_15, "_30"), "the logN15_30 step")
+    only_30(launches15_30, "logN15_30")
+    check_against_cpu(eng, CkksEngine, "logN15_30", A, B, out, "logN15_30")
+    step15_30_ms, plain_step15_30_ms = time_step(
+        eng, kern, A, B, "logN15_30", smi, (3, 3), 3)
+    log(f"logN15 fused step, batch {BATCH}, same call: 62-bit "
+        f"{step_ms:.3f} ms/step, 30-bit (logN15_30) {step15_30_ms:.3f} "
+        f"ms/step ({smi})")
+    ab15_30 = route_ab(eng, kern, sharded, A, B, "logN15_30", (3, 3))
+    profile_step(lambda: eng.cc_mult(A, B), "logN15_30")
+    del eng, A, B, out
+    torch.cuda.empty_cache()
+
+    # 11. logN17_30: kernels, the main path through the per-part chain,
+    # the plain-version step, route A/B with peak memory, profile
+    t0 = time.perf_counter()
+    eng = CkksEngine("logN17_30", device="cuda", seed=SEED)
+    n_parts = len(eng.params.parts[1])
+    log(f"logN17_30 engine built in {time.perf_counter() - t0:.1f} s: "
+        f"{len(eng.params.q)} primes, {n_parts} keyswitch parts at level 1")
+    results17_30 = check_kernels(eng, kern, mod, "logN17_30", (3, 1))
+    A, B, out, launches17_30, step17_30, err17_30 = drive(
+        eng, kern, stack_ciphertexts, unstack_ciphertext, DECRYPT_TOL_30,
+        "logN17_30")
+    require(launches17_30, lane(PATH_17, "_30"), "the logN17_30 main path")
+    require(step17_30, lane(STEP_17, "_30"), "the logN17_30 step")
+    only_30(launches17_30, "logN17_30")
+    if (step17_30["ntt_keymul_accum_30"] != n_parts
+            or step17_30["ntt_keymul_parts_30"]):
+        raise AssertionError(
+            f"logN17_30 step: {step17_30['ntt_keymul_accum_30']} chain "
+            f"launches (want {n_parts}), {step17_30['ntt_keymul_parts_30']} "
+            f"all-parts")
+    step17_30_ms, plain_step17_30_ms = time_step(
+        eng, kern, A, B, "logN17_30", smi, (3, 1), 1)
+    ab17_30 = route_ab(eng, kern, sharded, A, B, "logN17_30", (3, 1))
+    profile_step(lambda: eng.cc_mult(A, B), "logN17_30", top=16)
+
     counts = {k: launches15[k] + launches17[k] + sw_counts[k]
-              for k in KERNELS}
+              + launches15_30[k] + launches17_30[k] for k in KERNELS}
     require(counts, KERNELS, "the driven paths")
+    measured = {"": (results17, results15, "logN17", "logN15"),
+                "_30": (results17_30, results15_30, "logN17_30",
+                        "logN15_30")}
     kernels = []
-    for name, (src, rep) in KERNELS.items():
-        res = results17.get(name, results15[name])
-        entry = dict(name=name, route="cuda", source=src, replaces=rep,
-                     launches=counts[name], **res,
-                     shape="logN17" if name in results17 else "logN15")
-        if name in results17:
-            entry["logN15"] = results15[name]
+    for key, (src, rep) in KERNELS.items():
+        sfx = "_30" if key.endswith("_30") else ""
+        name = key[: len(key) - len(sfx)]
+        big, small, big_tag, small_tag = measured[sfx]
+        res = big.get(name, small[name])
+        entry = dict(name=key, route="cuda", source=src, replaces=rep,
+                     launches=counts[key], **res,
+                     shape=big_tag if name in big else small_tag)
+        if name in big:
+            entry[small_tag] = small[name]
         kernels.append(entry)
     log(json.dumps({
         "card": smi, "batch": BATCH,
@@ -546,6 +676,14 @@ def main():
                    "decrypt_max_err": err17,
                    "switch_key_decrypt_max_err": err_sw,
                    "route_ab": ab17},
+        "logN15_30": {"step_ms": step15_30_ms,
+                      "step_ms_per_ct": step15_30_ms / BATCH,
+                      "plain_step_ms": plain_step15_30_ms,
+                      "decrypt_max_err": err15_30, "route_ab": ab15_30},
+        "logN17_30": {"step_ms": step17_30_ms,
+                      "step_ms_per_ct": step17_30_ms / BATCH,
+                      "plain_step_ms": plain_step17_30_ms,
+                      "decrypt_max_err": err17_30, "route_ab": ab17_30},
         "seconds": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,8 @@
   numpy-drawn ternary / a / e / v — byte-identical outputs;
 * a port-only encodecrypt -> cc_mult -> decryptcode round trip, decrypt
   error below the bound tests/test_engine.py uses at this toy size;
-* the same round trip in a subprocess where jax cannot be imported;
+* the same round trip, in the 62-bit and the 30-bit mode, in a subprocess
+  where jax cannot be imported;
 * the stand-in sampler's draws have the supports and moments asked of them.
 """
 
@@ -192,13 +193,16 @@ import numpy as np
 from tiberate_tpu_torch.config.toy import toy_config
 from tiberate_tpu_torch.engine import CkksEngine
 
-eng = CkksEngine(toy_config(logN=7, num_scales=4, num_special_primes=2,
-                            scale_bits=30), device="cpu", seed=3)
 rng = np.random.default_rng(1)
-m1, m2 = (rng.uniform(-1, 1, eng.num_slots) for _ in range(2))
-out = eng.decryptcode(eng.cc_mult(eng.encodecrypt(m1), eng.encodecrypt(m2)),
-                      is_real=True)
-assert np.abs(out - m1 * m2).max() < {tol}
+for bits, scale_bits, tol in ((62, 30, {tol}), (30, 21, {tol30})):
+    eng = CkksEngine(toy_config(logN=7, num_scales=4, num_special_primes=2,
+                                scale_bits=scale_bits,
+                                buffer_bit_length=bits), device="cpu", seed=3)
+    m1, m2 = (rng.uniform(-1, 1, eng.num_slots) for _ in range(2))
+    ct = eng.cc_mult(eng.encodecrypt(m1), eng.encodecrypt(m2))
+    assert ct.data[0].dtype == eng.params.dtype
+    out = eng.decryptcode(ct, is_real=True)
+    assert np.abs(out - m1 * m2).max() < tol, bits
 assert "tiberate_tpu" not in sys.modules
 print("ok")
 """
@@ -207,7 +211,8 @@ print("ok")
 def test_port_runs_without_jax():
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX.format(tol=TOL)], cwd=REPO, env=env,
+        [sys.executable, "-c", _NO_JAX.format(tol=TOL, tol30=1e-2)],
+        cwd=REPO, env=env,
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr

@@ -3,7 +3,9 @@
 On the CPU the JAX engine runs its jnp path (Pallas is off there), so the
 reference for each kernel is the jnp chain the engine uses on CPU:
 
-* K1/K2/K3: ``ops/ntt.py`` + ``mont_mult``;
+* K1/K2/K3: ``ops/ntt.py`` + ``mont_mult``; K3's accumulating chain:
+  ``ntt`` -> ``mont_mult`` -> ``mont_add`` with a part's channels passed
+  through;
 * K4: the successive P-division of ``_switcher_body`` (restricted to the
   ordinary rows, as ``_pdiv_fused`` does);
 * K5: ``_ccmult_tensor_core``;
@@ -11,9 +13,11 @@ reference for each kernel is the jnp chain the engine uses on CPU:
   ``mont_add``.
 
 Inputs are drawn with numpy at toy_config(logN=7, num_scales=4,
-num_special_primes=2), where the parts have alpha 2.  Tolerance: none —
-outputs must be byte-identical (lazy outputs included, which is stronger
-than matching after reduce_2q).
+num_special_primes=2), where the parts at level 1 have alpha 1 and 2, in
+both lanes: the 62-bit mode (int64, scale_bits 30) and the 30-bit mode
+(int32, R = 2^30, scale_bits 21, as the JAX package's own 30-bit toys).
+Tolerance: none — outputs must be byte-identical and of the lane's dtype
+(lazy outputs included, which is stronger than matching after reduce_2q).
 
 The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -39,21 +43,30 @@ LEVEL = 1
 BATCH = 2
 
 
-@pytest.fixture(scope="module")
-def params():
+# lane -> toy options
+LANES = {62: dict(scale_bits=30),
+         30: dict(scale_bits=21, buffer_bit_length=30)}
+
+
+@pytest.fixture(scope="module", params=sorted(LANES))
+def params(request):
     cfg = toy_config(logN=7, num_scales=4, num_special_primes=2,
-                     scale_bits=30)
+                     **LANES[request.param])
     return JParams(cfg), TParams(cfg, "cpu")
 
 
 def _uniform(rng, q, shape):
-    """numpy residues uniform in [0, q_c) per channel (axis -2)."""
+    """numpy residues uniform in [0, q_c) per channel (axis -2), in the
+    lane's dtype (that of ``q``)."""
+    dt = np.asarray(q).dtype
     q = np.asarray(q, dtype=np.int64)[:, None]
-    return (rng.integers(0, 1 << 62, size=shape, dtype=np.int64) % q)
+    return (rng.integers(0, 1 << 62, size=shape, dtype=np.int64) % q
+            ).astype(dt)
 
 
 def _eq(j, t):
-    return np.array_equal(np.asarray(j), t.numpy())
+    j = np.asarray(j)
+    return j.dtype == t.numpy().dtype and np.array_equal(j, t.numpy())
 
 
 def _lps(params, special):
@@ -98,6 +111,34 @@ def test_ntt_keymul_plain_matches_jnp(params):
                              enter=True)
     for key, t in zip(keys, got):
         assert _eq(jmont.mont_mult(X, key, jlp.pack), t)
+
+
+@pytest.mark.parametrize("part", [None, 0, 1, 2])
+def test_ntt_keymul_accum_plain_matches_jnp(params, part):
+    """K3's accumulating chain with no skip range and with each part's own
+    channel range (alpha 1, 2, 1 at level 1) passed through, in place."""
+    jp, tp = params
+    jlp, tlp = _lps(params, True)
+    skip = None if part is None else (tp.parts[LEVEL][part].lo,
+                                      tp.parts[LEVEL][part].hi)
+    C, N = jlp.num_channels, jp.N
+    rng = np.random.default_rng(6)
+    q = jlp.pack._2q[:, 0] // 2
+    x = _uniform(rng, q, (BATCH, C, N))
+    keys = [_uniform(rng, q, (C, N)) for _ in range(2)]
+    acc = [_uniform(rng, 2 * q, (BATCH, C, N)) for _ in range(2)]
+    X = jntt.ntt(x, jlp.psi, jlp.pack)
+    tacc = tuple(torch.from_numpy(a.copy()) for a in acc)
+    got = K.ntt_keymul_accum_plain(
+        torch.from_numpy(x), tlp, tuple(torch.from_numpy(k) for k in keys),
+        tacc, skip)
+    for a, k, g, ta in zip(acc, keys, got, tacc):
+        w = np.array(jmont.mont_add(a, jmont.mont_mult(X, k, jlp.pack),
+                                    jlp.pack))
+        if skip is not None:
+            w[..., skip[0] : skip[1], :] = a[..., skip[0] : skip[1], :]
+        assert g is ta
+        assert _eq(w, g)
 
 
 def _jax_pdiv_chain(acc, jlp_sp, jlp_ord, PiRs, S):
@@ -187,7 +228,7 @@ def test_wrappers_dispatch_cpu_to_plain(params):
     """On CPU tensors every wrapper is its plain version and launches
     nothing; an unsupported device raises."""
     _, tlp = _lps(params, False)
-    x = torch.zeros((tlp.num_channels, params[0].N), dtype=torch.int64)
+    x = torch.zeros((tlp.num_channels, params[0].N), dtype=params[1].dtype)
     K.reset_launch_counts()
     assert torch.equal(K.ntt(x, tlp, enter=True), K.ntt_plain(x, tlp, True))
     assert torch.equal(K.intt(x, tlp, "exit"), K.intt_plain(x, tlp, "exit"))

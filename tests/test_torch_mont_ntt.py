@@ -1,8 +1,11 @@
 """tiberate_tpu_torch host layer and plain ops against the JAX package.
 
-Same numpy-drawn inputs go through the jnp function and its torch twin.
-Tolerance: none — everything is exact integer arithmetic, so every output
-must be byte-identical (lazy [0, 2q) and signed representatives included).
+Same numpy-drawn inputs go through the jnp function and its torch twin, in
+both lanes: the 62-bit mode (int64, R = 2^62) and the 30-bit mode (int32,
+R = 2^30, q < 2^28; the moduli of ``tests/test_mode30.py``).  Tolerance:
+none — everything is exact integer arithmetic, so every output must be
+byte-identical (lazy [0, 2q) and signed representatives included) and of
+the lane's dtype.
 """
 
 import json
@@ -14,46 +17,61 @@ import torch
 
 from tiberate_tpu.ops import mont as jmont
 from tiberate_tpu.ops import ntt as jntt
+from tiberate_tpu.utils.primes import find_the_next_prime
 from tiberate_tpu_torch.ops import mont as tmont
 from tiberate_tpu_torch.ops import ntt as tntt
 
 torch.set_num_threads(1)
 
-Q_LIST = [
-    1152921504606844513,  # ~2^60 message-prime-like
-    1099510054913,  # ~2^40 scale-prime-like
-    576460752303421441,
-]
-R = 1 << 62
+# lane (R bits) -> moduli
+Q_LISTS = {
+    62: [
+        1152921504606844513,  # ~2^60 message-prime-like
+        1099510054913,  # ~2^40 scale-prime-like
+        576460752303421441,
+    ],
+    30: [  # tests/test_mode30.py's 30-bit pack: a 28-bit and a 25-bit prime
+        find_the_next_prime(2**28 - 1, 2 * 256, up=False),
+        find_the_next_prime(2**25 + 1, 2 * 256, up=True),
+    ],
+}
+DTYPES = {62: np.int64, 30: np.int32}
+LANES = sorted(Q_LISTS)
 
 
 def _eq(j, t):
-    return np.array_equal(np.asarray(j), t.numpy())
+    j = np.asarray(j)
+    return j.dtype == t.numpy().dtype and np.array_equal(j, t.numpy())
 
 
-def _packs(qs):
-    return jmont.ModPack.from_q(qs), tmont.ModPack.from_q(qs)
+def _packs(qs, lane=62):
+    return (jmont.ModPack.from_q(qs, R_bits=lane),
+            tmont.ModPack.from_q(qs, R_bits=lane))
 
 
-def _draw(qs, n, rng, lo_frac, hi_frac):
+def _draw(qs, n, rng, lo_frac, hi_frac, lane=62):
     return np.stack([
         rng.integers(int(lo_frac * q), int(hi_frac * q), size=n,
                      dtype=np.int64)
         for q in qs
-    ])
+    ]).astype(DTYPES[lane])
 
 
+@pytest.mark.parametrize("lane", LANES)
 @pytest.mark.parametrize("lo_frac,hi_frac", [(0.0, 2.0), (-1.0, 2.0),
                                              (-2.0, 2.0)])
-def test_mont_ops_match_jnp(lo_frac, hi_frac):
+def test_mont_ops_match_jnp(lo_frac, hi_frac, lane):
     """mont_mult/enter/reduce/add/sub/reduce_2q/make_(un)signed on
-    unsigned and signed representatives."""
+    unsigned and signed representatives (in the 30-bit lane, signed a in
+    (-2^29, 2^29))."""
     rng = np.random.default_rng(0)
-    jp, tp = _packs(Q_LIST)
-    a = _draw(Q_LIST, 4096, rng, lo_frac, hi_frac)
-    b = _draw(Q_LIST, 4096, rng, 0.0, 2.0)
+    qs = Q_LISTS[lane]
+    jp, tp = _packs(qs, lane)
+    a = _draw(qs, 4096, rng, lo_frac, hi_frac, lane)
+    b = _draw(qs, 4096, rng, 0.0, 2.0, lane)
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
-    Rs = np.array([[R * R % q] for q in Q_LIST], dtype=np.int64)
+    R = 1 << lane
+    Rs = np.array([[R * R % q] for q in qs], dtype=DTYPES[lane])
     pairs = [
         (jmont.mont_mult(a, b, jp), tmont.mont_mult(ta, tb, tp)),
         (jmont.mont_mult(b, a, jp), tmont.mont_mult(tb, ta, tp)),
@@ -70,56 +88,62 @@ def test_mont_ops_match_jnp(lo_frac, hi_frac):
         assert _eq(j, t)
 
 
-def test_mont_mult_equals_exact_redc():
-    """The 31-bit-half REDC equals the exact 128-bit Montgomery reduction
-    the CUDA kernels compute (csrc/mont.cuh), on signed operands too."""
+@pytest.mark.parametrize("lane", LANES)
+def test_mont_mult_equals_exact_redc(lane):
+    """The half-word REDC equals the exact Montgomery reduction the CUDA
+    kernels compute (csrc/mont.cuh: in 128 bits at R = 2^62, with one
+    64-bit product at R = 2^30), on signed operands too."""
     rng = np.random.default_rng(1)
-    _, tp = _packs(Q_LIST)
-    a = _draw(Q_LIST, 256, rng, -2.0, 2.0)
-    b = _draw(Q_LIST, 256, rng, -1.0, 1.0)
+    qs = Q_LISTS[lane]
+    _, tp = _packs(qs, lane)
+    a = _draw(qs, 256, rng, -2.0, 2.0, lane)
+    b = _draw(qs, 256, rng, -1.0, 1.0, lane)
     got = tmont.mont_mult(torch.from_numpy(a), torch.from_numpy(b), tp)
-    for c, q in enumerate(Q_LIST):
-        want = [tmont.mont_mult_oracle(int(x), int(y), q)
+    for c, q in enumerate(qs):
+        want = [tmont.mont_mult_oracle(int(x), int(y), q, R_bits=lane)
                 for x, y in zip(a[c], b[c])]
         assert got[c].tolist() == want
 
 
-def test_tile_unsigned_matches_jnp():
+@pytest.mark.parametrize("lane", LANES)
+def test_tile_unsigned_matches_jnp(lane):
+    """Signed int64 draws (sampler, codec) into the lane's residues."""
     rng = np.random.default_rng(2)
-    jp, tp = _packs(Q_LIST)
+    jp, tp = _packs(Q_LISTS[lane], lane)
     x = rng.integers(-1000, 1000, size=(3, 64), dtype=np.int64)
     assert _eq(jmont.tile_unsigned(x, jp),
                tmont.tile_unsigned(torch.from_numpy(x), tp))
 
 
-def _tables(logN, qs):
+def _tables(logN, qs, lane):
     psi, ipsi = tntt.make_psi_tables(qs, logN)
     jpsi, jipsi = jntt.make_psi_tables(qs, logN)
     assert psi == jpsi and ipsi == jipsi
+    R, dt = 1 << lane, DTYPES[lane]
     mont_form = lambda t: np.array(  # noqa: E731
-        [[p * R % q for p in row] for row, q in zip(t, qs)], dtype=np.int64)
+        [[p * R % q for p in row] for row, q in zip(t, qs)], dtype=dt)
     N = 1 << logN
-    Ninv = np.array([[pow(N, -1, q) * R % q] for q in qs], dtype=np.int64)
-    Rs = np.array([[R * R % q] for q in qs], dtype=np.int64)
+    Ninv = np.array([[pow(N, -1, q) * R % q] for q in qs], dtype=dt)
+    Rs = np.array([[R * R % q] for q in qs], dtype=dt)
     return mont_form(psi), mont_form(ipsi), Ninv, Rs
 
 
+@pytest.mark.parametrize("lane", LANES)
 @pytest.mark.parametrize("signed", [False, True])
-def test_ntt_family_matches_jnp(signed):
+def test_ntt_family_matches_jnp(signed, lane):
     """ntt (signed path too), intt_core, intt, enter_ntt, intt_exit,
     intt_exit_reduce, on a batch of [C, N] polynomials."""
-    from tiberate_tpu.utils.primes import find_the_next_prime
-
     logN = 7
     N = 1 << logN
-    qs = [find_the_next_prime(2**60 - 1, 2 * N, up=False),
-          find_the_next_prime(2**40 + 1, 2 * N, up=True)]
-    jp, tp = _packs(qs)
-    psi, ipsi, Ninv, Rs = _tables(logN, qs)
+    bits = {62: (60, 40), 30: (28, 25)}[lane]
+    qs = [find_the_next_prime(2 ** bits[0] - 1, 2 * N, up=False),
+          find_the_next_prime(2 ** bits[1] + 1, 2 * N, up=True)]
+    jp, tp = _packs(qs, lane)
+    psi, ipsi, Ninv, Rs = _tables(logN, qs, lane)
     rng = np.random.default_rng(3)
     lo = -0.5 if signed else 0.0
-    x = np.stack([_draw(qs, N, rng, lo, 2.0) for _ in range(2)])
-    u = np.stack([_draw(qs, N, rng, 0.0, 1.0) for _ in range(2)])
+    x = np.stack([_draw(qs, N, rng, lo, 2.0, lane) for _ in range(2)])
+    u = np.stack([_draw(qs, N, rng, 0.0, 1.0, lane) for _ in range(2)])
     t = torch.from_numpy
     tx, tu = t(x), t(u)
     tpsi, tipsi, tNinv, tRs = t(psi), t(ipsi), t(Ninv), t(Rs)
@@ -150,16 +174,19 @@ def test_prime_chains_match_golden(preset):
     assert cfg.scale_bits == golden["scale_bits"]
 
 
-def test_params_match_jnp():
+@pytest.mark.parametrize("lane", LANES)
+def test_params_match_jnp(lane):
     """CkksParams tables and constants equal the JAX package's at a toy
-    size, for every field the slice reads."""
+    size, for every field the slice reads, in the lane's dtype."""
     from tiberate_tpu.config.toy import toy_config
     from tiberate_tpu.context.ntt_context import CkksParams as JParams
     from tiberate_tpu_torch.context.ntt_context import CkksParams as TParams
 
     cfg = toy_config(logN=7, num_scales=4, num_special_primes=2,
-                     scale_bits=30)
+                     scale_bits={62: 30, 30: 21}[lane],
+                     buffer_bit_length=lane)
     jp, tp = JParams(cfg), TParams(cfg, "cpu")
+    assert tp.pdc.dtype == tp.pack.q.dtype == tp.dtype
     for name in ("psi", "ipsi", "Ninv", "Rs", "Rs_scale", "mont_PR"):
         assert _eq(getattr(jp, name), getattr(tp, name)), name
     for lvl in range(jp.num_levels):

@@ -35,10 +35,19 @@ def _toy_s6():
                       scale_bits=30)
 
 
-# (config, decrypt-error bound): tests/test_engine.py's toy bound and
-# tests/test_golden.py's logN14 bound
+def _toy30():
+    """The 30-bit mode (int32 residues, R = 2^30): parts of alpha 1 and 2 at
+    the step's work level."""
+    return toy_config(logN=7, num_scales=4, num_special_primes=2,
+                      scale_bits=21, buffer_bit_length=30)
+
+
+# (config, decrypt-error bound): tests/test_engine.py's toy bound,
+# tests/test_golden.py's logN14 bound, and the 30-bit bounds of
+# tests/test_mode30.py (toy) and tests/test_full_presets.py (logN14_30)
 CASES = {"toy": (_toy, 5e-5), "toy_s6": (_toy_s6, 5e-5),
-         "logN14": (lambda: "logN14", 1e-3)}
+         "logN14": (lambda: "logN14", 1e-3), "toy30": (_toy30, 1e-2),
+         "logN14_30": (lambda: "logN14_30", 5e-3)}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -65,6 +74,7 @@ def test_port_step_matches_jax_step(case):
         got = step(ta.data[0], ta.data[1], tb.data[0], tb.data[1],
                    tsharded.prepare_step_ksk(teng, 0), route)
         for w, g in zip(want, got):
+            assert g.dtype == teng.params.dtype
             assert np.array_equal(np.asarray(w), g.numpy())
 
     out = teng.decryptcode(teng.cc_mult(ta, tb), is_real=True)

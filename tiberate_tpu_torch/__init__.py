@@ -2,8 +2,9 @@
 hand-written CUDA kernels for NVIDIA Hopper (H100).
 
 A port beside the JAX package, which stays the reference: same presets and
-prime chains, same Montgomery (R = 2^62) residues, same ``CkksEngine``
-method names.  Polynomials are int64 tensors shaped ``[..., C, N]``; the
+prime chains, same Montgomery residues (R = 2^62 in int64 tensors; R = 2^30
+in int32 tensors for the 30-bit ``"logN15_30"``-style presets), same
+``CkksEngine`` method names.  Polynomials are shaped ``[..., C, N]``; the
 NTTs, the tensor product, the keyswitch part loop and the P-division run
 as CUDA kernels (``csrc/``) on CUDA tensors and as their plain torch
 versions on CPU tensors.

@@ -1,10 +1,11 @@
-"""CKKS parameter configuration and presets (62-bit mode).
+"""CKKS parameter configuration and presets.
 
-A copy of ``tiberate_tpu/config/ckks_config.py`` without the 30-bit
-(``_30``) presets: same prime layout ``[scale primes..., base message
-prime, special primes...]``, same automatic level-budget sizing against the
-HE-standard security bound, same presets (logN14/15/16/17 with 1/2/4/6
-special primes), so both packages build bit-identical prime chains.
+A copy of ``tiberate_tpu/config/ckks_config.py``: same prime layout
+``[scale primes..., base message prime, special primes...]``, same
+automatic level-budget sizing against the HE-standard security bound, same
+presets (logN14/15/16/17 with 1/2/4/6 special primes) and their 30-bit
+twins (``"logN15_30"``: int32 residues, R = 2^30), so both packages build
+bit-identical prime chains.
 """
 
 import math
@@ -60,9 +61,7 @@ class CkksConfig:
         if isinstance(src, CkksConfig):
             return src
         if isinstance(src, str) and src.endswith("_30"):
-            raise NotImplementedError(
-                "30-bit presets are not ported yet (62-bit mode only)"
-            )
+            return cls.parse_30bit(src[: -len("_30")], **kwargs)
         if isinstance(src, str):
             src = Preset(src)
         preset_config = _PRESET_CONFIGS[src] if isinstance(src, Preset) else src
@@ -71,11 +70,33 @@ class CkksConfig:
         ), "src must be a dictionary or a Preset enum."
         return cls(**preset_config, **kwargs)
 
+    @classmethod
+    def parse_30bit(cls, base: "str | Preset", **kwargs):
+        """30-bit twin of a 62-bit preset (``"logN15_30"``): int32
+        residues, scale_bits=25, two special primes, num_scales pinned to
+        the 62-bit preset's level budget.  25-bit NTT-friendly primes run
+        out before that depth at large rings, and deep chains can collide
+        with the special band, so the depth backs off until the chain fits.
+        """
+        base_cfg = cls.parse(base)
+        logN, depth = base_cfg.logN, base_cfg.num_scales
+        avail = len(generate_scale_primes()[(25, 1 << logN)]) - 1
+        depth = min(depth, avail)
+        opts = dict(logN=logN, buffer_bit_length=30, scale_bits=25,
+                    num_special_primes=2)
+        opts.update(kwargs)
+        while True:
+            try:
+                return cls(num_scales=depth, **opts)
+            except errors.NotEnoughPrimes:
+                depth -= 1
+                if depth < 2:
+                    raise
+
     def __post_init__(self):
-        if self.buffer_bit_length != 62:
-            raise NotImplementedError(
-                f"buffer_bit_length={self.buffer_bit_length}: only the "
-                "62-bit mode is ported"
+        if self.buffer_bit_length not in (30, 62):
+            raise ValueError(
+                f"buffer_bit_length={self.buffer_bit_length}: 30 or 62"
             )
         self.N = 2**self.logN
         self.int_scale = 2**self.scale_bits
@@ -87,7 +108,8 @@ class CkksConfig:
         self.secret_key_sampling_method = (
             "uniform ternary" if self.uniform_ternary_secret else "sparse ternary"
         )
-        self.numpy_dtype = np.int64
+        # residue storage: int32 in the 30-bit mode, int64 in the 62-bit
+        self.numpy_dtype = {30: np.int32, 62: np.int64}[self.buffer_bit_length]
 
         try:
             message_special_primes = generate_message_primes()[

@@ -16,8 +16,10 @@ Basis-extension constants per part follow the reference math:
 ``Y_scalar[i] = L[i]^-1·R mod m[i+1]``, ``L_scalar[i][j] = L[i]·R mod m[j]``,
 ``L_enter[i][c] = L[i]·R^2 mod q_c`` over the full with-special basis.
 
-There are no 4-step int8 limb tables: those exist only because Mosaic lacks
-64-bit vectors, and the Hopper NTT is a 64-bit butterfly NTT.
+There are no 4-step int8 limb tables and no Shoup companions: those exist
+only because Mosaic lacks 64-bit vectors and products, and the Hopper NTT
+is a butterfly NTT over one 64-bit (or, in the 30-bit mode, 32-bit) word
+with a native wide product.
 """
 
 import math
@@ -28,13 +30,14 @@ import torch
 
 from tiberate_tpu_torch.context.mont_context import MontgomeryContext
 from tiberate_tpu_torch.context.rns_partition import RnsPartition
+from tiberate_tpu_torch.ops import mont
 from tiberate_tpu_torch.ops import ntt as ntt_ops
 from tiberate_tpu_torch.ops.mont import ModPack
 
 
-def _col(vals, device):
+def _col(vals, device, dtype):
     return torch.tensor(
-        [int(v) for v in vals], dtype=torch.int64, device=device
+        [int(v) for v in vals], dtype=dtype, device=device
     ).reshape(-1, 1)
 
 
@@ -92,13 +95,16 @@ class PartPack:
 
 
 class CkksParams:
-    """Host-built parameter bundle for one config, resident on ``device``."""
+    """Host-built parameter bundle for one config, resident on ``device``.
+
+    Every tensor is in the storage dtype of ``cfg.buffer_bit_length``: int64
+    with R = 2^62, or int32 with R = 2^30 (the 30-bit mode).
+    """
 
     def __init__(self, cfg, device):
-        if cfg.buffer_bit_length != 62:
-            raise NotImplementedError(
-                f"buffer_bit_length={cfg.buffer_bit_length}; only the "
-                "62-bit mode is ported"
+        if cfg.buffer_bit_length not in mont.DTYPES:
+            raise ValueError(
+                f"buffer_bit_length={cfg.buffer_bit_length}: 30 or 62"
             )
         self.cfg = cfg
         self.device = torch.device(device)
@@ -119,14 +125,15 @@ class CkksParams:
         self.S = S
         self.N = N
         self.logN = cfg.logN
-        self.dtype = torch.int64
+        self.dtype = mont.DTYPES[cfg.buffer_bit_length]
         dev = self.device
 
         def col(vals):
-            return _col(vals, dev)
+            return _col(vals, dev, self.dtype)
 
         # --- full-basis parameter tensors ------------------------------
-        self.pack = ModPack.from_q(q, device=dev)
+        self.pack = ModPack.from_q(q, R_bits=cfg.buffer_bit_length,
+                                   device=dev)
         psi, ipsi = ntt_ops.make_psi_tables(q, cfg.logN)
         self.psi = self._mont_table(psi, q, R)
         self.ipsi = self._mont_table(ipsi, q, R)
@@ -205,7 +212,7 @@ class CkksParams:
                     v = v * pow(Pj, -1, qi) % qi
                 row.append(v * R % qi)
             pdc_rows.append(row)
-        self.pdc = torch.tensor(pdc_rows, dtype=torch.int64, device=dev)
+        self.pdc = torch.tensor(pdc_rows, dtype=self.dtype, device=dev)
 
         self._full = LevelPack(
             pack=self.pack, psi=self.psi, ipsi=self.ipsi,
@@ -240,7 +247,7 @@ class CkksParams:
     def _mont_table(self, table, q, R):
         arr = np.array(
             [[p * R % qi for p in row] for row, qi in zip(table, q)],
-            dtype=np.int64,
+            dtype=self.cfg.numpy_dtype,
         )
         return torch.from_numpy(arr).to(self.device)
 
@@ -304,7 +311,7 @@ class CkksParams:
             if (i + 2) < alpha:
                 L_scalar.append(
                     _col([(L[i] * R) % m[j] for j in range(i + 2, alpha)],
-                         dev)
+                         dev, self.dtype)
                 )
 
         L_enter = torch.tensor(
@@ -313,12 +320,12 @@ class CkksParams:
                  for c in range(P + S)]
                 for i in range(alpha - 1)
             ],
-            dtype=torch.int64, device=dev,
+            dtype=self.dtype, device=dev,
         )[..., None]
 
         return PartPack(
             lo=local_lo, hi=local_lo + alpha, g0=glo,
-            Y_scalar=_col(Y_scalar, dev),
+            Y_scalar=_col(Y_scalar, dev, self.dtype),
             L_scalar=tuple(L_scalar),
             L_enter=L_enter,
         )

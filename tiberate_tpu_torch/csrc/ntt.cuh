@@ -1,9 +1,10 @@
-// Two-pass 64-bit negacyclic NTT stages in shared memory.
+// Two-pass negacyclic NTT stages in shared memory, over one word type W
+// (i64 at R = 2^62, i32 in the 30-bit mode; mont.cuh).
 //
-// A logN15 row is 32768 x 8 B = 256 KB, more than the 227 KB of shared
-// memory one block may use, so a transform never holds a whole row.  Split
-// N = N1 * N2 (N1 = 2^L1, L1 = logN/2, N2 = N / N1) and view the row as
-// [N1, N2]:
+// A logN15 row of i64 is 32768 x 8 B = 256 KB, more than the 227 KB of
+// shared memory one block may use, so a transform never holds a whole row.
+// Split N = N1 * N2 (N1 = 2^L1, L1 = logN/2, N2 = N / N1) and view the row
+// as [N1, N2]:
 //
 //   * forward stages logm < L1 pair x with x + t, t >= N2: they never mix
 //     columns, so a "strided" block owns TC columns of all N1 rows;
@@ -13,7 +14,8 @@
 // The inverse runs the same split in the opposite order.  Each stage is the
 // radix-2 butterfly of ops/ntt.py with the same twiddle psi[m + i], the
 // same operand order and the same lazy reductions, so the output equals the
-// plain torch transform bit for bit, in the same bit-reversed order.
+// plain torch transform bit for bit, in the same bit-reversed order.  Both
+// word types use the same geometry: an i32 tile takes half the bytes.
 //
 // Per block one row (one batch entry x one RNS channel): q, k and the
 // twiddle row are the channel's.  Twiddles are read from global memory
@@ -23,7 +25,7 @@
 
 #include "mont.cuh"
 
-#define TT_TC 16          // columns per strided block (128 B per j1 row)
+#define TT_TC 16          // columns per strided block (128 B of i64 per j1 row)
 #define TT_THREADS 256
 
 struct Geo {
@@ -41,10 +43,18 @@ static inline Geo make_geo(int logN) {
     return g;
 }
 
+// The block's dynamic shared memory as words of type W.
+template <typename W>
+__device__ __forceinline__ W* smem() {
+    extern __shared__ __align__(16) unsigned char tt_smem[];
+    return reinterpret_cast<W*>(tt_smem);
+}
+
 // Forward stages [0, L1) on a strided tile s[j1 * TC + col].
-__device__ __forceinline__ void fwd_strided(i64* s, const Geo& g,
-                                            const i64* psi, u64 q, u64 k) {
-    const i64 q2 = (i64)(q << 1);
+template <typename W, typename U>
+__device__ __forceinline__ void fwd_strided(W* s, const Geo& g, const W* psi,
+                                            U q, U k) {
+    const W q2 = (W)(q << 1);
     const int nb = (g.N1 >> 1) * g.TC;
     for (int logm = 0; logm < g.L1; ++logm) {
         const int sh = g.L1 - 1 - logm;
@@ -54,62 +64,65 @@ __device__ __forceinline__ void fwd_strided(i64* s, const Geo& g,
             const int grp = b >> sh;
             const int ju = (grp << (sh + 1)) + (b & ((1 << sh) - 1));
             const int jv = ju + (1 << sh);
-            const i64 S = psi[(1 << logm) + grp];
-            const i64 U = s[ju * g.TC + col];
-            const i64 V = redc(S, s[jv * g.TC + col], q, k);
-            s[ju * g.TC + col] = lazy_add(U, V, q2);
-            s[jv * g.TC + col] = lazy_sub(U, V, q2);
+            const W S = psi[(1 << logm) + grp];
+            const W U0 = s[ju * g.TC + col];
+            const W V = redc(S, s[jv * g.TC + col], q, k);
+            s[ju * g.TC + col] = lazy_add(U0, V, q2);
+            s[jv * g.TC + col] = lazy_sub(U0, V, q2);
         }
         __syncthreads();
     }
 }
 
 // Forward stages [L1, logN) on the contiguous chunk j1: s[0, N2).
-__device__ __forceinline__ void fwd_contig(i64* s, const Geo& g, int j1,
-                                           const i64* psi, u64 q, u64 k) {
-    const i64 q2 = (i64)(q << 1);
+template <typename W, typename U>
+__device__ __forceinline__ void fwd_contig(W* s, const Geo& g, int j1,
+                                           const W* psi, U q, U k) {
+    const W q2 = (W)(q << 1);
     const int nb = g.N2 >> 1;
     for (int logm = g.L1; logm < g.logN; ++logm) {
         const int sh = g.logN - 1 - logm;
-        const i64* tw = psi + (1 << logm) + (j1 << (logm - g.L1));
+        const W* tw = psi + (1 << logm) + (j1 << (logm - g.L1));
         for (int b = threadIdx.x; b < nb; b += blockDim.x) {
             const int grp = b >> sh;
             const int u = (grp << (sh + 1)) + (b & ((1 << sh) - 1));
             const int v = u + (1 << sh);
-            const i64 U = s[u];
-            const i64 V = redc(tw[grp], s[v], q, k);
-            s[u] = lazy_add(U, V, q2);
-            s[v] = lazy_sub(U, V, q2);
+            const W U0 = s[u];
+            const W V = redc(tw[grp], s[v], q, k);
+            s[u] = lazy_add(U0, V, q2);
+            s[v] = lazy_sub(U0, V, q2);
         }
         __syncthreads();
     }
 }
 
 // Inverse stages logm = logN .. L1+1 on the contiguous chunk j1.
-__device__ __forceinline__ void inv_contig(i64* s, const Geo& g, int j1,
-                                           const i64* ipsi, u64 q, u64 k) {
-    const i64 q2 = (i64)(q << 1);
+template <typename W, typename U>
+__device__ __forceinline__ void inv_contig(W* s, const Geo& g, int j1,
+                                           const W* ipsi, U q, U k) {
+    const W q2 = (W)(q << 1);
     const int nb = g.N2 >> 1;
     for (int logm = g.logN; logm > g.L1; --logm) {
         const int sh = g.logN - logm;
-        const i64* tw = ipsi + (1 << (logm - 1)) + (j1 << (logm - 1 - g.L1));
+        const W* tw = ipsi + (1 << (logm - 1)) + (j1 << (logm - 1 - g.L1));
         for (int b = threadIdx.x; b < nb; b += blockDim.x) {
             const int grp = b >> sh;
             const int u = (grp << (sh + 1)) + (b & ((1 << sh) - 1));
             const int v = u + (1 << sh);
-            const i64 U = s[u];
-            const i64 V = s[v];
-            s[u] = lazy_add(U, V, q2);
-            s[v] = redc(tw[grp], lazy_sub(U, V, q2), q, k);
+            const W U0 = s[u];
+            const W V = s[v];
+            s[u] = lazy_add(U0, V, q2);
+            s[v] = redc(tw[grp], lazy_sub(U0, V, q2), q, k);
         }
         __syncthreads();
     }
 }
 
 // Inverse stages logm = L1 .. 1 on a strided tile s[j1 * TC + col].
-__device__ __forceinline__ void inv_strided(i64* s, const Geo& g,
-                                            const i64* ipsi, u64 q, u64 k) {
-    const i64 q2 = (i64)(q << 1);
+template <typename W, typename U>
+__device__ __forceinline__ void inv_strided(W* s, const Geo& g, const W* ipsi,
+                                            U q, U k) {
+    const W q2 = (W)(q << 1);
     const int nb = (g.N1 >> 1) * g.TC;
     for (int logm = g.L1; logm >= 1; --logm) {
         const int sh = g.L1 - logm;
@@ -119,11 +132,11 @@ __device__ __forceinline__ void inv_strided(i64* s, const Geo& g,
             const int grp = b >> sh;
             const int ju = (grp << (sh + 1)) + (b & ((1 << sh) - 1));
             const int jv = ju + (1 << sh);
-            const i64 S = ipsi[(1 << (logm - 1)) + grp];
-            const i64 U = s[ju * g.TC + col];
-            const i64 V = s[jv * g.TC + col];
-            s[ju * g.TC + col] = lazy_add(U, V, q2);
-            s[jv * g.TC + col] = redc(S, lazy_sub(U, V, q2), q, k);
+            const W S = ipsi[(1 << (logm - 1)) + grp];
+            const W U0 = s[ju * g.TC + col];
+            const W V = s[jv * g.TC + col];
+            s[ju * g.TC + col] = lazy_add(U0, V, q2);
+            s[jv * g.TC + col] = redc(S, lazy_sub(U0, V, q2), q, k);
         }
         __syncthreads();
     }
@@ -145,23 +158,24 @@ static inline int contig_threads(const Geo& g) {
 // [skip_lo, skip_hi) return at once (the keyswitch in-part shortcut; an
 // empty range skips nothing).  Shared by ntt.cu and tensor.cu.
 // ---------------------------------------------------------------------
-template <bool ENTER>
-__global__ void fwd_pass1(const i64* __restrict__ x, i64* out, Geo g, int C,
+template <typename W, bool ENTER>
+__global__ void fwd_pass1(const W* __restrict__ x, W* out, Geo g, int C,
                           int skip_lo, int skip_hi,
-                          const i64* __restrict__ qv,
-                          const i64* __restrict__ kv,
-                          const i64* __restrict__ psi,
-                          const i64* __restrict__ Rs) {
-    extern __shared__ i64 s[];
+                          const W* __restrict__ qv,
+                          const W* __restrict__ kv,
+                          const W* __restrict__ psi,
+                          const W* __restrict__ Rs) {
+    typedef typename Lane<W>::U U;
+    W* s = smem<W>();
     const int row = blockIdx.y;
     const int c = row % C;
     if (c >= skip_lo && c < skip_hi) return;
     const int ct = blockIdx.x;
-    const u64 q = (u64)qv[c], k = (u64)kv[c];
+    const U q = (U)qv[c], k = (U)kv[c];
     const size_t base = (size_t)row << g.logN;
     const int n = g.N1 * g.TC;
     for (int e = threadIdx.x; e < n; e += blockDim.x) {
-        i64 v = x[base + strided_x(g, ct, e)];
+        W v = x[base + strided_x(g, ct, e)];
         if (ENTER) v = redc(v, Rs[c], q, k);
         s[e] = v;
     }

@@ -60,8 +60,9 @@ def _ksk_shard_core(pk0, Psk, lo, alpha, pack_part):
 
 
 def _encrypt_core(pt, dc_rns, e0, e1, v, pk0, pk1, lp):
-    """pt/e0/e1/v: [..., N] signed int64; pk0/pk1: [C, N]; dc_rns: [..., C]
-    bias-guard DC residues (zeros when bias_guard is off).
+    """pt/e0/e1/v: [..., N] signed; pk0/pk1: [C, N]; dc_rns: [..., C]
+    bias-guard DC residues (zeros when bias_guard is off), in the storage
+    dtype.
     -> (ct0, ct1), each [..., C, N]."""
     pk = lp.pack
     e0_t = mont.tile_unsigned(e0, pk)
@@ -364,7 +365,9 @@ class CkksEngine:
         return self.params.lp(lvl, special)
 
     def _to_dev(self, x):
-        return torch.as_tensor(x, dtype=torch.int64).to(self.device)
+        """Host draws and codec output -> the device, in the storage dtype
+        (int32 in the 30-bit mode, where every value is below 2^28)."""
+        return torch.as_tensor(x).to(self.device, self.params.dtype)
 
     @property
     def _rounding_half(self):
@@ -587,10 +590,11 @@ class CkksEngine:
 
     def encrypt(self, pt, pk: PublicKey = None, *, level: int = 0
                 ) -> Ciphertext:
-        """Encrypt encoded coefficients pt ([N] int64)."""
+        """Encrypt encoded coefficients pt ([N] integers)."""
         pk = pk or self.pk
         C = self._lp(level, pk.has_flag(FLAGS.INCLUDE_SPECIAL)).num_channels
-        return self._encrypt(pt, np.zeros(C, dtype=np.int64), pk, level)
+        return self._encrypt(pt, np.zeros(C, dtype=self.ckksCfg.numpy_dtype),
+                             pk, level)
 
     def encodecrypt(self, m, pk: PublicKey = None, *, level: int = 0,
                     padding=True) -> Ciphertext:
@@ -599,7 +603,7 @@ class CkksEngine:
             m = codec.padding(m, num_slots=self.num_slots)
         deviation = self.params.deviations[level]
         C = self._lp(level, pk.has_flag(FLAGS.INCLUDE_SPECIAL)).num_channels
-        dc_rns = np.zeros(C, dtype=np.int64)
+        dc_rns = np.zeros(C, dtype=self.ckksCfg.numpy_dtype)
         if self.bias_guard:
             # move the DC integral part out of the rounded coefficients and
             # add it back exactly as RNS residues
@@ -612,7 +616,7 @@ class CkksEngine:
             dc_scale = int(dc_integral) * int(self.ckksCfg.scale)
             dc_rns = np.array(
                 [dc_scale % self.params.q[i] for i in range(level, level + C)],
-                dtype=np.int64,
+                dtype=self.ckksCfg.numpy_dtype,
             )
             pt = self.rng.randround(pt * np.float64(self.ckksCfg.scale))
         else:

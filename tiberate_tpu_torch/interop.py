@@ -19,8 +19,12 @@ _CLASSES = {
 
 
 def to_tensor(x, device="cpu") -> torch.Tensor:
-    """An array-like (numpy, jax) -> int64 tensor on ``device``."""
-    return torch.from_numpy(np.array(x, dtype=np.int64)).to(device)
+    """An array-like (numpy, jax) -> tensor on ``device``: int32 arrays (the
+    30-bit mode's residues) stay int32, every other array becomes int64."""
+    x = np.array(x)
+    if x.dtype != np.int32:
+        x = x.astype(np.int64)
+    return torch.from_numpy(x).to(device)
 
 
 def _leaves(data, device):

@@ -24,7 +24,9 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-# C entry point -> argument types (pointers and the stream as void*)
+# C entry point of the 62-bit lane -> argument types (pointers and the
+# stream as void*); the 30-bit lane's entry point, the same name with
+# "_30" appended, takes the same arguments.
 _SIGNATURES = {
     "tt_ntt_fwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P],
     "tt_ntt_keymul_accum": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
@@ -119,8 +121,9 @@ def lib():
     if _lib is None:
         handle = ctypes.CDLL(build())
         for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for entry in (name, name + "_30"):
+                fn = getattr(handle, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _lib = handle
     return _lib

@@ -1,6 +1,8 @@
-"""Negacyclic NTT / iNTT on ``[..., C, N]`` int64 RNS tensors (radix 2).
+"""Negacyclic NTT / iNTT on ``[..., C, N]`` RNS tensors (radix 2).
 
-The torch counterpart of ``tiberate_tpu/ops/ntt.py`` (its int64 path): each
+The torch counterpart of ``tiberate_tpu/ops/ntt.py``, for both storage
+dtypes: the twiddle tables and data carry the pack's dtype (int64 at
+R = 2^62, int32 at R = 2^30) and :mod:`mont` picks the mode from it.  Each
 stage is a reshape,
 
     stage ``logm`` (m = 2^logm groups, t = N / 2m):
@@ -31,9 +33,9 @@ def _butterfly_consts(pack: ModPack):
 def ntt(x, psi, pack: ModPack, signed: bool = False):
     """Forward negacyclic NTT, in Montgomery domain, lazy [0,2q) bounds.
 
-    x: [..., C, N] int64 (Montgomery form, < 2q).  ``signed`` documents that
-    negative representatives are accepted (key-material rotation); the
-    int64 butterflies handle both, so the path is the same.
+    x: [..., C, N] in the pack's dtype (Montgomery form, < 2q).  ``signed``
+    documents that negative representatives are accepted (key-material
+    rotation); the signed butterflies handle both, so the path is the same.
     psi: [C, N] — bit-reversed ψ power series in Montgomery form.
     """
     del signed

@@ -25,7 +25,13 @@ A wrapper dispatches on the device of its input: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernel (built from ``csrc/`` at
 first use, :mod:`tiberate_tpu_torch.ops.cuda_build`); any other device
 raises.  There is no fallback from a CUDA tensor to the plain version.
-Every launch adds one to :data:`LAUNCHES` under the wrapper's name.
+
+Each kernel has two lanes, chosen by the dtype of the level pack: int64
+operands (R = 2^62) launch the 62-bit entry point, int32 operands
+(R = 2^30, the 30-bit mode) the ``_30`` one.  An operand whose dtype is
+not the pack's raises; nothing is converted.  Every launch adds one to
+:data:`LAUNCHES` under the wrapper's name, with ``_30`` appended for the
+30-bit lane.
 
 The kernels run the plain versions' butterflies, twiddles, operand order
 and lazy reductions, so their outputs are bit-identical to the plain
@@ -39,11 +45,12 @@ import torch
 from tiberate_tpu_torch.ops import cuda_build, mont
 from tiberate_tpu_torch.ops import ntt as ntt_ops
 
+WRAPPERS = ("ntt", "intt", "ntt_keymul", "ntt_keymul_accum", "intt_pdiv",
+            "ntt_tensor", "ntt_keymul_parts")
+# storage dtype -> suffix of the lane's C entry points and launch counts
+LANES = {torch.int64: "", torch.int32: "_30"}
 LAUNCHES = dict.fromkeys(
-    ("ntt", "intt", "ntt_keymul", "ntt_keymul_accum", "intt_pdiv",
-     "ntt_tensor", "ntt_keymul_parts"),
-    0,
-)
+    (name + sfx for sfx in LANES.values() for name in WRAPPERS), 0)
 
 _INTT_EPILOGUES = {"mont": 0, "exit": 1, "exit_reduce": 2}
 _MAX_ROWS = 65535  # a launch's grid.y: one block row per polynomial row
@@ -72,13 +79,34 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _check(device, **tensors):
-    """Every operand on ``device``, int64 (int32 for ``alphas``) and
-    contiguous — the kernels take raw pointers."""
+def _lane(pack):
+    """The lane suffix of a pack's storage dtype ("" or "_30")."""
+    if pack.dtype not in LANES:
+        raise TypeError(f"no kernel lane for dtype {pack.dtype}")
+    return LANES[pack.dtype]
+
+
+def _entry(name, pack):
+    """The lane's C entry point: ``name`` (62-bit) or ``name + "_30"``."""
+    return getattr(cuda_build.lib(), name + _lane(pack))
+
+
+def _done(rc, name, pack):
+    """Raise on a failed launch; count a good one under the lane's key."""
+    key = name + _lane(pack)
+    if rc != 0:
+        raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
+    LAUNCHES[key] += 1
+
+
+def _check(device, dtype, **tensors):
+    """Every operand on ``device``, of the lane's storage ``dtype`` (int32
+    for ``alphas`` in both lanes) and contiguous — the kernels take raw
+    pointers."""
     for name, t in tensors.items():
         if t is None:
             continue
-        want = torch.int32 if name == "alphas" else torch.int64
+        want = torch.int32 if name == "alphas" else dtype
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
         if t.dtype != want:
@@ -110,11 +138,6 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _raise_on(rc, name):
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-
-
 # ----------------------------------------------------------------------
 # K1 — forward NTT.
 # ----------------------------------------------------------------------
@@ -132,15 +155,15 @@ def ntt(x, lp, enter: bool):
         return ntt_plain(x, lp, enter)
     C = lp.num_channels
     rows, logN = _geometry(x, C)
-    _check(x.device, x=x, q=lp.pack.q, k=lp.pack.k, psi=lp.psi, Rs=lp.Rs)
+    _check(x.device, lp.pack.dtype, x=x, q=lp.pack.q, k=lp.pack.k,
+           psi=lp.psi, Rs=lp.Rs)
     out = torch.empty_like(x)
-    rc = cuda_build.lib().tt_ntt_fwd(
+    rc = _entry("tt_ntt_fwd", lp.pack)(
         _ptr(x), _ptr(out), None, rows, C, logN, _ptr(lp.pack.q),
         _ptr(lp.pack.k), _ptr(lp.psi), _ptr(lp.Rs) if enter else None,
         None, None, 0, _stream(x.device),
     )
-    _raise_on(rc, "ntt")
-    LAUNCHES["ntt"] += 1
+    _done(rc, "ntt", lp.pack)
     return out
 
 
@@ -168,16 +191,15 @@ def intt(x, lp, epilogue: str):
         raise ValueError(f"unknown epilogue {epilogue!r}")
     C = lp.num_channels
     rows, logN = _geometry(x, C)
-    _check(x.device, x=x, q=lp.pack.q, k=lp.pack.k, ipsi=lp.ipsi,
-           Ninv=lp.Ninv)
+    _check(x.device, lp.pack.dtype, x=x, q=lp.pack.q, k=lp.pack.k,
+           ipsi=lp.ipsi, Ninv=lp.Ninv)
     out = torch.empty_like(x)
-    rc = cuda_build.lib().tt_ntt_inv(
+    rc = _entry("tt_ntt_inv", lp.pack)(
         _ptr(x), _ptr(out), rows, C, C, logN, _ptr(lp.pack.q),
         _ptr(lp.pack.k), _ptr(lp.ipsi), _ptr(lp.Ninv),
         _INTT_EPILOGUES[epilogue], None, None, 0, _stream(x.device),
     )
-    _raise_on(rc, "intt")
-    LAUNCHES["intt"] += 1
+    _done(rc, "intt", lp.pack)
     return out
 
 
@@ -205,17 +227,16 @@ def ntt_keymul(x, lp, keys, enter: bool):
     for key in keys:
         if tuple(key.shape) != tuple(x.shape[-2:]):
             raise ValueError(f"key shape {tuple(key.shape)} != [C, N]")
-    _check(x.device, x=x, q=lp.pack.q, k=lp.pack.k, psi=lp.psi, Rs=lp.Rs,
-           key0=key0, key1=key1)
+    _check(x.device, lp.pack.dtype, x=x, q=lp.pack.q, k=lp.pack.k,
+           psi=lp.psi, Rs=lp.Rs, key0=key0, key1=key1)
     out0 = torch.empty_like(x)
     out1 = torch.empty_like(x) if key1 is not None else None
-    rc = cuda_build.lib().tt_ntt_fwd(
+    rc = _entry("tt_ntt_fwd", lp.pack)(
         _ptr(x), _ptr(out0), _ptr(out1), rows, C, logN, _ptr(lp.pack.q),
         _ptr(lp.pack.k), _ptr(lp.psi), _ptr(lp.Rs) if enter else None,
         _ptr(key0), _ptr(key1), len(keys), _stream(x.device),
     )
-    _raise_on(rc, "ntt_keymul")
-    LAUNCHES["ntt_keymul"] += 1
+    _done(rc, "ntt_keymul", lp.pack)
     return (out0,) if key1 is None else (out0, out1)
 
 
@@ -274,16 +295,15 @@ def ntt_keymul_accum(x, lp, keys, acc, skip):
         if a.shape != x.shape:
             raise ValueError(f"accumulator shape {tuple(a.shape)} != "
                              f"{tuple(x.shape)}")
-    _check(x.device, x=x, q=lp.pack.q, k=lp.pack.k, psi=lp.psi, key0=key0,
-           key1=key1, acc0=acc0, acc1=acc1)
+    _check(x.device, lp.pack.dtype, x=x, q=lp.pack.q, k=lp.pack.k,
+           psi=lp.psi, key0=key0, key1=key1, acc0=acc0, acc1=acc1)
     tmp = torch.empty_like(x)
-    rc = cuda_build.lib().tt_ntt_keymul_accum(
+    rc = _entry("tt_ntt_keymul_accum", lp.pack)(
         _ptr(x), _ptr(tmp), _ptr(acc0), _ptr(acc1), rows, C, logN,
         _ptr(lp.pack.q), _ptr(lp.pack.k), _ptr(lp.psi), _ptr(key0),
         _ptr(key1), lo, hi, _stream(x.device),
     )
-    _raise_on(rc, "ntt_keymul_accum")
-    LAUNCHES["ntt_keymul_accum"] += 1
+    _done(rc, "ntt_keymul_accum", lp.pack)
     return acc
 
 
@@ -328,17 +348,17 @@ def intt_pdiv(acc, p0, lp_ord, PiRs):
     B = rows_in // C_in
     if tuple(p0.shape) != (*acc.shape[:-2], S, acc.shape[-1]):
         raise ValueError(f"p0 shape {tuple(p0.shape)} does not match acc")
-    _check(acc.device, acc=acc, p0=p0, q=lp_ord.pack.q, k=lp_ord.pack.k,
-           ipsi=lp_ord.ipsi, Ninv=lp_ord.Ninv, pdc=lp_ord.pdc)
+    _check(acc.device, lp_ord.pack.dtype, acc=acc, p0=p0, q=lp_ord.pack.q,
+           k=lp_ord.pack.k, ipsi=lp_ord.ipsi, Ninv=lp_ord.Ninv,
+           pdc=lp_ord.pdc)
     out = torch.empty((*acc.shape[:-2], C, acc.shape[-1]),
                       dtype=acc.dtype, device=acc.device)
-    rc = cuda_build.lib().tt_ntt_inv(
+    rc = _entry("tt_ntt_inv", lp_ord.pack)(
         _ptr(acc), _ptr(out), B * C, C, C_in, logN, _ptr(lp_ord.pack.q),
         _ptr(lp_ord.pack.k), _ptr(lp_ord.ipsi), _ptr(lp_ord.Ninv),
         _EPI_PDIV, _ptr(p0), _ptr(lp_ord.pdc), S, _stream(acc.device),
     )
-    _raise_on(rc, "intt_pdiv")
-    LAUNCHES["intt_pdiv"] += 1
+    _done(rc, "intt_pdiv", lp_ord.pack)
     return out
 
 
@@ -370,17 +390,16 @@ def ntt_tensor(x0, x1, y0, y1, lp):
     for t in (x1, y0, y1):
         if t.shape != x0.shape:
             raise ValueError("ntt_tensor operands must share one shape")
-    _check(x0.device, x0=x0, x1=x1, y0=y0, y1=y1, q=lp.pack.q, k=lp.pack.k,
-           psi=lp.psi, Rs=lp.Rs)
+    _check(x0.device, lp.pack.dtype, x0=x0, x1=x1, y0=y0, y1=y1,
+           q=lp.pack.q, k=lp.pack.k, psi=lp.psi, Rs=lp.Rs)
     tmp = torch.empty((4, *x0.shape), dtype=x0.dtype, device=x0.device)
     d0, d1, d2 = (torch.empty_like(x0) for _ in range(3))
-    rc = cuda_build.lib().tt_ntt_tensor(
+    rc = _entry("tt_ntt_tensor", lp.pack)(
         _ptr(x0), _ptr(x1), _ptr(y0), _ptr(y1), _ptr(tmp), _ptr(d0),
         _ptr(d1), _ptr(d2), rows, C, logN, _ptr(lp.pack.q), _ptr(lp.pack.k),
         _ptr(lp.psi), _ptr(lp.Rs), _stream(x0.device),
     )
-    _raise_on(rc, "ntt_tensor")
-    LAUNCHES["ntt_tensor"] += 1
+    _done(rc, "ntt_tensor", lp.pack)
     return d0, d1, d2
 
 
@@ -439,18 +458,17 @@ def ntt_keymul_parts(st, ec, alphas, keys, lp_sp):
     B = math.prod(lead)
     _check_rows(B * n_parts * C_sp)
     _, logN = _geometry(k0[0], C_sp)
-    _check(st.device, st=st, ec=ec, alphas=alphas, k0=k0, k1=k1,
-           q=lp_sp.pack.q, k=lp_sp.pack.k, psi=lp_sp.psi)
+    _check(st.device, lp_sp.pack.dtype, st=st, ec=ec, alphas=alphas, k0=k0,
+           k1=k1, q=lp_sp.pack.q, k=lp_sp.pack.k, psi=lp_sp.psi)
     tmp = torch.empty((B, n_parts, C_sp, N), dtype=st.dtype,
                       device=st.device)
     acc0 = torch.empty((*lead, C_sp, N), dtype=st.dtype, device=st.device)
     acc1 = torch.empty_like(acc0)
-    rc = cuda_build.lib().tt_ntt_keymul_parts(
+    rc = _entry("tt_ntt_keymul_parts", lp_sp.pack)(
         _ptr(st), _ptr(ec), _ptr(alphas), _ptr(tmp), _ptr(k0), _ptr(k1),
         _ptr(acc0), _ptr(acc1), B, n_parts, amax, C_sp, logN,
         _ptr(lp_sp.pack.q), _ptr(lp_sp.pack.k), _ptr(lp_sp.psi),
         _stream(st.device),
     )
-    _raise_on(rc, "ntt_keymul_parts")
-    LAUNCHES["ntt_keymul_parts"] += 1
+    _done(rc, "ntt_keymul_parts", lp_sp.pack)
     return acc0, acc1

@@ -2,7 +2,8 @@
 
 The torch counterpart of ``tiberate_tpu/typing.py``: the same ``FLAGS``
 bitflags and ``DataStruct`` fields (``data``, flags, ``level``, ``misc``),
-with ``data`` holding int64 tensors shaped ``[..., C, N]``.  Operator sugar,
+with ``data`` holding tensors shaped ``[..., C, N]`` in the storage dtype
+(int64, or int32 in the 30-bit mode).  Operator sugar,
 plaintext caches and save/load come with later slices of the port.
 """
 

@@ -8,6 +8,14 @@ Phases (any failure exits non-zero):
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``tiberate_tpu_torch/csrc`` (one nvcc per
    source, in parallel), and print ptxas's register and spill counts;
+2b. the fold-rate probe (``fold_microbench``, the counterpart of the TPU's
+   VPU op-rate probe): each of its three kernels (``fold_shoup``,
+   ``fold_redc``, ``fold_redc_30``) against its plain version, byte for
+   byte, on the [64, 256, 512] block at K = 32; then the probe's entry
+   point, with the launch counts set to 0 before and read after, measures
+   each mode's rate from two chain lengths; it prints the rates beside the
+   card's SM clock, and the SASS instructions of one chain step where
+   ``cuobjdump`` is present;
 3. at the logN15 step shapes (batch 8, 16/17/18 channels, N = 32768) hold
    each kernel against its plain torch version on the same card tensors —
    byte for byte, lazy outputs included — and time both;
@@ -28,7 +36,9 @@ Phases (any failure exits non-zero):
 6. at Preset.logN17 (N = 2^17, 73 + 6 primes; one engine for the whole
    phase): the kernels at the step's shapes (batch 8, level 1: 72 / 78
    channels) against their plain versions, the chain kernel with no skip
-   range and with one part's range (median of 3 single calls each);
+   range and with one part's range, and the all-parts kernel on digits
+   [8, 13, 6, 2^17] (median of 3 single calls each; the all-parts plain
+   version, which takes seconds, timed by its one comparison call);
 7. the logN17 main path: keygen, encodecrypt of 8 pairs, the cc_mult step
    through the per-part chain (13 ``ntt_keymul_accum`` launches, no
    all-parts launch), decryptcode (error below 1e-4, the JAX package's
@@ -51,11 +61,16 @@ Phases (any failure exits non-zero):
     launches, no all-parts launch; error below 1e-2); the step equal to the
     plain-version step; the route A/B with peak memory; one profiled step.
 
-Each kernel's bound is the least time its bytes take at the H100's
-datasheet HBM rate (every input read once, the output written once); no
-integer-multiply rate is established for this card yet.  The second-to-
-last line is a JSON object with one entry per kernel and lane; the last
-line is the device record.
+Each kernel has two bounds (``tiberate_tpu_torch/ops/roofline.py``): the
+time its bytes take at the H100's datasheet HBM rate (every input read
+once, the output written once), and the time its REDCs, counted from its
+source at the shape of the call, take at the REDC rate of its lane that
+phase 2b measured on this card.  ``bound_ms`` is the larger; ``bound_by``
+says which ("bytes" or "operations": the REDCs).  Before the JSON lines,
+the kernels of each driven path are ranked by launches x (time - bound),
+once with the launches of the whole path and once with the step's.  The
+second-to-last line is a JSON object with one entry per kernel and lane,
+the probe's three kernels included; the last line is the device record.
 """
 
 import contextlib
@@ -74,7 +89,6 @@ SEED = 1234
 DECRYPT_TOL = 1e-6       # fresh ciphertext; the JAX logN14/15 tests
 DECRYPT_TOL_17 = 1e-4    # cc_mult at logN17: tests/test_full_presets.py
 DECRYPT_TOL_30 = 1e-2    # the 30-bit mode: tests/test_mode30.py
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM datasheet, at the 700 W power limit
 
 # kernel (its launch-count key) -> (source, the TPU kernel it replaces).
 # K1-K4 and the K3 chain variant are entry points of _run_group (:1395),
@@ -95,6 +109,12 @@ KERNELS = {
                  f"{_PALLAS}:{line30 if sfx else line}")
     for sfx in ("", "_30")
     for name, (src, line, line30) in _SOURCES.items()
+}
+# the fold-rate probe's kernels (no 30-bit Shoup lane)
+PROBE = {
+    name: ("tiberate_tpu_torch/csrc/fold_probe.cu",
+           "benchmarks/profiling/vpu_microbench.py:49")
+    for name in ("fold_shoup", "fold_redc", "fold_redc_30")
 }
 # the kernels each driven path launches (keygen, encrypt, step, decrypt),
 # and those the fused step itself launches; the 30-bit paths launch the
@@ -159,13 +179,17 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def check_kernels(eng, kern, mod, tag, loops, with_parts=True):
+def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s,
+                  plain_once=()):
     """Every kernel against its plain version at the step shapes of
     ``eng`` (batch 8, work level 1), in the lane of its storage dtype; the
     chain kernel with no skip range and with one part's range.  ``loops``
-    = (reps, inner) of cuda_ms.  Each result carries its HBM bound: the
+    = (reps, inner) of cuda_ms; the plain versions named in ``plain_once``,
+    which take seconds, are timed by their one comparison call (CUDA
+    events).  Each result carries its two bounds: the
     bytes of every input (data, twiddles, keys, constants) read once and
-    every output written once, at the datasheet rate."""
+    every output written once, at the datasheet HBM rate, and its REDCs at
+    the lane's measured rate ``redc_per_s``."""
     dev = eng.device
     gen = torch.Generator(device=dev).manual_seed(SEED)
     N = eng.ckksCfg.N
@@ -176,6 +200,11 @@ def check_kernels(eng, kern, mod, tag, loops, with_parts=True):
     PiRs = eng.params.PiRs[1]
     parts = eng.params.parts[1]
     part = parts[min(1, len(parts) - 1)]
+    skip = (part.lo, part.hi)
+    skip_key = f"ntt_keymul_accum[skip {part.lo}:{part.hi}]"
+    logN = N.bit_length() - 1
+    ec, alphas = eng._parts_consts(1)
+    n_parts, amax = ec.shape[0], ec.shape[-1]
 
     x = uniform(gen, q_ord, (BATCH, C, N))
     x4 = [uniform(gen, q_ord, (BATCH, C, N)) for _ in range(4)]
@@ -185,6 +214,10 @@ def check_kernels(eng, kern, mod, tag, loops, with_parts=True):
     p0 = uniform(gen, q_sp[C:], (BATCH, S, N))
     ext = uniform(gen, q_sp, (BATCH, C_sp, N))
     keys_sp = (uniform(gen, q_sp, (C_sp, N)), uniform(gen, q_sp, (C_sp, N)))
+    st = mod._parts_digits(uniform(gen, q_ord, (BATCH, C, N)), parts, lp_ord,
+                           amax).contiguous()
+    pkeys = tuple(torch.stack([uniform(gen, q_sp, (C_sp, N))
+                               for _ in range(n_parts)]) for _ in range(2))
 
     def accum_case(skip):
         accs = [tuple(uniform(gen, 2 * q_sp, (BATCH, C_sp, N))
@@ -196,13 +229,16 @@ def check_kernels(eng, kern, mod, tag, loops, with_parts=True):
                                                 skip),
         )
 
+    def accum_width(skip):
+        # the channels outside the skip range: only they are read, written
+        # and transformed
+        return C_sp - (0 if skip is None else skip[1] - skip[0])
+
     def accum_bytes(skip):
-        # only the channels outside the skip range are read and written
-        width = 0 if skip is None else skip[1] - skip[0]
-        rows = (C_sp - width) / C_sp
         # x, twiddles, both keys, q, k; both accumulators read and written
-        return rows * (nbytes(ext, lp_sp.psi, *keys_sp, lp_sp.pack.q,
-                              lp_sp.pack.k) + 4 * nbytes(ext))
+        return accum_width(skip) / C_sp * (
+            nbytes(ext, lp_sp.psi, *keys_sp, lp_sp.pack.q, lp_sp.pack.k)
+            + 4 * nbytes(ext))
 
     cases = {
         "ntt": (lambda: kern.ntt(x, lp_ord, enter=True),
@@ -212,12 +248,15 @@ def check_kernels(eng, kern, mod, tag, loops, with_parts=True):
         "ntt_keymul": (lambda: kern.ntt_keymul(x0, lp0, keys0, True),
                        lambda: kern.ntt_keymul_plain(x0, lp0, keys0, True)),
         "ntt_keymul_accum": accum_case(None),
-        f"ntt_keymul_accum[skip {part.lo}:{part.hi}]":
-            accum_case((part.lo, part.hi)),
+        skip_key: accum_case(skip),
         "intt_pdiv": (lambda: kern.intt_pdiv(acc, p0, lp_ord, PiRs),
                       lambda: kern.intt_pdiv_plain(acc, p0, lp_ord, PiRs)),
         "ntt_tensor": (lambda: kern.ntt_tensor(*x4, lp_ord),
                        lambda: kern.ntt_tensor_plain(*x4, lp_ord)),
+        "ntt_keymul_parts": (
+            lambda: kern.ntt_keymul_parts(st, ec, alphas, pkeys, lp_sp),
+            lambda: kern.ntt_keymul_parts_plain(st, ec, alphas, pkeys,
+                                                lp_sp)),
     }
     consts = (lp_ord.pack.q, lp_ord.pack.k)
     # bytes each call must move: inputs read once, outputs written once
@@ -227,58 +266,125 @@ def check_kernels(eng, kern, mod, tag, loops, with_parts=True):
         "ntt_keymul": nbytes(x0, lp0.psi, lp0.Rs, *keys0, lp0.pack.q,
                              lp0.pack.k, x0, x0),
         "ntt_keymul_accum": accum_bytes(None),
-        f"ntt_keymul_accum[skip {part.lo}:{part.hi}]":
-            accum_bytes((part.lo, part.hi)),
+        skip_key: accum_bytes(skip),
         "intt_pdiv": nbytes(acc[..., :C, :], p0, lp_ord.ipsi, lp_ord.Ninv,
                             lp_ord.pdc, *consts, acc[..., :C, :]),
         "ntt_tensor": nbytes(*x4, lp_ord.psi, lp_ord.Rs, *consts,
                              *x4[:3]),
+        "ntt_keymul_parts": nbytes(st, ec, alphas, *pkeys, lp_sp.psi,
+                                   lp_sp.pack.q, lp_sp.pack.k, ext, ext),
+    }
+    # REDCs each call's kernel performs (ops/roofline.py)
+    redc = {
+        "ntt": roofline.ntt(BATCH * C, logN, True),
+        "intt": roofline.intt(BATCH * C, logN, "exit_reduce"),
+        "ntt_keymul": roofline.ntt_keymul(BATCH * (C + 1), logN, 2, True),
+        "ntt_keymul_accum": roofline.ntt_keymul_accum(
+            BATCH * accum_width(None), logN),
+        skip_key: roofline.ntt_keymul_accum(BATCH * accum_width(skip),
+                                            logN),
+        "intt_pdiv": roofline.intt_pdiv(BATCH * C, logN, S),
+        "ntt_tensor": roofline.ntt_tensor(BATCH * C, logN),
+        "ntt_keymul_parts": roofline.ntt_keymul_parts(
+            BATCH, alphas.tolist(), C_sp, logN),
     }
     shapes = {"ntt": [BATCH, C, N], "intt": [BATCH, C, N],
               "ntt_keymul": [BATCH, C + 1, N], "intt_pdiv": [BATCH, C_sp, N],
-              "ntt_tensor": [BATCH, C, N]}
-    if with_parts:
-        ec, alphas = eng._parts_consts(1)
-        n_parts, amax = ec.shape[0], ec.shape[-1]
-        a = uniform(gen, q_ord, (BATCH, C, N))
-        st = mod._parts_digits(a, parts, lp_ord, amax).contiguous()
-        pkeys = tuple(
-            torch.stack([uniform(gen, q_sp, (C_sp, N))
-                         for _ in range(n_parts)])
-            for _ in range(2)
-        )
-        cases["ntt_keymul_parts"] = (
-            lambda: kern.ntt_keymul_parts(st, ec, alphas, pkeys, lp_sp),
-            lambda: kern.ntt_keymul_parts_plain(st, ec, alphas, pkeys,
-                                                lp_sp))
-        shapes["ntt_keymul_parts"] = [BATCH, n_parts, amax, N]
-        io["ntt_keymul_parts"] = nbytes(st, ec, alphas, *pkeys, lp_sp.psi,
-                                        lp_sp.pack.q, lp_sp.pack.k, ext, ext)
+              "ntt_tensor": [BATCH, C, N],
+              "ntt_keymul_parts": [BATCH, n_parts, amax, N]}
     results = {}
     for name, (kfn, pfn) in cases.items():
-        got, want = kfn(), pfn()
+        got = kfn()
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        want = pfn()
+        stop.record()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         same = all(torch.equal(g, w) for g, w in zip(got, want))
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         ms = cuda_ms(kfn, *loops)
-        plain_ms = cuda_ms(pfn, *loops)
+        plain_ms = (start.elapsed_time(stop) if name in plain_once
+                    else cuda_ms(pfn, *loops))
         shape = shapes.get(name, [BATCH, C_sp, N])
-        bound_ms = io[name] / HBM_BYTES_PER_S * 1e3
+        b = roofline.bound(io[name], redc[name], redc_per_s)
         log(f"{tag} kernel {name}: input {shape} {str(x.dtype)[6:]} "
             f"byte-identical={same} max_abs_err={err} kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, HBM bound {bound_ms:.4f} ms "
-            f"({io[name] / 1e6:.1f} MB, {100 * bound_ms / ms:.1f}% of it)")
+            f"plain {plain_ms:.4f} ms; HBM bound {b['bytes_bound_ms']:.4f} "
+            f"ms ({io[name] / 1e6:.1f} MB), REDC bound "
+            f"{b['compute_bound_ms']:.4f} ms ({redc[name] / 1e6:.1f} M "
+            f"REDC): bound by {b['bound_by']}, "
+            f"{100 * b['bound_ms'] / ms:.1f}% of the bound")
         if not same:
             raise AssertionError(f"{tag} {name} disagrees with its plain "
                                  f"version")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by="bytes",
-                             library_ms=None, bytes=io[name])
-    skip_name = next(k for k in results if k.startswith("ntt_keymul_accum["))
-    results["ntt_keymul_accum"]["with_skip"] = results.pop(skip_name)
+                             library_ms=None, bytes=io[name], **b)
+    results["ntt_keymul_accum"]["with_skip"] = results.pop(skip_key)
     return results
+
+
+def probe_phase(fm, fp, roofline):
+    """Phase 2b.  Each probe kernel against its plain version on the
+    [64, 256, 512] block at K = 32, byte for byte; then the probe's entry
+    point (``fm.measure``) with the launch counts set to 0 before and read
+    after.  Returns (results by kernel, the counts of that run)."""
+    results = {}
+    for mode, (fn, plain, _) in fm.MODES.items():
+        x, q, w = fm.make_input(mode, "cuda", SEED)
+        got, want = fn(x, w, q, fm.K_SHORT), plain(x, w, q, fm.K_SHORT)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        err = float((got - want).abs().max())
+        plain_ms = cuda_ms(lambda: plain(x, w, q, fm.K_SHORT), 3, 1)
+        log(f"probe {mode}: block {list(x.shape)} {str(x.dtype)[6:]}, "
+            f"q={q}, K={fm.K_SHORT}: byte-identical={same} "
+            f"max_abs_err={err}, plain {plain_ms:.4f} ms")
+        if not same:
+            raise AssertionError(f"probe {mode} disagrees with its plain "
+                                 f"version")
+        results[mode] = dict(max_abs_err=err, plain_ms=plain_ms,
+                             bytes=nbytes(x, got), folds=x.numel() * fm.K_SHORT)
+    fp.reset_launch_counts()
+    rates = fm.measure("cuda", SEED)
+    torch.cuda.synchronize()
+    counts = dict(fp.LAUNCHES)
+    clocks = fm.card()
+    sass = fm.sass_step_counts() or {}
+    for mode, r in rates.items():
+        res = results[mode]
+        b = roofline.bound(res.pop("bytes"), res.pop("folds"),
+                           r["fold_per_s"])
+        step = sass.get(mode)
+        res.update(ms=r["ms"][fm.K_SHORT], chain=fm.K_SHORT,
+                   ms_by_chain=r["ms"], ns_per_fold=r["ns_per_fold"],
+                   fold_per_s=r["fold_per_s"], library_ms=None,
+                   sass_step=step, **b)
+        log(f"probe {mode}: K={fm.K_SHORT} {r['ms'][fm.K_SHORT]:.4f} ms, "
+            f"K={fm.K_LONG} {r['ms'][fm.K_LONG]:.4f} ms per call: "
+            f"{r['ns_per_fold']:.6f} ns per fold, "
+            f"{r['fold_per_s'] / 1e9:.1f} G-fold/s; one chain step "
+            + ("not measured" if step is None else
+               f"{step[0]} IMAD-class of {step[1]} SASS instructions")
+            + f" ({clocks}: name, power limit, SM clock, max SM clock)")
+    return results, counts
+
+
+def rank(results, launches, sfx, tag):
+    """The kernels by launches x (time - bound), largest first; the chain
+    kernel with one part's range skipped, as the step runs it."""
+    rows = []
+    for name, res in results.items():
+        n = launches[name + sfx]
+        if n:
+            res = res.get("with_skip", res)
+            rows.append((n * (res["ms"] - res["bound_ms"]), name + sfx, n,
+                         res))
+    rows.sort(key=lambda r: -r[0])
+    log(f"{tag} kernels by launches x (time - bound): " + "; ".join(
+        f"{name} {n} x ({r['ms']:.4f} - {r['bound_ms']:.4f}) = {loss:.4f} ms"
+        for loss, name, n, r in rows))
 
 
 def count_launches(kern, fn):
@@ -514,8 +620,9 @@ def main():
         stack_ciphertexts,
         unstack_ciphertext,
     )
+    from tiberate_tpu_torch.benchmarks.profiling import fold_microbench
     from tiberate_tpu_torch.engine import ckks_engine as mod
-    from tiberate_tpu_torch.ops import cuda_build
+    from tiberate_tpu_torch.ops import cuda_build, fold_probe, roofline
     from tiberate_tpu_torch.ops import ntt_kernels as kern
     from tiberate_tpu_torch.parallel import sharded
 
@@ -541,9 +648,16 @@ def main():
         f"{spill} bytes of spill stores and loads")
     cuda_build.lib()
 
+    # 2b. the fold-rate probe: its kernels against their plain versions,
+    # then its entry point; the REDC rate of each lane bounds the kernels
+    probe, probe_counts = probe_phase(fold_microbench, fold_probe, roofline)
+    rate, rate30 = (probe[m]["fold_per_s"]
+                    for m in ("fold_redc", "fold_redc_30"))
+
     # 3. logN15 kernels against their plain versions
     eng_k = CkksEngine(Preset.logN15, device="cuda", seed=SEED)
-    results15 = check_kernels(eng_k, kern, mod, "logN15", (3, 3))
+    results15 = check_kernels(eng_k, kern, mod, roofline, "logN15", (3, 3),
+                              rate)
     del eng_k
 
     # 4. the logN15 main path
@@ -570,8 +684,8 @@ def main():
     log(f"logN17 engine built in {time.perf_counter() - t0:.1f} s: "
         f"{len(eng17.params.q)} primes, {len(eng17.params.parts[1])} "
         f"keyswitch parts at level 1")
-    results17 = check_kernels(eng17, kern, mod, "logN17", (3, 1),
-                              with_parts=False)
+    results17 = check_kernels(eng17, kern, mod, roofline, "logN17", (3, 1),
+                              rate, plain_once=("ntt_keymul_parts",))
 
     # 7. the logN17 main path
     A, B, out, launches17, step17, err17 = drive(
@@ -602,7 +716,8 @@ def main():
     # 10. the 30-bit mode at logN15_30: kernels, the main path (all parts in
     # one kernel), the CPU comparison, timing, route A/B, profile
     eng_k = CkksEngine("logN15_30", device="cuda", seed=SEED)
-    results15_30 = check_kernels(eng_k, kern, mod, "logN15_30", (3, 3))
+    results15_30 = check_kernels(eng_k, kern, mod, roofline, "logN15_30",
+                                 (3, 3), rate30)
     del eng_k
     eng = CkksEngine("logN15_30", device="cuda", seed=SEED)
     A, B, out, launches15_30, step15_30, err15_30 = drive(
@@ -629,7 +744,8 @@ def main():
     n_parts = len(eng.params.parts[1])
     log(f"logN17_30 engine built in {time.perf_counter() - t0:.1f} s: "
         f"{len(eng.params.q)} primes, {n_parts} keyswitch parts at level 1")
-    results17_30 = check_kernels(eng, kern, mod, "logN17_30", (3, 1))
+    results17_30 = check_kernels(eng, kern, mod, roofline, "logN17_30",
+                                 (3, 1), rate30)
     A, B, out, launches17_30, step17_30, err17_30 = drive(
         eng, kern, stack_ciphertexts, unstack_ciphertext, DECRYPT_TOL_30,
         "logN17_30")
@@ -649,7 +765,15 @@ def main():
 
     counts = {k: launches15[k] + launches17[k] + sw_counts[k]
               + launches15_30[k] + launches17_30[k] for k in KERNELS}
-    require(counts, KERNELS, "the driven paths")
+    counts.update(probe_counts)
+    require(counts, [*KERNELS, *PROBE], "the driven paths")
+    for res, launches, step, sfx, tag in (
+            (results15, launches15, step15, "", "logN15"),
+            (results17, launches17, step17, "", "logN17"),
+            (results15_30, launches15_30, step15_30, "_30", "logN15_30"),
+            (results17_30, launches17_30, step17_30, "_30", "logN17_30")):
+        rank(res, launches, sfx, f"{tag} main path:")
+        rank(res, step, sfx, f"{tag} step:")
     measured = {"": (results17, results15, "logN17", "logN15"),
                 "_30": (results17_30, results15_30, "logN17_30",
                         "logN15_30")}
@@ -665,6 +789,10 @@ def main():
         if name in big:
             entry[small_tag] = small[name]
         kernels.append(entry)
+    kernels += [dict(name=key, route="cuda", source=src, replaces=rep,
+                     launches=counts[key], **probe[key],
+                     shape=list(fold_microbench.SHAPE))
+                for key, (src, rep) in PROBE.items()]
     log(json.dumps({
         "card": smi, "batch": BATCH,
         "logN15": {"step_ms": step_ms, "step_ms_per_ct": step_ms / BATCH,

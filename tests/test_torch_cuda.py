@@ -3,8 +3,9 @@
 Every test here needs a GPU and skips without one: the kernels against
 their plain versions (the keyswitch-chain kernel with and without a skip
 range), the chain step against the all-parts step, each in both lanes (the
-62-bit int64 lane and the 30-bit int32 lane), and the card's step against
-the CPU's.  The file imports no jax, so it also runs on a machine
+62-bit int64 lane and the 30-bit int32 lane), the card's step against
+the CPU's, and the fold-rate probe's three kernels against their plain
+versions.  The file imports no jax, so it also runs on a machine
 that has only torch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -19,9 +20,11 @@ import numpy as np
 import pytest
 import torch
 
+from tiberate_tpu_torch.benchmarks.profiling import fold_microbench as fm
 from tiberate_tpu_torch.config.toy import toy_config
 from tiberate_tpu_torch.context.ntt_context import CkksParams
 from tiberate_tpu_torch.engine import ckks_engine as teng
+from tiberate_tpu_torch.ops import fold_probe as fp
 from tiberate_tpu_torch.ops import ntt_kernels as K
 from tiberate_tpu_torch.parallel import sharded
 from tiberate_tpu_torch.typing import Ciphertext
@@ -187,6 +190,24 @@ def test_wrappers_reject_bad_operands(card):
         K.ntt(x.t().contiguous().t(), lp, True)
     with pytest.raises(ValueError):
         K.ntt(x[:-1], lp, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fold_shoup", "fold_redc", "fold_redc_30"])
+def test_fold_probe_matches_plain_on_card(card, mode):
+    """Each mode of the fold-rate probe on a small block (not a multiple
+    of the kernel's block size) with the probe's constants equals its
+    plain version; one launch under the mode's own count."""
+    fn, plain, dtype = fm.MODES[mode]
+    q, w = fm.constants(mode)
+    gen = torch.Generator().manual_seed(9)
+    hi = 1 << 60 if mode == "fold_shoup" else 2 * q
+    x = torch.randint(0, hi, (3, 5, 77), generator=gen).to(card, dtype)
+    fp.reset_launch_counts()
+    got = fn(x, w, q, 19)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES == {**dict.fromkeys(fp.LAUNCHES, 0), mode: 1}
+    assert got.dtype == dtype and torch.equal(got, plain(x, w, q, 19))
 
 
 @pytest.mark.cuda

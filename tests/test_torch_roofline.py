@@ -1,0 +1,155 @@
+"""``tiberate_tpu_torch.ops.roofline``'s REDC counts against the plain
+versions of the kernels.
+
+Each kernel's plain version (``ops/ntt_kernels.py``) runs the same
+butterflies, prologues and epilogues as its CUDA kernel, one REDC
+(``mont.mont_mult_raw`` or ``mont.mont_reduce_raw``) per output element of
+each Montgomery multiply.  Here both are wrapped to count the elements they
+compute, each plain version runs at toy_config(logN=7, num_scales=4,
+num_special_primes=2) in both lanes (three parts at level 1: alpha 1, 2,
+1), and the count must equal the formula — exactly.
+
+K4 is the exception: its plain version runs the successive P-division
+chain (``intt_pdiv_plain``: exit, enter, S x (enter P0, multiply), exit),
+while the kernel evaluates the division's affine form (``csrc/ntt.cu``,
+``inv_passB<EPI_PDIV>``: x N^-1 R, then x c_x and one REDC per special
+prime, :157-165), so the two do different numbers of REDCs for the same
+result.  ``roofline.intt_pdiv`` is checked against that source by reading
+it, not by this test.
+"""
+
+import pytest
+import torch
+
+from tiberate_tpu_torch.config.toy import toy_config
+from tiberate_tpu_torch.context.ntt_context import CkksParams
+from tiberate_tpu_torch.engine import ckks_engine as teng
+from tiberate_tpu_torch.ops import mont, roofline
+from tiberate_tpu_torch.ops import ntt_kernels as K
+
+torch.set_num_threads(1)
+
+LOGN = 7
+LEVEL = 1
+BATCH = 2
+LANES = {62: dict(scale_bits=30),
+         30: dict(scale_bits=21, buffer_bit_length=30)}
+
+
+@pytest.fixture(scope="module", params=sorted(LANES))
+def tp(request):
+    return CkksParams(toy_config(logN=LOGN, num_scales=4,
+                                 num_special_primes=2, **LANES[request.param]),
+                      "cpu")
+
+
+@pytest.fixture
+def redc_count(monkeypatch):
+    """Wrap both REDC functions so they add the number of elements they
+    compute to ``count[0]``."""
+    count = [0]
+
+    def counting(fn):
+        def wrapped(*args):
+            out = fn(*args)
+            count[0] += out.numel()
+            return out
+        return wrapped
+
+    monkeypatch.setattr(mont, "mont_mult_raw", counting(mont.mont_mult_raw))
+    monkeypatch.setattr(mont, "mont_reduce_raw",
+                        counting(mont.mont_reduce_raw))
+    return count
+
+
+def _uniform(gen, q, shape):
+    x = torch.randint(0, 1 << 62, shape, generator=gen)
+    return (x % q.long()[:, None]).to(q.dtype)
+
+
+def _case(tp, name):
+    """(plain-version call, the REDCs roofline counts for it)."""
+    lp, lp_sp = tp.lp(LEVEL, False), tp.lp(LEVEL, True)
+    C, C_sp = lp.num_channels, lp_sp.num_channels
+    N = 1 << LOGN
+    gen = torch.Generator().manual_seed(7)
+    x = _uniform(gen, lp.pack.q, (BATCH, C, N))
+    keys = tuple(_uniform(gen, lp.pack.q, (C, N)) for _ in range(2))
+    ext = _uniform(gen, lp_sp.pack.q, (BATCH, C_sp, N))
+    keys_sp = tuple(_uniform(gen, lp_sp.pack.q, (C_sp, N)) for _ in range(2))
+    rows = BATCH * C
+    if name.startswith("ntt_keymul_accum"):
+        part = name.rsplit(":", 1)[1]
+        parts = tp.parts[LEVEL]
+        skip = (None if part == "none" else
+                (parts[int(part)].lo, parts[int(part)].hi))
+        acc = tuple(_uniform(gen, 2 * lp_sp.pack.q, (BATCH, C_sp, N))
+                    for _ in range(2))
+        outside = C_sp - (0 if skip is None else skip[1] - skip[0])
+        return (lambda: K.ntt_keymul_accum_plain(ext, lp_sp, keys_sp, acc,
+                                                 skip),
+                roofline.ntt_keymul_accum(BATCH * outside, LOGN))
+    if name == "ntt_keymul_parts":
+        ec, alphas = teng._parts_consts(tp, LEVEL)
+        st = teng._parts_digits(x, tp.parts[LEVEL], lp, ec.shape[-1])
+        pkeys = tuple(torch.stack([_uniform(gen, lp_sp.pack.q, (C_sp, N))
+                                   for _ in range(ec.shape[0])])
+                      for _ in range(2))
+        return (lambda: K.ntt_keymul_parts_plain(st, ec, alphas, pkeys,
+                                                 lp_sp),
+                roofline.ntt_keymul_parts(BATCH, alphas.tolist(), C_sp, LOGN))
+    cases = {
+        "ntt[enter]": (lambda: K.ntt_plain(x, lp, True),
+                       roofline.ntt(rows, LOGN, True)),
+        "ntt": (lambda: K.ntt_plain(x, lp, False),
+                roofline.ntt(rows, LOGN, False)),
+        **{f"intt[{epi}]": (lambda epi=epi: K.intt_plain(x, lp, epi),
+                            roofline.intt(rows, LOGN, epi))
+           for epi in ("mont", "exit", "exit_reduce")},
+        "ntt_keymul[1 key, enter]": (
+            lambda: K.ntt_keymul_plain(x, lp, keys[:1], True),
+            roofline.ntt_keymul(rows, LOGN, 1, True)),
+        "ntt_keymul[2 keys]": (
+            lambda: K.ntt_keymul_plain(x, lp, keys, False),
+            roofline.ntt_keymul(rows, LOGN, 2, False)),
+        "ntt_tensor": (
+            lambda: K.ntt_tensor_plain(*(_uniform(gen, lp.pack.q,
+                                                  (BATCH, C, N))
+                                         for _ in range(4)), lp),
+            roofline.ntt_tensor(rows, LOGN)),
+    }
+    return cases[name]
+
+
+@pytest.mark.parametrize("name", [
+    "ntt[enter]", "ntt", "intt[mont]", "intt[exit]", "intt[exit_reduce]",
+    "ntt_keymul[1 key, enter]", "ntt_keymul[2 keys]",
+    "ntt_keymul_accum:none", "ntt_keymul_accum:0", "ntt_keymul_accum:1",
+    "ntt_keymul_accum:2", "ntt_tensor", "ntt_keymul_parts",
+])
+def test_redc_count_equals_plain_version(tp, redc_count, name):
+    run, formula = _case(tp, name)
+    redc_count[0] = 0  # the digits of K6's inputs take REDCs of their own
+    run()
+    assert redc_count[0] == formula > 0
+
+
+def test_kernel_shapes_counts():
+    """The formulas at logN15 sizes, reckoned by hand: K1 over [8, 16, 2^15]
+    with the entry is 128 rows x (2^14 x 15 + 2^15); K6 over 9 parts whose
+    alphas sum to 17, onto 18 with-special channels; K4 with S = 2."""
+    assert roofline.ntt(128, 15, True) == 128 * (16384 * 15 + 32768)
+    alphas = [1, 2, 2, 2, 2, 2, 2, 2, 2]
+    assert roofline.ntt_keymul_parts(8, alphas, 18, 15) == 8 * 18 * (
+        17 * 32768 + 9 * (16384 * 15 + 2 * 32768))
+    assert roofline.intt_pdiv(10, 15, 2) == 10 * (16384 * 15 + 4 * 32768)
+
+
+def test_bound_takes_the_larger_term():
+    b = roofline.bound(3.35e9, 10**9, 1e12)  # 1 ms of bytes, 1 ms of REDCs
+    assert b["bytes_bound_ms"] == pytest.approx(1.0)
+    assert b["compute_bound_ms"] == pytest.approx(1.0)
+    assert b["bound_by"] == "bytes"
+    b = roofline.bound(3.35e9, 2 * 10**9, 1e12)
+    assert b["bound_ms"] == pytest.approx(2.0)
+    assert b["bound_by"] == "operations" and b["redc"] == 2 * 10**9

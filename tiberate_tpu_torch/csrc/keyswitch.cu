@@ -23,9 +23,11 @@
 // the i32 lane the extension sum stays lazy below 2q < 2^29 at every step,
 // as in the i64 lane.
 //
-// What bounds it on the H100: the NTT butterflies of n_parts x C_sp rows
-// (integer multiply throughput; it reaches about 3% of the HBM bound of
-// its inputs and outputs, PERF.md), plus the pass-1 intermediate
+// What bounds it on the H100: the REDCs of the extension and of the NTT
+// butterflies of n_parts x C_sp rows (integer multiply throughput: it
+// reaches about 3% of the HBM bound of its inputs and outputs, and a
+// larger share of its REDC bound, ops/roofline.py and PERF.md), plus the
+// pass-1 intermediate
 // [B, n_parts, C_sp, N] (340 MB of i64 at logN15, batch 8) written once
 // and read once.  Pass 1 fuses the extension into the load, pass 2 fuses
 // the key products and the part-sum into the store, so neither the extended

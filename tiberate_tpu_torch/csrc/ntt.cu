@@ -29,19 +29,21 @@
 //
 // What bounds it on the H100: not the bytes.  A transform reads and
 // writes each coefficient twice (8 B a word in the 62-bit lane, 4 B in the
-// 30-bit lane), and the measured kernels reach 7-26% of that HBM bound
-// (PERF.md).  The rest is the butterflies: a 62-bit REDC is one 64x64->128
-// multiply pair plus a 62-bit multiply (about 20 32-bit integer multiply-
-// adds), a 30-bit one two 32x32->64 products, and a logN15 row needs
-// 15 x 16384 of them, with shared-memory traffic and a barrier per stage.
-// The integer-multiply rate that would bound them is not measured on this
-// card yet.  The design keeps every stage in shared memory (two device-
-// memory round trips per transform, not logN) and fuses the epilogues so
-// no transform is re-read; a wgmma int8 4-step is the later lever for the
-// multiply bound.  The accumulating variant reads and writes its two
-// accumulators once each in pass 2, the same traffic as K3's two outputs
-// plus two reads: the TPU kernel's donated accumulator becomes an in-place
-// update.
+// 30-bit lane), and the measured kernels reach 7-26% of that HBM bound.
+// The butterflies bound it: a 62-bit REDC is one 64x64->128 multiply pair
+// plus a 62-bit multiply (18 IMAD-class of 41 SASS instructions in the
+// fold probe's chain, csrc/fold_probe.cu), a 30-bit one two 32x32->64
+// products (6 of 14), and a logN15 row needs 15 x 16384 of them, with
+// shared-memory traffic and a barrier per stage.  At the REDC rate the
+// fold probe measures on the card, the kernels reach about a third of
+// their REDC bound in the 62-bit lane and a quarter in the 30-bit lane
+// (ops/roofline.py, PERF.md).  The design keeps every stage in shared
+// memory (two device-memory round trips per transform, not logN) and
+// fuses the epilogues so no transform is re-read; a wgmma int8 4-step is
+// the later lever for the multiply bound.  The accumulating variant reads
+// and writes its two accumulators once each in pass 2, the same traffic as
+// K3's two outputs plus two reads: the TPU kernel's donated accumulator
+// becomes an in-place update.
 #include <cuda_runtime.h>
 
 #include "ntt.cuh"

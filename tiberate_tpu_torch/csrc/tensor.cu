@@ -17,9 +17,10 @@
 // the TPU kernel (pallas_mxu.py:1268).
 //
 // What bounds it on the H100: not the bytes (it reaches 8-9% of the HBM
-// bound of its inputs and outputs in both lanes, PERF.md) but the same
-// REDC butterflies as ntt.cu, plus 4 REDCs per coefficient for the
-// products.  Shared memory per pass-2 block is
+// bound of its inputs and outputs in both lanes) but the same REDC
+// butterflies as ntt.cu, plus 4 REDCs per coefficient for the products
+// (ops/roofline.py counts them; PERF.md has its share of that bound).
+// Shared memory per pass-2 block is
 // 4 x N2 words (8 KB of i64 at logN15), so many blocks stay resident per
 // SM.
 #include <cuda_runtime.h>

@@ -17,17 +17,18 @@ import subprocess
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("ntt.cu", "tensor.cu", "keyswitch.cu")
+SOURCES = ("ntt.cu", "tensor.cu", "keyswitch.cu", "fold_probe.cu")
 HEADERS = ("mont.cuh", "ntt.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
-# C entry point of the 62-bit lane -> argument types (pointers and the
-# stream as void*); the 30-bit lane's entry point, the same name with
-# "_30" appended, takes the same arguments.
-_SIGNATURES = {
+# The kernels of the cc_mult path: C entry point of the 62-bit lane ->
+# argument types (pointers and the stream as void*); the 30-bit lane's entry
+# point, the same name with "_30" appended, takes the same arguments.
+_LANED = {
     "tt_ntt_fwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P],
     "tt_ntt_keymul_accum": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                             _I, _I, _P],
@@ -38,21 +39,37 @@ _SIGNATURES = {
     "tt_ntt_keymul_parts": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _P, _P, _P, _P],
 }
+# Every C entry point -> argument types.  The fold-rate probe takes its
+# constants by value in its lane's word, and its Shoup fold has no 30-bit
+# twin.
+_SIGNATURES = {
+    **{name + sfx: args for name, args in _LANED.items()
+       for sfx in ("", "_30")},
+    "tt_fold_shoup": [_P, _P, _L, _L, _L, _L, _I, _P],
+    "tt_fold_redc": [_P, _P, _L, _L, _L, _L, _I, _P],
+    "tt_fold_redc_30": [_P, _P, _L, _I, _I, _I, _I, _P],
+}
 
 _lib = None
 build_log = ""
 
 
-def _nvcc():
-    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on the PATH, else the CUDA
-    toolkit's default install prefix."""
+def cuda_tool(name: str):
+    """The CUDA toolkit's program ``name`` (``nvcc``, ``cuobjdump``):
+    ``$CUDA_HOME/bin/<name>``, else on the PATH, else under the toolkit's
+    default install prefix; None if there is none."""
     homes = [os.environ.get(v) for v in ("CUDA_HOME", "CUDA_PATH")]
     for home in filter(None, homes):
-        path = os.path.join(home, "bin", "nvcc")
+        path = os.path.join(home, "bin", name)
         if os.path.exists(path):
             return path
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
+    path = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
+    return path if os.path.exists(path) else None
+
+
+def _nvcc():
+    path = cuda_tool("nvcc")
+    if path is None:
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return path
 
@@ -121,9 +138,8 @@ def lib():
     if _lib is None:
         handle = ctypes.CDLL(build())
         for name, argtypes in _SIGNATURES.items():
-            for entry in (name, name + "_30"):
-                fn = getattr(handle, entry)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _lib = handle
     return _lib

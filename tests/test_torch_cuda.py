@@ -38,6 +38,10 @@ LANES = {62: (dict(scale_bits=30), ""),
 
 def _cfg(logN, lane=62, **kw):
     opts = dict(num_scales=4, num_special_primes=2, **LANES[lane][0])
+    if lane == 30 and logN >= 15:
+        # too few 21-bit primes = 1 mod 2^(logN+1): the logN15_30 preset's
+        # 25-bit scales
+        opts["scale_bits"] = 25
     opts.update(kw)
     return toy_config(logN=logN, **opts)
 
@@ -51,8 +55,10 @@ def card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lane", sorted(LANES))
-@pytest.mark.parametrize("logN", [4, 7, 10])
+@pytest.mark.parametrize("logN", [4, 7, 10, 15])
 def test_kernels_match_plain_on_card(card, logN, lane):
+    """Every kernel against its plain version at a few rows; logN 15 is
+    the main path's geometry (L1 = 7, L2 = 8)."""
     tp = CkksParams(_cfg(logN, lane), card)
     lp_ord, lp_sp = tp.lp(LEVEL, False), tp.lp(LEVEL, True)
     gen = torch.Generator().manual_seed(logN)
@@ -100,7 +106,7 @@ def test_kernels_match_plain_on_card(card, logN, lane):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lane", sorted(LANES))
-@pytest.mark.parametrize("logN", [7, 10])
+@pytest.mark.parametrize("logN", [7, 10, 15])
 def test_ntt_keymul_accum_matches_plain_on_card(card, logN, lane):
     """The chain kernel with no skip range and with each part's range of
     the S = 6 toy: accumulators updated in place, skipped rows untouched,

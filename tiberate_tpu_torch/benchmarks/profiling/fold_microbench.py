@@ -154,11 +154,9 @@ def sass_step_counts():
     """mode -> (IMAD-class, all) SASS instructions of one chain step
     (:func:`chain_step`) in the built library; None where ``cuobjdump`` is
     absent, and a mode is left out where its loop cannot be found."""
-    tool = cuda_build.cuda_tool("cuobjdump")
-    if tool is None:
+    sass = cuda_build.sass(*_SASS_NAMES.values())
+    if sass is None:
         return None
-    sass = subprocess.run([tool, "-sass", cuda_build.build()],
-                          capture_output=True, text=True, check=True).stdout
     counts = {}
     for block in sass.split("Function : ")[1:]:
         name = block.split(None, 1)[0]

@@ -23,213 +23,389 @@
 // :167-258).  The TPU kernel is a 4-step int8-limb matmul with Shoup folds
 // because Mosaic has no 64-bit vectors (and, in the single lane, builds
 // its 32x32 high product from 16-bit pieces).  Here each transform is the
-// radix-2 butterfly NTT of ops/ntt.py in two passes (ntt.cuh), one word per
-// residue, with the prologue fused into the first pass's load and the
-// epilogue into the second pass's store.
+// radix-2 butterfly NTT of ops/ntt.py in two launches (a strided and a
+// contiguous pass, ntt.cuh), one word per residue, with the prologue fused
+// into the first pass's load and the epilogue into the second pass's
+// store.  Outputs are byte-identical to the plain versions.
 //
-// What bounds it on the H100: not the bytes.  A transform reads and
-// writes each coefficient twice (8 B a word in the 62-bit lane, 4 B in the
-// 30-bit lane), and the measured kernels reach 7-26% of that HBM bound.
-// The butterflies bound it: a 62-bit REDC is one 64x64->128 multiply pair
-// plus a 62-bit multiply (18 IMAD-class of 41 SASS instructions in the
-// fold probe's chain, csrc/fold_probe.cu), a 30-bit one two 32x32->64
-// products (6 of 14), and a logN15 row needs 15 x 16384 of them, with
-// shared-memory traffic and a barrier per stage.  At the REDC rate the
-// fold probe measures on the card, the kernels reach about a third of
-// their REDC bound in the 62-bit lane and a quarter in the 30-bit lane
-// (ops/roofline.py, PERF.md).  The design keeps every stage in shared
-// memory (two device-memory round trips per transform, not logN) and
-// fuses the epilogues so no transform is re-read; a wgmma int8 4-step is
-// the later lever for the multiply bound.  The accumulating variant reads
-// and writes its two accumulators once each in pass 2, the same traffic as
-// K3's two outputs plus two reads: the TPU kernel's donated accumulator
-// becomes an in-place update.
+// What bounds it on the H100: not the bytes (each coefficient is read and
+// written twice) but the butterflies: a 62-bit REDC is one 64x64->128
+// multiply pair plus a 62-bit multiply (18 IMAD-class of 41 SASS
+// instructions in the fold probe's chain, csrc/fold_probe.cu), a 30-bit
+// one two 32x32->64 products (6 of 14), and a logN15 row needs 15 x 16384
+// of them.  The first core (one shared-memory stage at a time) reached a
+// third of that REDC bound in the 62-bit lane and a quarter in the 30-bit
+// lane (ops/roofline.py, PERF.md): most of its time went around the
+// REDCs.  The register-tiled core (ntt.cuh) answers each cause:
+//
+//   1. a shared-memory round trip and a barrier per stage: each thread
+//      runs three stages (R = 8 registers; four at logN16/17 in the strided
+//      30-bit pass, R = 16) on registers alone, so a logN15 transform
+//      crosses shared memory 2 + 2 times, not 15, and a contiguous chunk
+//      that fits one warp (logN <= 16) syncs with __syncwarp only;
+//   2. index arithmetic on runtime values: every kernel is instantiated
+//      per logN (4..17), so L1, L2, TC and the round windows are
+//      compile-time constants; no division or modulo by a runtime value is
+//      left in a butterfly, and the rounds unroll completely;
+//   3. one twiddle per butterfly from global memory: a block stages its
+//      table once (N1 words for a strided block, N2 per contiguous chunk)
+//      in shared memory before its first stage;
+//   4. small, half-empty blocks: a strided tile is 128 B a row in both
+//      lanes (16 i64 or 32 i32 columns) and takes up to 512 threads, a
+//      contiguous block gathers chunks up to 256 threads, and the
+//      contiguous pass moves 16-byte vectors wherever a thread holds
+//      consecutive words (the inverse's first load, the forward's key
+//      products, accumulators and stores).
+//
+// Measured on the H100 (cuobjdump of the sm_90a build, chip_smoke.py phase
+// 2c): the inverse contiguous pass at logN15, whose threads each run 32
+// butterflies and nothing else but loads, the twiddle table, two exchanges
+// and stores, is 2186 SASS instructions (909 IMAD-class) in the 62-bit
+// lane, 68.3 a butterfly against the 41 of a bare REDC, and 723 (253) in
+// the 30-bit lane, 22.6 a butterfly against 14.  The instructions beyond
+// the REDC (the lazy add and sub on two words, the twiddle's shared-memory
+// load, the exchanges) are what keeps the transforms at 46-64% of the
+// REDC bound in the 62-bit lane and 37-56% in the 30-bit lane (PERF.md).
+// R = 16 registers, which saves a round at L = 7 and 8, measured slower at
+// logN15 (register pressure), so R stays 8 but where a block would exceed
+// 512 threads.  The accumulating variant reads and writes its two
+// accumulators once each in the contiguous pass: the TPU kernel's donated
+// accumulator becomes an in-place update.
 #include <cuda_runtime.h>
 
 #include "ntt.cuh"
 
+enum { EPI_MONT = 0, EPI_EXIT = 1, EPI_EXIT_REDUCE = 2, EPI_PDIV = 3 };
+
+// R consecutive words, as 16-byte vectors where p is 16-byte aligned.
+template <typename W, int R>
+__device__ __forceinline__ void ld_vec(W (&v)[R], const W* p) {
+    constexpr int PER = 16 / (int)sizeof(W);
+    if (R % PER == 0 && ((size_t)p & 15) == 0) {
+#pragma unroll
+        for (int n = 0; n < R / PER; ++n) {
+            const int4 a = reinterpret_cast<const int4*>(p)[n];
+            const W* w = reinterpret_cast<const W*>(&a);
+#pragma unroll
+            for (int i = 0; i < PER; ++i) v[n * PER + i] = w[i];
+        }
+        return;
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) v[i] = p[i];
+}
+
+template <typename W, int R>
+__device__ __forceinline__ void st_vec(W* p, const W (&v)[R]) {
+    constexpr int PER = 16 / (int)sizeof(W);
+    if (R % PER == 0 && ((size_t)p & 15) == 0) {
+#pragma unroll
+        for (int n = 0; n < R / PER; ++n) {
+            int4 a;
+            W* w = reinterpret_cast<W*>(&a);
+#pragma unroll
+            for (int i = 0; i < PER; ++i) w[i] = v[n * PER + i];
+            reinterpret_cast<int4*>(p)[n] = a;
+        }
+        return;
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) p[i] = v[i];
+}
+
 // ---------------------------------------------------------------------
-// Forward pass 2: stages [L1, logN) on contiguous chunks of buf, then the
-// epilogue for NKEYS keys ([C, N] each): NKEYS == 0 stores the transform
-// in out0; otherwise out_i = REDC(X k_i), and with ACC the lazy [0, 2q)
-// running part-sum out_i = out_i (+) REDC(X k_i) of the keyswitch chain,
-// so the fresh key products never reach device memory.  buf may be out0
-// (in place).  Channels in [skip_lo, skip_hi) are not touched.
+// Forward, strided pass: optional x R entry (Rs != NULL), stages [0, L1)
+// of TC columns.  Grid (N2 / TC, rows); row = batch * C + channel.  Blocks
+// of channels in [skip_lo, skip_hi) return at once (the keyswitch in-part
+// shortcut; an empty range skips nothing).
 // ---------------------------------------------------------------------
-template <typename W, int NKEYS, bool ACC>
-__global__ void fwd_pass2(const W* buf, W* out0, W* out1, Geo g, int C,
-                          int skip_lo, int skip_hi,
-                          const W* __restrict__ qv,
-                          const W* __restrict__ kv,
-                          const W* __restrict__ psi,
-                          const W* __restrict__ key0,
-                          const W* __restrict__ key1) {
+template <typename W, int LOGN>
+__global__ void __launch_bounds__(Plan<W, LOGN>::T1)
+fwd_strided_k(const W* __restrict__ x, W* __restrict__ out, int C,
+              int skip_lo, int skip_hi, const W* __restrict__ qv,
+              const W* __restrict__ kv, const W* __restrict__ psi,
+              const W* __restrict__ Rs) {
+    typedef Plan<W, LOGN> P;
+    typedef typename P::S1 SC;
     typedef typename Lane<W>::U U;
-    W* s = smem<W>();
     const int row = blockIdx.y;
     const int c = row % C;
     if (c >= skip_lo && c < skip_hi) return;
-    const int j1 = blockIdx.x;
+    const int col = threadIdx.x & (P::TC - 1);
+    const int t = threadIdx.x >> P::LTC;
     const U q = (U)qv[c], k = (U)kv[c];
     const W q2 = (W)(q << 1);
-    const size_t off = ((size_t)row << g.logN) + ((size_t)j1 << g.L2);
-    for (int e = threadIdx.x; e < g.N2; e += blockDim.x) s[e] = buf[off + e];
+    const size_t base = ((size_t)row << LOGN) + blockIdx.x * P::TC + col;
+    constexpr int LO0 = SC::lo(true, 0), LOL = SC::lo(true, SC::ROUNDS - 1);
+    W v[SC::R];
+#pragma unroll
+    for (int i = 0; i < SC::R; ++i)
+        v[i] = x[base + ((size_t)slot(t, i, LO0, P::RL1) << P::L2)];
+    if (Rs != nullptr) {
+        const W rs = Rs[c];
+#pragma unroll
+        for (int i = 0; i < SC::R; ++i) v[i] = redc(v[i], rs, q, k);
+    }
+    W* T = smem<W>();
+    const W* tw = psi + ((size_t)c << LOGN);
+    for (int j = threadIdx.x; j < P::N1; j += P::T1) T[j] = tw[j];
     __syncthreads();
-    fwd_contig(s, g, j1, psi + ((size_t)c << g.logN), q, k);
-    const size_t koff = ((size_t)c << g.logN) + ((size_t)j1 << g.L2);
-    for (int e = threadIdx.x; e < g.N2; e += blockDim.x) {
-        const W v = s[e];
-        if (NKEYS == 0) {
-            out0[off + e] = v;
-            continue;
+    run_rounds<W, U, P::L1, P::RL1, true, false, 0>(
+        v, t, T, T + P::N1, P::N1 * P::TC, ColLayout<P::TC>{col}, q, k, q2);
+#pragma unroll
+    for (int i = 0; i < SC::R; ++i)
+        out[base + ((size_t)slot(t, i, LOL, P::RL1) << P::L2)] = v[i];
+}
+
+// ---------------------------------------------------------------------
+// Forward, contiguous pass: stages [L1, logN) on CH chunks of buf, then
+// the epilogue for nkeys keys ([C, N] each): nkeys == 0 stores the
+// transform in out0; otherwise out_i = REDC(X k_i), and with acc the lazy
+// [0, 2q) running part-sum out_i = out_i (+) REDC(X k_i) of the keyswitch
+// chain, so the fresh key products never reach device memory.  buf may be
+// out0 (in place).  Channels in [skip_lo, skip_hi) are not touched.  Grid
+// (N1 / CH, rows).
+// ---------------------------------------------------------------------
+template <typename W, int LOGN>
+__global__ void __launch_bounds__(Plan<W, LOGN>::T2)
+fwd_contig_k(const W* buf, W* out0, W* out1, int C, int skip_lo,
+             int skip_hi, const W* __restrict__ qv, const W* __restrict__ kv,
+             const W* __restrict__ psi, const W* __restrict__ key0,
+             const W* __restrict__ key1, int nkeys, int acc) {
+    typedef Plan<W, LOGN> P;
+    typedef typename P::S2 SC;
+    typedef typename Lane<W>::U U;
+    const int row = blockIdx.y;
+    const int c = row % C;
+    if (c >= skip_lo && c < skip_hi) return;
+    const int cl = threadIdx.x / P::TPC;
+    const int t = threadIdx.x & (P::TPC - 1);
+    const int j1 = blockIdx.x * P::CH + cl;
+    const U q = (U)qv[c], k = (U)kv[c];
+    const W q2 = (W)(q << 1);
+    const size_t off = ((size_t)row << LOGN) + ((size_t)j1 << P::L2);
+    constexpr int LO0 = SC::lo(true, 0);
+    W v[SC::R];
+#pragma unroll
+    for (int i = 0; i < SC::R; ++i) v[i] = buf[off + slot(t, i, LO0, P::RL2)];
+    W* T = smem<W>() + cl * P::CHUNK;
+    chunk_twiddles<W, P::L1, P::L2, P::TPC>(T, psi + ((size_t)c << LOGN), j1,
+                                            t);
+    tile_sync<P::WARP2>();
+    run_rounds<W, U, P::L2, P::RL2, true, P::WARP2, 0>(
+        v, t, T, T + P::N2, P::P2, PadLayout{}, q, k, q2);
+    // the last window is bits [0, RL2): thread t holds words tR .. tR+R-1
+    const size_t o = off + (size_t)t * SC::R;
+    if (nkeys == 0) {
+        st_vec(out0 + o, v);
+        return;
+    }
+    const size_t ko =
+        ((size_t)c << LOGN) + ((size_t)j1 << P::L2) + (size_t)t * SC::R;
+    W key[SC::R], a[SC::R];
+    for (int n = 0; n < nkeys; ++n) {
+        W* out = n == 0 ? out0 : out1;
+        ld_vec(key, (n == 0 ? key0 : key1) + ko);
+        if (acc) ld_vec(a, out + o);
+#pragma unroll
+        for (int i = 0; i < SC::R; ++i) {
+            const W p = redc(v[i], key[i], q, k);
+            a[i] = acc ? tile_add(a[i], p, q2) : p;
         }
-        W t0 = redc(v, key0[koff + e], q, k);
-        if (ACC) t0 = lazy_add(out0[off + e], t0, q2);
-        out0[off + e] = t0;
-        if (NKEYS == 2) {
-            W t1 = redc(v, key1[koff + e], q, k);
-            if (ACC) t1 = lazy_add(out1[off + e], t1, q2);
-            out1[off + e] = t1;
-        }
+        st_vec(out + o, a);
     }
 }
 
 // ---------------------------------------------------------------------
-// Inverse pass A: stages logN .. L1+1 on contiguous chunks.  Output row
+// Inverse, contiguous pass: stages logN .. L1+1 on CH chunks.  Output row
 // b * C + c reads input row b * C_in + c (C_in >= C: intt_pdiv reads only
 // the ordinary rows of a with-special accumulator).
 // ---------------------------------------------------------------------
-template <typename W>
-__global__ void inv_passA(const W* __restrict__ x, W* __restrict__ out,
-                          Geo g, int C, int C_in,
-                          const W* __restrict__ qv,
-                          const W* __restrict__ kv,
-                          const W* __restrict__ ipsi) {
+template <typename W, int LOGN>
+__global__ void __launch_bounds__(Plan<W, LOGN>::T2)
+inv_contig_k(const W* __restrict__ x, W* __restrict__ out, int C, int C_in,
+             const W* __restrict__ qv, const W* __restrict__ kv,
+             const W* __restrict__ ipsi) {
+    typedef Plan<W, LOGN> P;
+    typedef typename P::S2 SC;
     typedef typename Lane<W>::U U;
-    W* s = smem<W>();
     const int row = blockIdx.y;
     const int c = row % C;
     const int b = row / C;
-    const int j1 = blockIdx.x;
+    const int cl = threadIdx.x / P::TPC;
+    const int t = threadIdx.x & (P::TPC - 1);
+    const int j1 = blockIdx.x * P::CH + cl;
     const U q = (U)qv[c], k = (U)kv[c];
-    const size_t chunk = (size_t)j1 << g.L2;
-    const W* src = x + (((size_t)b * C_in + c) << g.logN) + chunk;
-    for (int e = threadIdx.x; e < g.N2; e += blockDim.x) s[e] = src[e];
-    __syncthreads();
-    inv_contig(s, g, j1, ipsi + ((size_t)c << g.logN), q, k);
-    W* dst = out + ((size_t)row << g.logN) + chunk;
-    for (int e = threadIdx.x; e < g.N2; e += blockDim.x) dst[e] = s[e];
+    const W q2 = (W)(q << 1);
+    const size_t chunk = (size_t)j1 << P::L2;
+    constexpr int LOL = SC::lo(false, SC::ROUNDS - 1);
+    // the first window is bits [0, RL2): thread t holds words tR .. tR+R-1
+    W v[SC::R];
+    ld_vec(v, x + (((size_t)b * C_in + c) << LOGN) + chunk + (size_t)t * SC::R);
+    W* T = smem<W>() + cl * P::CHUNK;
+    chunk_twiddles<W, P::L1, P::L2, P::TPC>(T, ipsi + ((size_t)c << LOGN),
+                                            j1, t);
+    tile_sync<P::WARP2>();
+    run_rounds<W, U, P::L2, P::RL2, false, P::WARP2, 0>(
+        v, t, T, T + P::N2, P::P2, PadLayout{}, q, k, q2);
+    W* dst = out + ((size_t)row << LOGN) + chunk;
+#pragma unroll
+    for (int i = 0; i < SC::R; ++i) dst[slot(t, i, LOL, P::RL2)] = v[i];
 }
 
-enum { EPI_MONT = 0, EPI_EXIT = 1, EPI_EXIT_REDUCE = 2, EPI_PDIV = 3 };
-
 // ---------------------------------------------------------------------
-// Inverse pass B: stages L1 .. 1 on strided tiles, x N^-1 R (the "mont"
-// variant), then the epilogue, in place on buf [B * C, N].
+// Inverse, strided pass: stages L1 .. 1 of TC columns, x N^-1 R (the
+// "mont" variant), then the epilogue epi, in place on buf [B * C, N].
 //   EPI_PDIV: out = X c_x - sum_i p0_i c_i (mod q), canonical, with
 //   pdc[c] = [c_x, c_0 R, ..., c_{S-1} R] and p0 [B, S, N] plain rows.
 //   Every term is brought to [0, q) before it is subtracted, so the
 //   running value stays in (-q, q): no word overflows in either lane.
 // ---------------------------------------------------------------------
-template <typename W, int EPI>
-__global__ void inv_passB(W* buf, Geo g, int C,
-                          const W* __restrict__ qv,
-                          const W* __restrict__ kv,
-                          const W* __restrict__ ipsi,
-                          const W* __restrict__ Ninv,
-                          const W* __restrict__ p0,
-                          const W* __restrict__ pdc, int S) {
+template <typename W, int LOGN>
+__global__ void __launch_bounds__(Plan<W, LOGN>::T1)
+inv_strided_k(W* buf, int C, const W* __restrict__ qv,
+              const W* __restrict__ kv, const W* __restrict__ ipsi,
+              const W* __restrict__ Ninv, int epi, const W* __restrict__ p0,
+              const W* __restrict__ pdc, int S) {
+    typedef Plan<W, LOGN> P;
+    typedef typename P::S1 SC;
     typedef typename Lane<W>::U U;
-    W* s = smem<W>();
     const int row = blockIdx.y;
     const int c = row % C;
     const int b = row / C;
-    const int ct = blockIdx.x;
+    const int col = threadIdx.x & (P::TC - 1);
+    const int t = threadIdx.x >> P::LTC;
     const U q = (U)qv[c], k = (U)kv[c];
+    const W q2 = (W)(q << 1);
     const W qw = (W)q;
-    const size_t base = (size_t)row << g.logN;
-    const int n = g.N1 * g.TC;
-    for (int e = threadIdx.x; e < n; e += blockDim.x)
-        s[e] = buf[base + strided_x(g, ct, e)];
+    const int x0 = blockIdx.x * P::TC + col;  // the column within the row
+    W* base = buf + ((size_t)row << LOGN) + x0;
+    constexpr int LOL = SC::lo(false, SC::ROUNDS - 1);
+    W v[SC::R];
+#pragma unroll
+    for (int i = 0; i < SC::R; ++i)
+        v[i] = base[(size_t)slot(t, i, 0, P::RL1) << P::L2];
+    W* T = smem<W>();
+    const W* tw = ipsi + ((size_t)c << LOGN);
+    for (int j = threadIdx.x; j < P::N1; j += P::T1) T[j] = tw[j];
     __syncthreads();
-    inv_strided(s, g, ipsi + ((size_t)c << g.logN), q, k);
+    run_rounds<W, U, P::L1, P::RL1, false, false, 0>(
+        v, t, T, T + P::N1, P::N1 * P::TC, ColLayout<P::TC>{col}, q, k, q2);
     const W ninv = Ninv[c];
-    for (int e = threadIdx.x; e < n; e += blockDim.x) {
-        const int xi = strided_x(g, ct, e);
-        W v = redc(s[e], ninv, q, k);
-        if (EPI == EPI_EXIT || EPI == EPI_EXIT_REDUCE) v = redc(v, (W)1, q, k);
-        if (EPI == EPI_EXIT_REDUCE) v = v < qw ? v : v - qw;
-        if (EPI == EPI_PDIV) {
+#pragma unroll
+    for (int i = 0; i < SC::R; ++i) {
+        const size_t xo = (size_t)slot(t, i, LOL, P::RL1) << P::L2;
+        W w = redc(v[i], ninv, q, k);
+        if (epi == EPI_EXIT || epi == EPI_EXIT_REDUCE) w = redc(w, (W)1, q, k);
+        if (epi == EPI_EXIT_REDUCE) w = w < qw ? w : w - qw;
+        if (epi == EPI_PDIV) {
             const W* cc = pdc + (size_t)c * (1 + S);
-            v = canon(redc(v, cc[0], q, k), qw);
-            for (int i = 0; i < S; ++i) {
-                const W p = p0[(((size_t)b * S + i) << g.logN) + xi];
-                v -= canon(redc(p, cc[1 + i], q, k), qw);
-                v = v < 0 ? v + qw : v;
+            w = canon(redc(w, cc[0], q, k), qw);
+            for (int s = 0; s < S; ++s) {
+                const W p = p0[(((size_t)b * S + s) << LOGN) + x0 + xo];
+                w -= canon(redc(p, cc[1 + s], q, k), qw);
+                w = w < 0 ? w + qw : w;
             }
         }
-        buf[base + xi] = v;
+        base[xo] = w;
     }
 }
 
 // ---------------------------------------------------------------------
-// Launchers, one instantiation per word type.  Each returns
+// Launchers, one instantiation per word type and logN.  Each returns
 // cudaGetLastError() after its launches.
 // ---------------------------------------------------------------------
+// Dynamic shared memory above 48 KB must be allowed per kernel, once.
+template <typename K>
+static bool allow_smem(K kernel, int bytes) {
+    return bytes <= 48 * 1024 ||
+           cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                bytes) == cudaSuccess;
+}
+
+// The forward transform of x into out0 through mid (the strided pass's
+// output; mid may be out0), with the contiguous pass's epilogue.
+template <typename W, int LOGN>
+static int fwd_n(const W* x, W* mid, W* out0, W* out1, int rows, int C,
+                 int skip_lo, int skip_hi, const W* q, const W* k,
+                 const W* psi, const W* Rs, const W* key0, const W* key1,
+                 int nkeys, int acc, cudaStream_t st) {
+    typedef Plan<W, LOGN> P;
+    static const bool ready = allow_smem(fwd_strided_k<W, LOGN>, P::SMEM1) &&
+                              allow_smem(fwd_contig_k<W, LOGN>, P::SMEM2);
+    if (!ready) return (int)cudaErrorInvalidValue;
+    fwd_strided_k<W, LOGN><<<dim3(P::N2 / P::TC, rows), P::T1, P::SMEM1,
+                             st>>>(x, mid, C, skip_lo, skip_hi, q, k, psi,
+                                   Rs);
+    TT_CHECK();
+    fwd_contig_k<W, LOGN><<<dim3(P::N1 / P::CH, rows), P::T2, P::SMEM2,
+                            st>>>(mid, out0, out1, C, skip_lo, skip_hi, q, k,
+                                  psi, key0, key1, nkeys, acc);
+    TT_CHECK();
+    return 0;
+}
+
+template <typename W, int LOGN>
+static int inv_n(const W* x, W* out, int rows, int C, int C_in, const W* q,
+                 const W* k, const W* ipsi, const W* Ninv, int epi,
+                 const W* p0, const W* pdc, int S, cudaStream_t st) {
+    typedef Plan<W, LOGN> P;
+    static const bool ready = allow_smem(inv_contig_k<W, LOGN>, P::SMEM2) &&
+                              allow_smem(inv_strided_k<W, LOGN>, P::SMEM1);
+    if (!ready) return (int)cudaErrorInvalidValue;
+    inv_contig_k<W, LOGN><<<dim3(P::N1 / P::CH, rows), P::T2, P::SMEM2,
+                            st>>>(x, out, C, C_in, q, k, ipsi);
+    TT_CHECK();
+    inv_strided_k<W, LOGN><<<dim3(P::N2 / P::TC, rows), P::T1, P::SMEM1,
+                             st>>>(out, C, q, k, ipsi, Ninv, epi, p0, pdc, S);
+    TT_CHECK();
+    return 0;
+}
+
+// FN<W, logN>(args...) for logN in [4, 17] (ops/ntt_kernels.py checks it).
+#define TT_BY_LOGN(FN, ...)                               \
+    switch (logN) {                                       \
+        case 4: return FN<W, 4>(__VA_ARGS__);             \
+        case 5: return FN<W, 5>(__VA_ARGS__);             \
+        case 6: return FN<W, 6>(__VA_ARGS__);             \
+        case 7: return FN<W, 7>(__VA_ARGS__);             \
+        case 8: return FN<W, 8>(__VA_ARGS__);             \
+        case 9: return FN<W, 9>(__VA_ARGS__);             \
+        case 10: return FN<W, 10>(__VA_ARGS__);           \
+        case 11: return FN<W, 11>(__VA_ARGS__);           \
+        case 12: return FN<W, 12>(__VA_ARGS__);           \
+        case 13: return FN<W, 13>(__VA_ARGS__);           \
+        case 14: return FN<W, 14>(__VA_ARGS__);           \
+        case 15: return FN<W, 15>(__VA_ARGS__);           \
+        case 16: return FN<W, 16>(__VA_ARGS__);           \
+        case 17: return FN<W, 17>(__VA_ARGS__);           \
+        default: return (int)cudaErrorInvalidValue;       \
+    }
+
 // K1 (nkeys = 0) and K3 (nkeys = 1 or 2).  out0 may alias nothing of x;
 // out1 is written only for nkeys == 2.  Rs == NULL: no x R entry.
 template <typename W>
 static int ntt_fwd(const W* x, W* out0, W* out1, int rows, int C, int logN,
                    const W* q, const W* k, const W* psi, const W* Rs,
                    const W* key0, const W* key1, int nkeys, void* stream) {
-    const Geo g = make_geo(logN);
-    cudaStream_t st = (cudaStream_t)stream;
-    const size_t sm1 = (size_t)g.N1 * g.TC * sizeof(W);
-    const size_t sm2 = (size_t)g.N2 * sizeof(W);
-    dim3 g1(g.N2 / g.TC, rows), g2(g.N1, rows);
-    if (Rs)
-        fwd_pass1<W, true><<<g1, TT_THREADS, sm1, st>>>(x, out0, g, C, 0, 0,
-                                                        q, k, psi, Rs);
-    else
-        fwd_pass1<W, false><<<g1, TT_THREADS, sm1, st>>>(x, out0, g, C, 0, 0,
-                                                         q, k, psi, Rs);
-    TT_CHECK();
-    const int t2 = contig_threads(g);
-    if (nkeys == 0)
-        fwd_pass2<W, 0, false><<<g2, t2, sm2, st>>>(
-            out0, out0, out1, g, C, 0, 0, q, k, psi, key0, key1);
-    else if (nkeys == 1)
-        fwd_pass2<W, 1, false><<<g2, t2, sm2, st>>>(
-            out0, out0, out1, g, C, 0, 0, q, k, psi, key0, key1);
-    else
-        fwd_pass2<W, 2, false><<<g2, t2, sm2, st>>>(
-            out0, out0, out1, g, C, 0, 0, q, k, psi, key0, key1);
-    TT_CHECK();
-    return 0;
+    TT_BY_LOGN(fwd_n, x, out0, out0, out1, rows, C, 0, 0, q, k, psi, Rs,
+               key0, key1, nkeys, 0, (cudaStream_t)stream)
 }
 
 // K3 with accumulators (the per-part keyswitch chain): on every channel
 // outside [skip_lo, skip_hi), acc_i = acc_i (+) REDC(NTT(x) key_i), in
 // place; the other channels' rows of acc0/acc1 are left as they were and
 // are not transformed.  x, tmp, acc0, acc1: [rows, N] with rows = B * C;
-// key0, key1: [C, N].  tmp is scratch for the first pass.
+// key0, key1: [C, N].  tmp is scratch for the strided pass.
 template <typename W>
 static int ntt_keymul_accum(const W* x, W* tmp, W* acc0, W* acc1, int rows,
                             int C, int logN, const W* q, const W* k,
                             const W* psi, const W* key0, const W* key1,
                             int skip_lo, int skip_hi, void* stream) {
-    const Geo g = make_geo(logN);
-    cudaStream_t st = (cudaStream_t)stream;
-    const size_t sm1 = (size_t)g.N1 * g.TC * sizeof(W);
-    const size_t sm2 = (size_t)g.N2 * sizeof(W);
-    dim3 g1(g.N2 / g.TC, rows), g2(g.N1, rows);
-    fwd_pass1<W, false><<<g1, TT_THREADS, sm1, st>>>(
-        x, tmp, g, C, skip_lo, skip_hi, q, k, psi, nullptr);
-    TT_CHECK();
-    fwd_pass2<W, 2, true><<<g2, contig_threads(g), sm2, st>>>(
-        tmp, acc0, acc1, g, C, skip_lo, skip_hi, q, k, psi, key0, key1);
-    TT_CHECK();
-    return 0;
+    TT_BY_LOGN(fwd_n, x, tmp, acc0, acc1, rows, C, skip_lo, skip_hi, q, k,
+               psi, (const W*)nullptr, key0, key1, 2, 1,
+               (cudaStream_t)stream)
 }
 
 // K2 (epi 0..2) and K4 (epi 3).  x: [B, C_in, N]; out: [B, C, N].
@@ -237,39 +413,27 @@ template <typename W>
 static int ntt_inv(const W* x, W* out, int rows, int C, int C_in, int logN,
                    const W* q, const W* k, const W* ipsi, const W* Ninv,
                    int epi, const W* p0, const W* pdc, int S, void* stream) {
-    const Geo g = make_geo(logN);
-    cudaStream_t st = (cudaStream_t)stream;
-    const size_t sm1 = (size_t)g.N1 * g.TC * sizeof(W);
-    const size_t sm2 = (size_t)g.N2 * sizeof(W);
-    dim3 g1(g.N2 / g.TC, rows), g2(g.N1, rows);
-    inv_passA<W><<<g2, contig_threads(g), sm2, st>>>(x, out, g, C, C_in, q,
-                                                     k, ipsi);
-    TT_CHECK();
-    switch (epi) {
-        case EPI_MONT:
-            inv_passB<W, EPI_MONT><<<g1, TT_THREADS, sm1, st>>>(
-                out, g, C, q, k, ipsi, Ninv, p0, pdc, S);
-            break;
-        case EPI_EXIT:
-            inv_passB<W, EPI_EXIT><<<g1, TT_THREADS, sm1, st>>>(
-                out, g, C, q, k, ipsi, Ninv, p0, pdc, S);
-            break;
-        case EPI_EXIT_REDUCE:
-            inv_passB<W, EPI_EXIT_REDUCE><<<g1, TT_THREADS, sm1, st>>>(
-                out, g, C, q, k, ipsi, Ninv, p0, pdc, S);
-            break;
-        default:
-            inv_passB<W, EPI_PDIV><<<g1, TT_THREADS, sm1, st>>>(
-                out, g, C, q, k, ipsi, Ninv, p0, pdc, S);
-    }
-    TT_CHECK();
-    return 0;
+    TT_BY_LOGN(inv_n, x, out, rows, C, C_in, q, k, ipsi, Ninv, epi, p0, pdc,
+               S, (cudaStream_t)stream)
 }
 
 // ---------------------------------------------------------------------
 // Host entry points (plain C interface, loaded with ctypes): the 62-bit
-// lane, then the 30-bit lane (_30) with the same arguments over i32.
+// lane, then the 30-bit lane (_30) with the same arguments over i32.  The
+// build compiles this file once per lane (TT_LANE=62, 30) and direction
+// (TT_FWD=1 forward, 0 inverse), the four in parallel: each instantiates
+// its kernels for every logN.
 // ---------------------------------------------------------------------
+#ifndef TT_LANE
+#define TT_LANE 0  // both lanes
+#endif
+#ifndef TT_FWD
+#define TT_FWD -1  // both directions
+#endif
+#define TT_I64 (TT_LANE == 0 || TT_LANE == 62)
+#define TT_I32 (TT_LANE == 0 || TT_LANE == 30)
+
+#if TT_I64 && TT_FWD != 0
 extern "C" int tt_ntt_fwd(const i64* x, i64* out0, i64* out1, int rows,
                           int C, int logN, const i64* q, const i64* k,
                           const i64* psi, const i64* Rs, const i64* key0,
@@ -287,7 +451,9 @@ extern "C" int tt_ntt_keymul_accum(const i64* x, i64* tmp, i64* acc0,
     return ntt_keymul_accum(x, tmp, acc0, acc1, rows, C, logN, q, k, psi,
                             key0, key1, skip_lo, skip_hi, stream);
 }
+#endif
 
+#if TT_I64 && TT_FWD != 1
 extern "C" int tt_ntt_inv(const i64* x, i64* out, int rows, int C,
                           int C_in, int logN, const i64* q, const i64* k,
                           const i64* ipsi, const i64* Ninv, int epi,
@@ -296,7 +462,9 @@ extern "C" int tt_ntt_inv(const i64* x, i64* out, int rows, int C,
     return ntt_inv(x, out, rows, C, C_in, logN, q, k, ipsi, Ninv, epi, p0,
                    pdc, S, stream);
 }
+#endif
 
+#if TT_I32 && TT_FWD != 0
 extern "C" int tt_ntt_fwd_30(const i32* x, i32* out0, i32* out1, int rows,
                              int C, int logN, const i32* q, const i32* k,
                              const i32* psi, const i32* Rs, const i32* key0,
@@ -314,7 +482,9 @@ extern "C" int tt_ntt_keymul_accum_30(const i32* x, i32* tmp, i32* acc0,
     return ntt_keymul_accum(x, tmp, acc0, acc1, rows, C, logN, q, k, psi,
                             key0, key1, skip_lo, skip_hi, stream);
 }
+#endif
 
+#if TT_I32 && TT_FWD != 1
 extern "C" int tt_ntt_inv_30(const i32* x, i32* out, int rows, int C,
                              int C_in, int logN, const i32* q, const i32* k,
                              const i32* ipsi, const i32* Ninv, int epi,
@@ -323,3 +493,4 @@ extern "C" int tt_ntt_inv_30(const i32* x, i32* out, int rows, int C,
     return ntt_inv(x, out, rows, C, C_in, logN, q, k, ipsi, Ninv, epi, p0,
                    pdc, S, stream);
 }
+#endif

@@ -1,5 +1,5 @@
-// Two-pass negacyclic NTT stages in shared memory, over one word type W
-// (i64 at R = 2^62, i32 in the 30-bit mode; mont.cuh).
+// Negacyclic NTT stages over one word type W (i64 at R = 2^62, i32 in the
+// 30-bit mode; mont.cuh), in two passes.
 //
 // A logN15 row of i64 is 32768 x 8 B = 256 KB, more than the 227 KB of
 // shared memory one block may use, so a transform never holds a whole row.
@@ -9,22 +9,28 @@
 //   * forward stages logm < L1 pair x with x + t, t >= N2: they never mix
 //     columns, so a "strided" block owns TC columns of all N1 rows;
 //   * forward stages logm >= L1 have t < N2: a "contiguous" block owns
-//     one chunk of N2 consecutive coefficients.
+//     chunks of N2 consecutive coefficients.
 //
 // The inverse runs the same split in the opposite order.  Each stage is the
 // radix-2 butterfly of ops/ntt.py with the same twiddle psi[m + i], the
 // same operand order and the same lazy reductions, so the output equals the
-// plain torch transform bit for bit, in the same bit-reversed order.  Both
-// word types use the same geometry: an i32 tile takes half the bytes.
+// plain torch transform bit for bit, in the same bit-reversed order.
 //
-// Per block one row (one batch entry x one RNS channel): q, k and the
-// twiddle row are the channel's.  Twiddles are read from global memory
-// (the [C, N] tables stay in L2); data lives in shared memory between
-// stages.
+// This header holds two cores of those stages:
+//
+//   * the register-tiled core (below, "Register-tiled core"), which
+//     ntt.cu's transforms (K1-K4 and the keyswitch chain) run on;
+//   * the first core, one shared-memory round trip and one barrier per
+//     stage with twiddles read from global memory (Geo, fwd_strided,
+//     fwd_contig, fwd_pass1), which tensor.cu (K5) and keyswitch.cu (K6)
+//     still call until they move onto the register-tiled core.
 #pragma once
 
 #include "mont.cuh"
 
+// ---------------------------------------------------------------------
+// The first core (K5, K6).
+// ---------------------------------------------------------------------
 #define TT_TC 16          // columns per strided block (128 B of i64 per j1 row)
 #define TT_THREADS 256
 
@@ -96,52 +102,6 @@ __device__ __forceinline__ void fwd_contig(W* s, const Geo& g, int j1,
     }
 }
 
-// Inverse stages logm = logN .. L1+1 on the contiguous chunk j1.
-template <typename W, typename U>
-__device__ __forceinline__ void inv_contig(W* s, const Geo& g, int j1,
-                                           const W* ipsi, U q, U k) {
-    const W q2 = (W)(q << 1);
-    const int nb = g.N2 >> 1;
-    for (int logm = g.logN; logm > g.L1; --logm) {
-        const int sh = g.logN - logm;
-        const W* tw = ipsi + (1 << (logm - 1)) + (j1 << (logm - 1 - g.L1));
-        for (int b = threadIdx.x; b < nb; b += blockDim.x) {
-            const int grp = b >> sh;
-            const int u = (grp << (sh + 1)) + (b & ((1 << sh) - 1));
-            const int v = u + (1 << sh);
-            const W U0 = s[u];
-            const W V = s[v];
-            s[u] = lazy_add(U0, V, q2);
-            s[v] = redc(tw[grp], lazy_sub(U0, V, q2), q, k);
-        }
-        __syncthreads();
-    }
-}
-
-// Inverse stages logm = L1 .. 1 on a strided tile s[j1 * TC + col].
-template <typename W, typename U>
-__device__ __forceinline__ void inv_strided(W* s, const Geo& g, const W* ipsi,
-                                            U q, U k) {
-    const W q2 = (W)(q << 1);
-    const int nb = (g.N1 >> 1) * g.TC;
-    for (int logm = g.L1; logm >= 1; --logm) {
-        const int sh = g.L1 - logm;
-        for (int w = threadIdx.x; w < nb; w += blockDim.x) {
-            const int col = w % g.TC;
-            const int b = w / g.TC;
-            const int grp = b >> sh;
-            const int ju = (grp << (sh + 1)) + (b & ((1 << sh) - 1));
-            const int jv = ju + (1 << sh);
-            const W S = ipsi[(1 << (logm - 1)) + grp];
-            const W U0 = s[ju * g.TC + col];
-            const W V = s[jv * g.TC + col];
-            s[ju * g.TC + col] = lazy_add(U0, V, q2);
-            s[jv * g.TC + col] = redc(S, lazy_sub(U0, V, q2), q, k);
-        }
-        __syncthreads();
-    }
-}
-
 // Global coefficient index of strided-tile element e (column tile ct).
 __device__ __forceinline__ int strided_x(const Geo& g, int ct, int e) {
     return (e / g.TC) * g.N2 + ct * g.TC + (e % g.TC);
@@ -152,12 +112,9 @@ static inline int contig_threads(const Geo& g) {
     return t < TT_THREADS ? t : TT_THREADS;
 }
 
-// ---------------------------------------------------------------------
-// Forward pass 1: optional x R entry, stages [0, L1) on strided tiles.
+// Forward pass 1 of K5: x R entry, stages [0, L1) on strided tiles.
 // Grid (N2 / TC, rows); row = batch * C + channel.  Blocks of channels in
-// [skip_lo, skip_hi) return at once (the keyswitch in-part shortcut; an
-// empty range skips nothing).  Shared by ntt.cu and tensor.cu.
-// ---------------------------------------------------------------------
+// [skip_lo, skip_hi) return at once (an empty range skips nothing).
 template <typename W, bool ENTER>
 __global__ void fwd_pass1(const W* __restrict__ x, W* out, Geo g, int C,
                           int skip_lo, int skip_hi,
@@ -191,3 +148,222 @@ __global__ void fwd_pass1(const W* __restrict__ x, W* out, Geo g, int C,
         if (err_ != cudaSuccess) return (int)err_;   \
     } while (0)
 
+// ---------------------------------------------------------------------
+// Register-tiled core (ntt.cu).
+//
+// A pass works on "lines" of 2^B coefficients: the N1 rows of one column
+// (strided pass, B = L1) or one chunk of N2 (contiguous pass, B = L2).
+// The forward transforms a line's bits from B-1 down to 0, the inverse
+// from 0 up to B-1; the butterfly on bit b of element e takes the twiddle
+// T[2^s + (e >> (b + 1))], s = B - 1 - b, from a per-line table T of 2^B
+// words that the block stages in shared memory before its first stage:
+//
+//   strided pass:    T[j] = psi[j]                          (j < N1)
+//   contiguous pass: T[2^s + m] = psi[2^(L1+s) + j1 2^s + m] (m < 2^s)
+//
+// (ipsi for the inverse).  Each thread holds R = 2^RL words of one line
+// in registers.  A round is a window of RL consecutive bits [lo, lo+RL):
+// thread t's register i holds element slot(t, i, lo), i.e. i's bits at
+// lo.., t's bits around them, and the round runs the stages of the
+// window's bits on registers alone.  The forward's windows go from the
+// top down, the inverse's from bit 0 up; where B is not a multiple of RL
+// the last window overlaps bits already done, which ride along untouched.
+// Between rounds the line passes once through shared memory: each thread
+// stores its registers in the old round's pattern, one barrier (a warp
+// barrier where a line lies within one warp), and loads them in the new
+// pattern.  Two buffers alternate, so no second barrier guards the
+// overwrite.  Every index is a shift or mask of compile-time constants.
+//
+// Against the first core's four costs: (1) a line crosses shared memory
+// once per round of three stages, not once per stage, with one barrier
+// per crossing (a warp barrier for a chunk inside one warp); (2) the
+// plan (Plan<W, LOGN>) is compile-time, so no butterfly divides by a
+// runtime value and every round unrolls; (3) each block reads its
+// twiddles from global memory once, into the table; (4) strided tiles are
+// 128 B wide in both lanes, blocks take 256-512 threads, and a thread
+// that holds consecutive words moves them as 16-byte vectors.  This core
+// replaces the stages of _make_kernel (tiberate_tpu/ops/pallas_mxu.py:445,
+// run by _run_group :1395); ntt.cu says what it measured.
+// ---------------------------------------------------------------------
+#define TT_RLOG 3             // registers a thread holds: R = 2^TT_RLOG
+#define TT_MAX_THREADS 512    // the most threads a strided block takes
+#define TT_LINE_BYTES 128     // a strided tile's row: one 128 B line
+#define TT_CONTIG_THREADS 256 // threads a contiguous block gathers
+#define TT_PAD_SHIFT 3        // contiguous tile: a pad word every 2^3
+
+__host__ __device__ constexpr int tt_log2(int x) {
+    return x <= 1 ? 0 : 1 + tt_log2(x >> 1);
+}
+
+__host__ __device__ constexpr int tt_min(int a, int b) { return a < b ? a : b; }
+
+// The round schedule of a line of 2^B words, 2^RL registers a thread.
+template <int B, int RL>
+struct Sched {
+    static constexpr int R = 1 << RL;
+    static constexpr int T = 1 << (B - RL);  // threads per line
+    static constexpr int ROUNDS = (B + RL - 1) / RL;
+    static constexpr int NBUF = tt_min(ROUNDS - 1, 2);
+    // low bit of round k's window
+    __host__ __device__ static constexpr int lo(bool fwd, int k) {
+        return fwd ? (B - (k + 1) * RL > 0 ? B - (k + 1) * RL : 0)
+                   : ((k + 1) * RL <= B ? k * RL : B - RL);
+    }
+    // the bits round k transforms: [first, last] (forward: last..first
+    // from the top; inverse: first..last from the bottom)
+    __host__ __device__ static constexpr int first(bool fwd, int k) {
+        return fwd ? lo(true, k) : k * RL;
+    }
+    __host__ __device__ static constexpr int last(bool fwd, int k) {
+        return fwd ? B - 1 - k * RL : tt_min((k + 1) * RL, B) - 1;
+    }
+};
+
+// Element of a line held by register i of thread t in the window at lo.
+__host__ __device__ constexpr int slot(int t, int i, int lo, int rl) {
+    return ((t >> lo) << (lo + rl)) | (i << lo) | (t & ((1 << lo) - 1));
+}
+
+// Strided tile: element e of column col at s[e * TC + col].
+template <int TC>
+struct ColLayout {
+    int col;
+    __device__ __forceinline__ int operator()(int e) const {
+        return e * TC + col;
+    }
+};
+
+// Contiguous chunk: element e at s[e + e / 8] (spreads the strided
+// patterns of the low windows over the banks).
+struct PadLayout {
+    __device__ __forceinline__ int operator()(int e) const {
+        return e + (e >> TT_PAD_SHIFT);
+    }
+};
+
+// The lazy [0, 2q) add and sub of mont.cuh (the same value for every
+// input), selected on the sign of the difference: one 64-bit compare and
+// subtraction fewer in the 62-bit lane.  mont.cuh's stay as they are
+// while K5 and K6, the unchanged control, still compile against them.
+template <typename W>
+__device__ __forceinline__ W tile_add(W a, W b, W q2) {
+    const W s = a + b, d = s - q2;
+    return d < 0 ? s : d;
+}
+
+template <typename W>
+__device__ __forceinline__ W tile_sub(W a, W b, W q2) {
+    const W d = a - b;
+    return d < 0 ? d + q2 : d;
+}
+
+template <bool WARP>
+__device__ __forceinline__ void tile_sync() {
+    if (WARP)
+        __syncwarp();
+    else
+        __syncthreads();
+}
+
+// The butterflies of bits [BF, BL] on the registers of window LO.
+template <typename W, typename U, int B, int RL, int LO, int BF, int BL,
+          bool FWD>
+__device__ __forceinline__ void butterflies(W (&v)[1 << RL], int t,
+                                            const W* T, U q, U k, W q2) {
+#pragma unroll
+    for (int n = 0; n <= BL - BF; ++n) {
+        const int b = FWD ? BL - n : BF + n;
+        const int j = b - LO;
+#pragma unroll
+        for (int i = 0; i < (1 << RL); ++i) {
+            if (i & (1 << j)) continue;
+            const int h = i | (1 << j);
+            const W S = T[(1 << (B - 1 - b)) + (slot(t, i, LO, RL) >> (b + 1))];
+            const W U0 = v[i];
+            if (FWD) {
+                const W V = redc(S, v[h], q, k);
+                v[i] = tile_add(U0, V, q2);
+                v[h] = tile_sub(U0, V, q2);
+            } else {
+                const W V = v[h];
+                v[i] = tile_add(U0, V, q2);
+                v[h] = redc(S, tile_sub(U0, V, q2), q, k);
+            }
+        }
+    }
+}
+
+// Rounds K.. of a line: exchange into round K's pattern (K > 0), its
+// butterflies, then the next round.  buf holds NBUF tiles, bstride words
+// apart; lay maps a line element to its word in a tile.
+template <typename W, typename U, int B, int RL, bool FWD, bool WARP, int K,
+          class Lay>
+__device__ __forceinline__ void run_rounds(W (&v)[1 << RL], int t,
+                                           const W* T, W* buf, int bstride,
+                                           const Lay& lay, U q, U k, W q2) {
+    typedef Sched<B, RL> SC;
+    constexpr int LO = SC::lo(FWD, K);
+    if constexpr (K > 0) {
+        constexpr int PLO = SC::lo(FWD, K - 1);
+        W* s = buf + ((K - 1) & 1) * bstride;
+#pragma unroll
+        for (int i = 0; i < SC::R; ++i) s[lay(slot(t, i, PLO, RL))] = v[i];
+        tile_sync<WARP>();
+#pragma unroll
+        for (int i = 0; i < SC::R; ++i) v[i] = s[lay(slot(t, i, LO, RL))];
+    }
+    butterflies<W, U, B, RL, LO, SC::first(FWD, K), SC::last(FWD, K), FWD>(
+        v, t, T, q, k, q2);
+    if constexpr (K + 1 < SC::ROUNDS)
+        run_rounds<W, U, B, RL, FWD, WARP, K + 1>(v, t, T, buf, bstride, lay,
+                                                  q, k, q2);
+}
+
+// A contiguous chunk's twiddle table: T[2^s + m] = tw[2^(L1+s) + j1 2^s + m]
+// for s < L2, m < 2^s, filled by the chunk's NT threads (T[0] unused).
+template <typename W, int L1, int L2, int NT>
+__device__ __forceinline__ void chunk_twiddles(W* T, const W* tw, int j1,
+                                               int t) {
+#pragma unroll
+    for (int n = 0; n < (1 << L2) / NT; ++n) {
+        const int j = t + n * NT;
+        if (j == 0) continue;
+        const int s = 31 - __clz(j);
+        T[j] = tw[(1 << (L1 + s)) + (j1 << s) + (j - (1 << s))];
+    }
+}
+
+// The strided register count: TT_RLOG, or more where the block would
+// exceed TT_MAX_THREADS.
+__host__ __device__ constexpr int strided_rlog(int L1, int TC) {
+    int r = tt_min(TT_RLOG, L1);
+    while ((TC << (L1 - r)) > TT_MAX_THREADS) ++r;
+    return r;
+}
+
+// Every launch constant of a transform of 2^LOGN words of type W.
+template <typename W, int LOGN>
+struct Plan {
+    static constexpr int L1 = LOGN / 2, L2 = LOGN - L1;
+    static constexpr int N1 = 1 << L1, N2 = 1 << L2;
+    // strided pass (bits of j1): TC columns, a line each, T1 threads
+    static constexpr int TC = tt_min(N2, TT_LINE_BYTES / (int)sizeof(W));
+    static constexpr int LTC = tt_log2(TC);
+    static constexpr int RL1 = strided_rlog(L1, TC);
+    typedef Sched<L1, RL1> S1;
+    static constexpr int T1 = TC * S1::T;
+    static constexpr int SMEM1 =
+        (N1 + S1::NBUF * N1 * TC) * (int)sizeof(W);
+    // contiguous pass (bits within a chunk): CH chunks, a table and NBUF
+    // padded tiles each
+    static constexpr int RL2 = tt_min(TT_RLOG, L2);
+    typedef Sched<L2, RL2> S2;
+    static constexpr int TPC = S2::T;
+    static constexpr int CH =
+        tt_min(N1, TPC >= TT_CONTIG_THREADS ? 1 : TT_CONTIG_THREADS / TPC);
+    static constexpr int T2 = CH * TPC;
+    static constexpr int P2 = N2 + (N2 >> TT_PAD_SHIFT);
+    static constexpr int CHUNK = N2 + S2::NBUF * P2;
+    static constexpr int SMEM2 = CH * CHUNK * (int)sizeof(W);
+    static constexpr bool WARP2 = TPC <= 32 && T2 >= 32;
+};

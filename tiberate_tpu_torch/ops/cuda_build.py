@@ -1,7 +1,7 @@
 """Build and load the Hopper kernels (``csrc/*.cu``) at first use.
 
-``nvcc`` compiles each source into an object file, all sources at once in
-parallel processes, and links them into one shared library with a plain C
+``nvcc`` compiles each source into an object file (``ntt.cu`` once per
+lane and direction), all at once in parallel processes, and links them into one shared library with a plain C
 interface under ``tiberate_tpu_torch/_build/`` (named by a hash of the
 sources, so an edited source is rebuilt); ``ctypes`` loads it.  Nothing
 here runs at import time: a machine without ``nvcc`` or a GPU imports the
@@ -11,6 +11,7 @@ package and runs the plain torch versions on CPU tensors.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -19,6 +20,11 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("ntt.cu", "tensor.cu", "keyswitch.cu", "fold_probe.cu")
 HEADERS = ("mont.cuh", "ntt.cuh")
+# (source, extra nvcc flags) per object file: ntt.cu instantiates its
+# transforms for every logN, so each lane and direction builds apart
+UNITS = (*(("ntt.cu", (f"-DTT_LANE={lane}", f"-DTT_FWD={fwd}"))
+           for lane in (62, 30) for fwd in (1, 0)),
+         *((src, ()) for src in SOURCES[1:]))
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _P = ctypes.c_void_p
@@ -94,14 +100,18 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(lib_path) and not verbose:
         return lib_path
     tag = f"{os.getpid()}.tmp"  # concurrent builds
-    flags = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    # --split-compile=0: optimise a unit's kernels in parallel (ntt.cu's
+    # units hold 28 unrolled kernels each)
+    flags = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             "--split-compile=0"]
     if verbose:
         flags += ["-Xptxas", "-v"]
     jobs = []
-    for src in SOURCES:
-        obj = os.path.join(BUILD_DIR, f"{src}.{tag}.o")
+    for n, (src, extra) in enumerate(UNITS):
+        obj = os.path.join(BUILD_DIR, f"{src}.{n}.{tag}.o")
         log = open(f"{obj}.log", "w+")
-        cmd = [_nvcc(), *flags, "-c", "-o", obj, os.path.join(CSRC, src)]
+        cmd = [_nvcc(), *flags, *extra, "-c", "-o", obj,
+               os.path.join(CSRC, src)]
         jobs.append((obj, log, subprocess.Popen(
             cmd, stdout=log, stderr=subprocess.STDOUT)))
     logs, failed = [], []
@@ -130,6 +140,25 @@ def build(verbose: bool = False) -> str:
         raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     os.replace(tmp_path, lib_path)
     return lib_path
+
+
+def sass(*parts):
+    """SASS text (``cuobjdump -sass``) of the built library's kernels whose
+    mangled names contain one of ``parts``; None without ``cuobjdump``.
+    The names come from the symbol table: disassembling the whole library
+    takes seconds per call."""
+    tool = cuda_tool("cuobjdump")
+    if tool is None:
+        return None
+    path = build()
+    symbols = subprocess.run([tool, "-symbols", path], capture_output=True,
+                             text=True, check=True).stdout
+    names = sorted({n for n in re.findall(r"_Z\w+", symbols)
+                    if any(p in n for p in parts)})
+    if not names:
+        return ""
+    return subprocess.run([tool, "-sass", "-fun", ",".join(names), path],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def lib():

@@ -16,11 +16,12 @@ Phases (any failure exits non-zero):
    each mode's rate from two chain lengths; it prints the rates beside the
    card's SM clock, and the SASS instructions of one chain step where
    ``cuobjdump`` is present;
-2c. the redesigned transform entries (K1, K2 with its three epilogues,
-   K3 with one and two keys, the chain with and without a skip range, K4)
-   at logN 4, 7 and 10 in both lanes, byte for byte against their plain
-   versions; and the SASS of the register-tiled core (``cuobjdump``): the
-   instructions of the inverse contiguous pass per butterfly it runs;
+2c. every entry of the register-tiled kernels (K1, K2 with its three
+   epilogues, K3 with one and two keys, the chain with and without a skip
+   range, K4, K5 and K6) at logN 4, 7 and 10 in both lanes, byte for byte
+   against their plain versions; and the SASS of the register-tiled core
+   (``cuobjdump``): the instructions per butterfly of the inverse
+   contiguous pass and of K5's and K6's contiguous passes;
 3. at the logN15 step shapes (batch 8, 16/17/18 channels, N = 32768) hold
    each kernel against its plain torch version on the same card tensors —
    byte for byte, lazy outputs included — and time both (the plain
@@ -347,11 +348,12 @@ def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
     return results
 
 
-def check_small(kern, CkksParams, toy_config):
-    """Phase 2c: every entry of the two ntt.cu transforms at logN 4, 7 and
-    10 (odd and even logN: both splits L1 = L2 and L1 + 1 = L2), in both
-    lanes, on a toy parameter set at batch 2, against its plain version
-    byte for byte.  Returns the number of cases."""
+def check_small(kern, mod, CkksParams, toy_config):
+    """Phase 2c: every entry of the two ntt.cu transforms, K5 (tensor.cu)
+    and K6 (keyswitch.cu) at logN 4, 7 and 10 (odd and even logN: both
+    splits L1 = L2 and L1 + 1 = L2), in both lanes, on a toy parameter set
+    at batch 2, against its plain version byte for byte.  Returns the
+    number of cases."""
     n = 0
     for logN in (4, 7, 10):
         for lane, opts in ((62, dict(scale_bits=30)),
@@ -363,6 +365,7 @@ def check_small(kern, CkksParams, toy_config):
             C, C_sp, N = lp.num_channels, lp_sp.num_channels, 1 << logN
             q, q_sp = lp.pack.q, lp_sp.pack.q
             x = uniform(gen, q, (2, C, N))
+            x4 = [uniform(gen, q, (2, C, N)) for _ in range(4)]
             keys = (uniform(gen, q, (C, N)), uniform(gen, q, (C, N)))
             acc = uniform(gen, q_sp, (2, C_sp, N))
             p0 = uniform(gen, q_sp[C:], (2, tp.S, N))
@@ -370,6 +373,12 @@ def check_small(kern, CkksParams, toy_config):
             keys_sp = (uniform(gen, q_sp, (C_sp, N)),
                        uniform(gen, q_sp, (C_sp, N)))
             part = tp.parts[1][-1]
+            ec, alphas = mod._parts_consts(tp, 1)
+            st = mod._parts_digits(x, tp.parts[1], lp,
+                                   ec.shape[-1]).contiguous()
+            pkeys = tuple(torch.stack([uniform(gen, q_sp, (C_sp, N))
+                                       for _ in range(ec.shape[0])])
+                          for _ in range(2))
 
             def accum(skip):
                 a = tuple(uniform(gen, 2 * q_sp, (2, C_sp, N))
@@ -397,6 +406,12 @@ def check_small(kern, CkksParams, toy_config):
                     (part.lo, part.hi)),
                 "intt_pdiv": (kern.intt_pdiv(acc, p0, lp, tp.PiRs[1]),
                               kern.intt_pdiv_plain(acc, p0, lp, tp.PiRs[1])),
+                "ntt_tensor": (kern.ntt_tensor(*x4, lp),
+                               kern.ntt_tensor_plain(*x4, lp)),
+                "ntt_keymul_parts": (
+                    kern.ntt_keymul_parts(st, ec, alphas, pkeys, lp_sp),
+                    kern.ntt_keymul_parts_plain(st, ec, alphas, pkeys,
+                                                lp_sp)),
             }
             torch.cuda.synchronize()
             for name, (got, want) in cases.items():
@@ -409,28 +424,35 @@ def check_small(kern, CkksParams, toy_config):
     return n
 
 
-def transform_sass(cuda_build):
-    """{(lane, logN): (IMAD-class, all, butterflies)} for the inverse
-    contiguous pass (``inv_contig_k``) at logN 15 and 17: its SASS
-    instructions (loads, twiddle table, every butterfly, the exchanges and
-    the stores; NOP left out) and the butterflies one thread runs (4 per
-    stage at R = 8).  None without ``cuobjdump``."""
-    sass = cuda_build.sass(*(f"inv_contig_kI{w}Li{n}E" for w in "xi"
-                             for n in (15, 17)))
+# contiguous-pass kernel -> the butterflies one thread runs in the code its
+# SASS holds, per stage (4 at R = 8): the inverse pass one line; the K6
+# pass its part loop's body once (one part); the K5 pass its four lines
+CONTIG_SASS = {"inv_contig_k": 4, "parts_contig_k": 4, "tensor_contig_k": 16}
+
+
+def contig_sass(cuda_build):
+    """{(kernel, lane, logN): (IMAD-class, all, butterflies)} for the
+    contiguous passes of CONTIG_SASS at logN 15 and 17: their SASS
+    instructions (loads, twiddle table, every butterfly, the exchanges,
+    products and stores; NOP left out) and the butterflies one thread runs
+    in that code.  None without ``cuobjdump``."""
+    sass = cuda_build.sass(*(f"{k}I{w}Li{n}E" for k in CONTIG_SASS
+                             for w in "xi" for n in (15, 17)))
     if sass is None:
         return None
     out = {}
     for block in sass.split("Function : ")[1:]:
-        m = re.match(r"\S*inv_contig_kI([xi])Li(1[57])E", block)
+        m = re.match(r"\S*?(" + "|".join(CONTIG_SASS)
+                     + r")I([xi])Li(1[57])E", block)
         if not m:
             continue
         ops = [op for op in re.findall(
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
             block) if op != "NOP"]
-        logN = int(m.group(2))
-        out[(62 if m.group(1) == "x" else 30, logN)] = (
+        logN = int(m.group(3))
+        out[(m.group(1), 62 if m.group(2) == "x" else 30, logN)] = (
             sum(op.startswith(("IMAD", "IMUL")) for op in ops), len(ops),
-            4 * (logN - logN // 2))
+            CONTIG_SASS[m.group(1)] * (logN - logN // 2))
     return out
 
 
@@ -773,13 +795,16 @@ def main():
     from tiberate_tpu_torch.context.ntt_context import CkksParams
 
     t0 = time.perf_counter()
-    n_small = check_small(kern, CkksParams, toy_config)
-    log(f"logN 4, 7, 10: {n_small} cases of the ntt.cu entries, both lanes, "
-        f"byte-identical to their plain versions "
+    n_small = check_small(kern, mod, CkksParams, toy_config)
+    log(f"logN 4, 7, 10: {n_small} cases of the ntt.cu entries, K5 and K6, "
+        f"both lanes, byte-identical to their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
-    for (bits, logN), (imad, total, bfly) in sorted(
-            (transform_sass(cuda_build) or {}).items()):
-        log(f"SASS inv_contig_k {bits}-bit logN{logN}: {total} instructions, "
+    sass = contig_sass(cuda_build)
+    if sass is None:
+        log("SASS of the contiguous passes: not measured (no cuobjdump)")
+    for (name, bits, logN), (imad, total, bfly) in sorted(
+            (sass or {}).items()):
+        log(f"SASS {name} {bits}-bit logN{logN}: {total} instructions, "
             f"{imad} IMAD-class, for {bfly} butterflies a thread: "
             f"{total / bfly:.1f} ({imad / bfly:.1f} IMAD-class) a butterfly")
 

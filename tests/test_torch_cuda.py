@@ -55,46 +55,56 @@ def card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lane", sorted(LANES))
-@pytest.mark.parametrize("logN", [4, 7, 10, 15])
+@pytest.mark.parametrize("logN", [4, 7, 10, 15, 17])
 def test_kernels_match_plain_on_card(card, logN, lane):
     """Every kernel against its plain version at a few rows; logN 15 is
-    the main path's geometry (L1 = 7, L2 = 8)."""
+    the main path's geometry (L1 = 7, L2 = 8).  At logN 17 (L1 = 8, L2 =
+    9: chunks of two warps) K5 and K6 at batch 1."""
     tp = CkksParams(_cfg(logN, lane), card)
     lp_ord, lp_sp = tp.lp(LEVEL, False), tp.lp(LEVEL, True)
     gen = torch.Generator().manual_seed(logN)
+    batch = 1 if logN == 17 else BATCH
 
     def uni(lp, shape):
         x = torch.randint(0, 1 << 62, shape, generator=gen)
         return (x % lp.pack.q.cpu().long()[:, None]).to(card, tp.dtype)
 
     C, C_sp, N = lp_ord.num_channels, lp_sp.num_channels, 1 << logN
-    x = uni(lp_ord, (BATCH, C, N))
-    y = [uni(lp_ord, (BATCH, C, N)) for _ in range(4)]
+    x = uni(lp_ord, (batch, C, N))
+    y = [uni(lp_ord, (batch, C, N)) for _ in range(4)]
     keys = (uni(lp_ord, (C, N)), uni(lp_ord, (C, N)))
-    acc = uni(lp_sp, (BATCH, C_sp, N))
-    p0 = uni(lp_sp[C:], (BATCH, tp.S, N))
+    acc = uni(lp_sp, (batch, C_sp, N))
+    p0 = uni(lp_sp[C:], (batch, tp.S, N))
     ec, alphas = teng._parts_consts(tp, LEVEL)
     st = teng._parts_digits(x, tp.parts[LEVEL], lp_ord, ec.shape[-1])
     pkeys = tuple(torch.stack([uni(lp_sp, (C_sp, N))
                                for _ in range(ec.shape[0])])
                   for _ in range(2))
-    pairs = [
-        (K.ntt(x, lp_ord, True), K.ntt_plain(x, lp_ord, True)),
-        (K.ntt(x, lp_ord, False), K.ntt_plain(x, lp_ord, False)),
-        (K.intt(x, lp_ord, "mont"), K.intt_plain(x, lp_ord, "mont")),
-        (K.intt(x, lp_ord, "exit"), K.intt_plain(x, lp_ord, "exit")),
-        (K.intt(x, lp_ord, "exit_reduce"),
-         K.intt_plain(x, lp_ord, "exit_reduce")),
-        (K.ntt_keymul(x, lp_ord, keys[:1], True),
-         K.ntt_keymul_plain(x, lp_ord, keys[:1], True)),
-        (K.ntt_keymul(x, lp_ord, keys, False),
-         K.ntt_keymul_plain(x, lp_ord, keys, False)),
-        (K.intt_pdiv(acc, p0, lp_ord, tp.PiRs[LEVEL]),
-         K.intt_pdiv_plain(acc, p0, lp_ord, tp.PiRs[LEVEL])),
-        (K.ntt_tensor(*y, lp_ord), K.ntt_tensor_plain(*y, lp_ord)),
-        (K.ntt_keymul_parts(st, ec, alphas, pkeys, lp_sp),
-         K.ntt_keymul_parts_plain(st, ec, alphas, pkeys, lp_sp)),
-    ]
+    cases = {
+        "ntt": lambda: (K.ntt(x, lp_ord, True), K.ntt_plain(x, lp_ord, True)),
+        "ntt no entry": lambda: (K.ntt(x, lp_ord, False),
+                                 K.ntt_plain(x, lp_ord, False)),
+        **{f"intt {e}": lambda e=e: (K.intt(x, lp_ord, e),
+                                     K.intt_plain(x, lp_ord, e))
+           for e in ("mont", "exit", "exit_reduce")},
+        "ntt_keymul 1 key": lambda: (
+            K.ntt_keymul(x, lp_ord, keys[:1], True),
+            K.ntt_keymul_plain(x, lp_ord, keys[:1], True)),
+        "ntt_keymul 2 keys": lambda: (
+            K.ntt_keymul(x, lp_ord, keys, False),
+            K.ntt_keymul_plain(x, lp_ord, keys, False)),
+        "intt_pdiv": lambda: (
+            K.intt_pdiv(acc, p0, lp_ord, tp.PiRs[LEVEL]),
+            K.intt_pdiv_plain(acc, p0, lp_ord, tp.PiRs[LEVEL])),
+        "ntt_tensor": lambda: (K.ntt_tensor(*y, lp_ord),
+                               K.ntt_tensor_plain(*y, lp_ord)),
+        "ntt_keymul_parts": lambda: (
+            K.ntt_keymul_parts(st, ec, alphas, pkeys, lp_sp),
+            K.ntt_keymul_parts_plain(st, ec, alphas, pkeys, lp_sp)),
+    }
+    if logN == 17:
+        cases = {k: cases[k] for k in ("ntt_tensor", "ntt_keymul_parts")}
+    pairs = [case() for case in cases.values()]
     torch.cuda.synchronize()
     for got, want in pairs:
         got = got if isinstance(got, tuple) else (got,)

@@ -177,6 +177,42 @@ def test_port_batched_step_equals_single(port_engine):
         assert err < TOL
 
 
+@pytest.fixture(scope="module")
+def jax_engine():
+    return jeng.CkksEngine(_cfg(), seed=7)
+
+
+@pytest.mark.parametrize("entry", ["decrypt_double", "decryptcode"])
+@pytest.mark.parametrize("flag", ["NTT_STATE", "MONTGOMERY_STATE"])
+def test_decrypt_refuses_ntt_and_montgomery_state(jax_engine, port_engine,
+                                                  flag, entry):
+    """A ciphertext flagged as in the NTT or the Montgomery state, built
+    from the same numpy residues in both packages, is refused by both
+    decrypt entries with the exception of the same name and message
+    (``expected=False``)."""
+    from tiberate_tpu import errors as jerrors
+    from tiberate_tpu import typing as jtyping
+    from tiberate_tpu_torch import errors as terrors
+    from tiberate_tpu_torch import typing as ttyping
+
+    rng = np.random.default_rng(13)
+    C = port_engine._lp(0, False).num_channels
+    data = [_uniform(rng, port_engine.params.q[:C], port_engine.ckksCfg.N)
+            for _ in range(2)]
+    jct = jtyping.Ciphertext(data=tuple(jnp.asarray(d) for d in data),
+                             flags=getattr(jtyping.FLAGS, flag), level=0)
+    tct = ttyping.Ciphertext(data=tuple(torch.from_numpy(d) for d in data),
+                             flags=getattr(ttyping.FLAGS, flag), level=0)
+    name = {"NTT_STATE": "NTTStateError",
+            "MONTGOMERY_STATE": "MontgomeryStateError"}[flag]
+    with pytest.raises(getattr(jerrors, name)) as jexc:
+        getattr(jax_engine, entry)(jct)
+    with pytest.raises(getattr(terrors, name)) as texc:
+        getattr(port_engine, entry)(tct)
+    assert str(jexc.value).endswith(f"requires {flag}=False.")
+    assert str(texc.value) == str(jexc.value)
+
+
 def test_cuda_engine_needs_a_card():
     """No silent CPU default: device='cuda' (the default) raises when no
     GPU is present."""

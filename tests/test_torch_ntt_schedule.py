@@ -15,6 +15,7 @@ arithmetic).  An index fault in the schedule shows here, before a card
 runs it.
 """
 
+import functools
 import os
 import re
 
@@ -25,8 +26,12 @@ import torch
 from tiberate_tpu.ops import mont as jmont
 from tiberate_tpu.ops import ntt as jntt
 from tiberate_tpu.utils.primes import find_the_next_prime
+from tiberate_tpu_torch.config.toy import toy_config
+from tiberate_tpu_torch.context.ntt_context import CkksParams as TParams
+from tiberate_tpu_torch.engine import ckks_engine as teng
 from tiberate_tpu_torch.ops import mont as tmont
 from tiberate_tpu_torch.ops import ntt as tntt
+from tiberate_tpu_torch.ops import ntt_kernels as K
 
 torch.set_num_threads(1)
 
@@ -121,17 +126,43 @@ def _line_tables(tw, plan, strided):
     return out
 
 
-def _run_pass(lines, table, sched, fwd, pack, layout):
-    """The rounds of one pass on lines [C, n_lines, 2^B] in place: gather
-    each round's registers, run its butterflies with the twiddle words
-    the kernel reads, scatter back (the exchange).  ``layout`` maps a
-    line element to its shared-memory word; every exchange must be a
-    bijection into one tile."""
-    C = lines.shape[0]
+def _tile_add(a, b, q2):
+    """mont.cuh's ``tile_add``: a + b, less 2q where that is >= 2q."""
+    s = a + b
+    d = s - q2
+    return torch.where(d < 0, s, d)
+
+
+def _tile_sub(a, b, q2):
+    """mont.cuh's ``tile_sub``: a - b, plus 2q where that is < 0."""
+    d = a - b
+    return torch.where(d < 0, d + q2, d)
+
+
+def _consts(pack, ndim):
+    """The pack's (ql, qh, kl, kh, 2q), shaped [C, 1, ..., 1] for lines of
+    ``ndim`` dimensions."""
+    return tuple(c.reshape(-1, *[1] * (ndim - 1)) for c in (
+        pack.ql, pack.qh, pack.kl, pack.kh, pack._2q))
+
+
+def _redc(a, b, pack, ndim):
+    ql, qh, kl, kh, _ = _consts(pack, ndim)
+    return tmont.mont_mult_raw(a, b, ql, qh, kl, kh)
+
+
+def _run_pass(lines, table, sched, fwd, pack, layout, fill=None):
+    """The rounds of one pass on lines [C, M, L, 2^B] in place (M lines per
+    twiddle table, tables [C, L, 2^B]): gather each round's registers, run
+    its butterflies with the twiddle words the kernel reads, scatter back
+    (the exchange).  ``fill(v, idx)`` replaces round 0's registers v
+    [C, M, L, T, R], gathered at line elements idx [T, R], with what the
+    kernel's load forms there (a prologue).  ``layout`` maps a line
+    element to its shared-memory word; every exchange must be a bijection
+    into one tile."""
     t = np.arange(sched.T)[:, None]
     i = np.arange(sched.R)[None, :]
-    ql, qh, kl, kh, _2q = (c.reshape(C, 1, 1, 1) for c in (
-        pack.ql, pack.qh, pack.kl, pack.kh, pack._2q))
+    ql, qh, kl, kh, _2q = _consts(pack, 5)
     for k in range(sched.rounds):
         lo = sched.lo(fwd, k)
         idx = slot(t, i, lo, sched.RL)
@@ -139,52 +170,148 @@ def _run_pass(lines, table, sched, fwd, pack, layout):
         if k:
             words = layout(slot(t, i, sched.lo(fwd, k - 1), sched.RL))
             assert len(set(words.ravel())) == words.size
-        v = lines[..., torch.from_numpy(idx)]  # [C, lines, T, R]
+        v = lines[..., torch.from_numpy(idx)]  # [C, M, L, T, R]
+        if k == 0 and fill is not None:
+            v = fill(v, idx)
         for b in sched.bits(fwd, k):
             j = b - lo
             lo_i = [n for n in range(sched.R) if not n & (1 << j)]
             hi_i = [n | (1 << j) for n in lo_i]
             e = idx[:, lo_i]
             tw_word = (1 << (sched.B - 1 - b)) + (e >> (b + 1))
-            S = torch.gather(
-                table.expand(C, lines.shape[1], -1), 2,
-                torch.from_numpy(tw_word.ravel()).expand(
-                    C, lines.shape[1], -1)).reshape(
-                C, lines.shape[1], *tw_word.shape)
+            S = table[:, None, :, torch.from_numpy(tw_word)]  # [C,1,L,T,R/2]
             U, V = v[..., lo_i], v[..., hi_i]
             if fwd:
                 V = tmont.mont_mult_raw(S, V, ql, qh, kl, kh)
-                a, d = U + V, U + _2q - V
-                a = torch.where(a < _2q, a, a - _2q)
-                d = torch.where(d < _2q, d, d - _2q)
+                a, d = _tile_add(U, V, _2q), _tile_sub(U, V, _2q)
             else:
-                a, d = U + V, U + _2q - V
-                a = torch.where(a < _2q, a, a - _2q)
-                d = torch.where(d < _2q, d, d - _2q)
+                a, d = _tile_add(U, V, _2q), _tile_sub(U, V, _2q)
                 d = tmont.mont_mult_raw(S, d, ql, qh, kl, kh)
             v[..., lo_i], v[..., hi_i] = a, d
         lines[..., torch.from_numpy(idx)] = v
+
+
+def _strided(grid, tw, plan, fwd, pack, fill=None):
+    """The strided pass on grid [C, M, N1, N2] in place: each column is a
+    line, all under the row's N1 twiddles."""
+    C, M = grid.shape[:2]
+    lines = grid.transpose(-1, -2).reshape(C, M * plan.N2, 1, plan.N1).clone()
+    _run_pass(lines, _line_tables(tw, plan, True), plan.S1, fwd, pack,
+              lambda e: e * plan.TC, fill)
+    grid.copy_(lines.reshape(C, M, plan.N2, plan.N1).transpose(-1, -2))
+
+
+def _contig(grid, table, plan, fwd, pack):
+    """The contiguous pass on grid [C, M, N1, N2] in place: chunk j1 of
+    every row under its table (``table`` [C, N1, N2], staged once)."""
+    _run_pass(grid, table, plan.S2, fwd, pack,
+              lambda e: e + (e >> PAD_SHIFT))
 
 
 def model_transform(x, tw, pack, logN, lane, fwd):
     """The kernels' transform of x [C, N] (one batch row per channel)."""
     plan = Plan(logN, lane)
     C = x.shape[0]
-    grid = x.reshape(C, plan.N1, plan.N2).clone()
-
-    def strided():
-        lines = grid.transpose(1, 2).contiguous()  # [C, N2 columns, N1]
-        _run_pass(lines, _line_tables(tw, plan, True), plan.S1, fwd, pack,
-                  lambda e: e * plan.TC)
-        grid.copy_(lines.transpose(1, 2))
-
-    def contig():
-        _run_pass(grid, _line_tables(tw, plan, False), plan.S2, fwd, pack,
-                  lambda e: e + (e >> PAD_SHIFT))
-
-    for step in ((strided, contig) if fwd else (contig, strided)):
-        step()
+    grid = x.reshape(C, 1, plan.N1, plan.N2).clone()
+    table = _line_tables(tw, plan, False)
+    if fwd:
+        _strided(grid, tw, plan, True, pack)
+        _contig(grid, table, plan, True, pack)
+    else:
+        _contig(grid, table, plan, False, pack)
+        _strided(grid, tw, plan, False, pack)
     return grid.reshape(C, -1)
+
+
+def _last_window_is_consecutive(plan):
+    """After a forward contiguous pass thread t holds words tR .. tR+R-1
+    (what the kernels' 16-byte key loads and stores assume)."""
+    S2 = plan.S2
+    t = np.arange(S2.T)[:, None]
+    i = np.arange(S2.R)[None, :]
+    got = slot(t, i, S2.lo(True, S2.rounds - 1), S2.RL)
+    return np.array_equal(got, t * S2.R + i)
+
+
+def model_keymul_parts(st, ec, alphas, keys, lp_sp, lane):
+    """K6 as ``csrc/keyswitch.cu`` runs it, for st [B, n_parts, amax, N].
+
+    Pass 1: each strided slot loads its digits of the part's alpha_p rows
+    and forms REDC(st_0 Rs) (+) sum_i REDC(st_i L_enter_i) in registers,
+    then the strided rounds run.  Pass 2: one twiddle table per chunk for
+    all parts; each part's chunk runs the contiguous rounds, in part order,
+    and its two key products go into two accumulators that part 0 sets.
+    Returns the two accumulators [B, C_sp, N]."""
+    B, n_parts, amax, N = st.shape
+    plan = Plan(N.bit_length() - 1, lane)
+    pk = lp_sp.pack
+    C, M = pk.num_channels, B * n_parts
+    assert _last_window_is_consecutive(plan)
+    # the digit rows of every (b, p), as the strided pass's lines
+    dig = st.reshape(M, amax, plan.N1, plan.N2).transpose(-1, -2).reshape(
+        1, M, amax, plan.N2, 1, plan.N1)
+    # ec [n_parts, C_sp, amax] -> the constant of each (c, b, p)
+    cst = ec.permute(1, 0, 2)[:, None].expand(C, B, n_parts, amax).reshape(
+        C, M, 1, 1, 1, 1, amax)
+    active = (torch.arange(amax)[None, :]
+              < alphas.repeat(B).long()[:, None])  # [M, amax]
+    active = active.reshape(1, M, 1, 1, 1, 1, amax)
+    q2 = _consts(pk, 6)[-1]
+
+    def fill(v, idx):
+        d = dig[..., torch.from_numpy(idx)]  # [1, M, amax, N2, 1, T, R]
+        d = d.movedim(2, -1)  # [1, M, N2, 1, T, R, amax]
+        prods = [_redc(d[..., a], cst[..., a], pk, 6) for a in range(amax)]
+        ext = prods[0]
+        for a in range(1, amax):
+            ext = torch.where(active[..., a], _tile_add(ext, prods[a], q2),
+                              ext)
+        return ext.reshape(v.shape)
+
+    tmp = torch.zeros((C, M, plan.N1, plan.N2), dtype=st.dtype)
+    _strided(tmp, lp_sp.psi, plan, True, pk, fill)
+    tmp = tmp.reshape(C, B, n_parts, plan.N1, plan.N2)
+    table = _line_tables(lp_sp.psi, plan, False)
+    acc = [None, None]
+    for p in range(n_parts):
+        X = tmp[:, :, p].clone()  # [C, B, N1, N2]
+        _contig(X, table, plan, True, pk)
+        for j in range(2):
+            key = keys[j][p].reshape(C, 1, plan.N1, plan.N2)
+            prod = _redc(X, key, pk, 4)
+            acc[j] = prod if p == 0 else _tile_add(acc[j], prod,
+                                                   _consts(pk, 4)[-1])
+    return tuple(a.reshape(C, B, N).transpose(0, 1) for a in acc)
+
+
+def model_tensor(x0, x1, y0, y1, lp, lane):
+    """K5 as ``csrc/tensor.cu`` runs it, for four [B, C, N] inputs.
+
+    Pass 1: one strided launch over the four inputs, the x R entry in the
+    load.  Pass 2: one twiddle table per chunk; the four lines run the
+    contiguous rounds one after another, then d0 = REDC(X0 Y0), d1 =
+    REDC(X0 Y1) (+) REDC(X1 Y0), d2 = REDC(X1 Y1).  Returns (d0, d1, d2)."""
+    B, C, N = x0.shape
+    plan = Plan(N.bit_length() - 1, lane)
+    pk = lp.pack
+    assert _last_window_is_consecutive(plan)
+    grid = torch.stack([x0, x1, y0, y1]).permute(2, 0, 1, 3).reshape(
+        C, 4 * B, plan.N1, plan.N2).clone()
+    Rs = lp.Rs.reshape(C, 1, 1, 1, 1)
+    _strided(grid, lp.psi, plan, True, pk,
+             lambda v, idx: _redc(v, Rs, pk, 5))
+    table = _line_tables(lp.psi, plan, False)
+    lines = []
+    for z in range(4):
+        X = grid.reshape(C, 4, B, plan.N1, plan.N2)[:, z].clone()
+        _contig(X, table, plan, True, pk)
+        lines.append(X)
+    X0, X1, Y0, Y1 = lines
+    q2 = _consts(pk, 4)[-1]
+    d = (_redc(X0, Y0, pk, 4),
+         _tile_add(_redc(X0, Y1, pk, 4), _redc(X1, Y0, pk, 4), q2),
+         _redc(X1, Y1, pk, 4))
+    return tuple(t.reshape(C, B, N).transpose(0, 1) for t in d)
 
 
 def _inputs(logN, lane, seed):
@@ -232,6 +359,94 @@ def test_schedule_matches_jax_transform(lane, fwd):
     assert np.array_equal(want, got.numpy())
 
 
+@functools.lru_cache(maxsize=None)
+def _toy(logN, lane, S):
+    """A toy parameter set: S special primes (S = 6: parts of alpha up to
+    6, as logN17's); 25-bit scales for the 30-bit lane at logN >= 15."""
+    if lane == 62:
+        opts = dict(scale_bits=30)
+    else:
+        opts = dict(scale_bits=21 if logN < 15 else 25, buffer_bit_length=30)
+    return TParams(toy_config(logN=logN, num_scales=4 if S == 2 else 14,
+                              num_special_primes=S, **opts), "cpu")
+
+
+def _residues(rng, pack, shape):
+    """Uniform residues [..., C, N] of the pack's channels, its dtype."""
+    q = [int(v) for v in pack.q.reshape(-1)]
+    x = np.stack([rng.integers(0, qi, size=shape[:-2] + (shape[-1],))
+                  for qi in q], axis=-2)
+    return torch.from_numpy(x).to(pack.dtype)
+
+
+# (logN, special primes) of the K5 / K6 cases; batch 2 below logN15
+STEP_CASES = [(4, 2), (7, 2), (10, 2), (10, 6), (15, 2), (17, 2)]
+
+
+@pytest.mark.parametrize("lane", [62, 30])
+@pytest.mark.parametrize("logN,S", STEP_CASES)
+def test_parts_schedule_matches_plain(logN, S, lane):
+    """K6's two passes, modelled (the extension in the strided slots, one
+    twiddle table for every part, register accumulators in part order),
+    equal ``ntt_keymul_parts_plain`` bit for bit."""
+    tp = _toy(logN, lane, S)
+    lp, lp_sp = tp.lp(1, False), tp.lp(1, True)
+    rng = np.random.default_rng(1000 + logN)
+    B, N = (2 if logN < 15 else 1), 1 << logN
+    ec, alphas = teng._parts_consts(tp, 1)
+    x = _residues(rng, lp.pack, (B, lp.num_channels, N))
+    st = teng._parts_digits(x, tp.parts[1], lp, ec.shape[-1]).contiguous()
+    keys = tuple(torch.stack([_residues(rng, lp_sp.pack, (lp_sp.num_channels,
+                                                          N))
+                              for _ in range(ec.shape[0])])
+                 for _ in range(2))
+    want = K.ntt_keymul_parts_plain(st, ec, alphas, keys, lp_sp)
+    got = model_keymul_parts(st, ec, alphas, keys, lp_sp, lane)
+    for g, w in zip(got, want):
+        assert g.dtype == DTYPES[lane]
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("lane", [62, 30])
+@pytest.mark.parametrize("logN,S", STEP_CASES)
+def test_tensor_schedule_matches_plain(logN, S, lane):
+    """K5's two passes, modelled (one strided launch over the four inputs
+    with the x R entry, four lines a chunk under one table, the products),
+    equal ``ntt_tensor_plain`` bit for bit."""
+    lp = _toy(logN, lane, S).lp(1, False)
+    rng = np.random.default_rng(2000 + logN)
+    shape = ((2 if logN < 15 else 1), lp.num_channels, 1 << logN)
+    xs = [_residues(rng, lp.pack, shape) for _ in range(4)]
+    want = K.ntt_tensor_plain(*xs, lp)
+    got = model_tensor(*xs, lp, lane)
+    for g, w in zip(got, want):
+        assert g.dtype == DTYPES[lane]
+        assert torch.equal(g, w)
+
+
+def _buffers_reused_safely(sched, barrier_at_end):
+    """Several lines run one after another through one pair of exchange
+    buffers (K5's four lines, K6's parts): every write of a buffer must
+    follow a barrier that follows the last read of it.  Exchange k of a
+    line writes buffer (k - 1) & 1, syncs, reads it back."""
+    events = []
+    for _ in range(3):
+        for k in range(1, sched.rounds):
+            b = (k - 1) & 1
+            events += [("w", b), ("sync", None), ("r", b)]
+        if barrier_at_end:
+            events.append(("sync", None))
+    last_read, synced = {}, {}
+    for n, (kind, b) in enumerate(events):
+        if kind == "sync":
+            synced = {buf: True for buf in last_read}
+        elif kind == "r":
+            last_read[b], synced[b] = n, False
+        elif b in last_read and not synced[b]:
+            return False
+    return True
+
+
 @pytest.mark.parametrize("lane", [62, 30])
 def test_plans_fit_the_card(lane):
     """Every size the wrappers accept (logN 4..17) launches blocks the
@@ -243,9 +458,15 @@ def test_plans_fit_the_card(lane):
         assert p.N2 % p.TC == 0 and p.N1 % p.CH == 0
         assert p.T1 <= MAX_THREADS and p.T2 <= MAX_THREADS
         assert max(p.smem1, p.smem2) <= SMEM_LIMIT
+        # K5's pass 2 keeps two transformed lines beside the chunks
+        assert p.smem2 + 2 * p.T2 * p.S2.R * WORD[lane] <= SMEM_LIMIT
         assert p.S1.rounds <= 3 and p.S2.rounds <= 3
         assert p.S1.RL <= p.L1 and p.S2.RL <= p.L2
         if p.warp2:
             assert 32 % p.TPC == 0 and p.T2 % 32 == 0
         e = np.arange(p.N2)
         assert (e + (e >> PAD_SHIFT)).max() < p.P2
+        # fwd_chunk ends a line with a barrier only where its rounds use
+        # one buffer; without it two rounds would race, three never do
+        assert _buffers_reused_safely(p.S2, p.S2.rounds == 2)
+        assert _buffers_reused_safely(p.S2, False) == (p.S2.rounds != 2)

@@ -12,9 +12,9 @@ num_special_primes=2) in both lanes (three parts at level 1: alpha 1, 2,
 K4 is the exception: its plain version runs the successive P-division
 chain (``intt_pdiv_plain``: exit, enter, S x (enter P0, multiply), exit),
 while the kernel evaluates the division's affine form (``csrc/ntt.cu``,
-``inv_passB<EPI_PDIV>``: x N^-1 R, then x c_x and one REDC per special
-prime, :157-165), so the two do different numbers of REDCs for the same
-result.  ``roofline.intt_pdiv`` is checked against that source by reading
+``inv_strided_k``'s ``EPI_PDIV`` epilogue: x N^-1 R, then x c_x and one
+REDC per special prime), so the two do different numbers of REDCs for the
+same result.  ``roofline.intt_pdiv`` is checked against that source by reading
 it, not by this test.
 """
 

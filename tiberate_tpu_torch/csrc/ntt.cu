@@ -33,10 +33,11 @@
 // multiply pair plus a 62-bit multiply (18 IMAD-class of 41 SASS
 // instructions in the fold probe's chain, csrc/fold_probe.cu), a 30-bit
 // one two 32x32->64 products (6 of 14), and a logN15 row needs 15 x 16384
-// of them.  The first core (one shared-memory stage at a time) reached a
+// of them.  A core that ran one shared-memory stage at a time reached a
 // third of that REDC bound in the 62-bit lane and a quarter in the 30-bit
 // lane (ops/roofline.py, PERF.md): most of its time went around the
-// REDCs.  The register-tiled core (ntt.cuh) answers each cause:
+// REDCs.  The register-tiled core (ntt.cuh, which also holds the strided
+// forward pass fwd_strided_k) answers each cause:
 //
 //   1. a shared-memory round trip and a barrier per stage: each thread
 //      runs three stages (R = 8 registers; four at logN16/17 in the strided
@@ -71,91 +72,9 @@
 // 512 threads.  The accumulating variant reads and writes its two
 // accumulators once each in the contiguous pass: the TPU kernel's donated
 // accumulator becomes an in-place update.
-#include <cuda_runtime.h>
-
 #include "ntt.cuh"
 
 enum { EPI_MONT = 0, EPI_EXIT = 1, EPI_EXIT_REDUCE = 2, EPI_PDIV = 3 };
-
-// R consecutive words, as 16-byte vectors where p is 16-byte aligned.
-template <typename W, int R>
-__device__ __forceinline__ void ld_vec(W (&v)[R], const W* p) {
-    constexpr int PER = 16 / (int)sizeof(W);
-    if (R % PER == 0 && ((size_t)p & 15) == 0) {
-#pragma unroll
-        for (int n = 0; n < R / PER; ++n) {
-            const int4 a = reinterpret_cast<const int4*>(p)[n];
-            const W* w = reinterpret_cast<const W*>(&a);
-#pragma unroll
-            for (int i = 0; i < PER; ++i) v[n * PER + i] = w[i];
-        }
-        return;
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) v[i] = p[i];
-}
-
-template <typename W, int R>
-__device__ __forceinline__ void st_vec(W* p, const W (&v)[R]) {
-    constexpr int PER = 16 / (int)sizeof(W);
-    if (R % PER == 0 && ((size_t)p & 15) == 0) {
-#pragma unroll
-        for (int n = 0; n < R / PER; ++n) {
-            int4 a;
-            W* w = reinterpret_cast<W*>(&a);
-#pragma unroll
-            for (int i = 0; i < PER; ++i) w[i] = v[n * PER + i];
-            reinterpret_cast<int4*>(p)[n] = a;
-        }
-        return;
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) p[i] = v[i];
-}
-
-// ---------------------------------------------------------------------
-// Forward, strided pass: optional x R entry (Rs != NULL), stages [0, L1)
-// of TC columns.  Grid (N2 / TC, rows); row = batch * C + channel.  Blocks
-// of channels in [skip_lo, skip_hi) return at once (the keyswitch in-part
-// shortcut; an empty range skips nothing).
-// ---------------------------------------------------------------------
-template <typename W, int LOGN>
-__global__ void __launch_bounds__(Plan<W, LOGN>::T1)
-fwd_strided_k(const W* __restrict__ x, W* __restrict__ out, int C,
-              int skip_lo, int skip_hi, const W* __restrict__ qv,
-              const W* __restrict__ kv, const W* __restrict__ psi,
-              const W* __restrict__ Rs) {
-    typedef Plan<W, LOGN> P;
-    typedef typename P::S1 SC;
-    typedef typename Lane<W>::U U;
-    const int row = blockIdx.y;
-    const int c = row % C;
-    if (c >= skip_lo && c < skip_hi) return;
-    const int col = threadIdx.x & (P::TC - 1);
-    const int t = threadIdx.x >> P::LTC;
-    const U q = (U)qv[c], k = (U)kv[c];
-    const W q2 = (W)(q << 1);
-    const size_t base = ((size_t)row << LOGN) + blockIdx.x * P::TC + col;
-    constexpr int LO0 = SC::lo(true, 0), LOL = SC::lo(true, SC::ROUNDS - 1);
-    W v[SC::R];
-#pragma unroll
-    for (int i = 0; i < SC::R; ++i)
-        v[i] = x[base + ((size_t)slot(t, i, LO0, P::RL1) << P::L2)];
-    if (Rs != nullptr) {
-        const W rs = Rs[c];
-#pragma unroll
-        for (int i = 0; i < SC::R; ++i) v[i] = redc(v[i], rs, q, k);
-    }
-    W* T = smem<W>();
-    const W* tw = psi + ((size_t)c << LOGN);
-    for (int j = threadIdx.x; j < P::N1; j += P::T1) T[j] = tw[j];
-    __syncthreads();
-    run_rounds<W, U, P::L1, P::RL1, true, false, 0>(
-        v, t, T, T + P::N1, P::N1 * P::TC, ColLayout<P::TC>{col}, q, k, q2);
-#pragma unroll
-    for (int i = 0; i < SC::R; ++i)
-        out[base + ((size_t)slot(t, i, LOL, P::RL1) << P::L2)] = v[i];
-}
 
 // ---------------------------------------------------------------------
 // Forward, contiguous pass: stages [L1, logN) on CH chunks of buf, then
@@ -315,15 +234,6 @@ inv_strided_k(W* buf, int C, const W* __restrict__ qv,
 // Launchers, one instantiation per word type and logN.  Each returns
 // cudaGetLastError() after its launches.
 // ---------------------------------------------------------------------
-// Dynamic shared memory above 48 KB must be allowed per kernel, once.
-template <typename K>
-static bool allow_smem(K kernel, int bytes) {
-    return bytes <= 48 * 1024 ||
-           cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                bytes) == cudaSuccess;
-}
-
 // The forward transform of x into out0 through mid (the strided pass's
 // output; mid may be out0), with the contiguous pass's epilogue.
 template <typename W, int LOGN>
@@ -362,26 +272,6 @@ static int inv_n(const W* x, W* out, int rows, int C, int C_in, const W* q,
     TT_CHECK();
     return 0;
 }
-
-// FN<W, logN>(args...) for logN in [4, 17] (ops/ntt_kernels.py checks it).
-#define TT_BY_LOGN(FN, ...)                               \
-    switch (logN) {                                       \
-        case 4: return FN<W, 4>(__VA_ARGS__);             \
-        case 5: return FN<W, 5>(__VA_ARGS__);             \
-        case 6: return FN<W, 6>(__VA_ARGS__);             \
-        case 7: return FN<W, 7>(__VA_ARGS__);             \
-        case 8: return FN<W, 8>(__VA_ARGS__);             \
-        case 9: return FN<W, 9>(__VA_ARGS__);             \
-        case 10: return FN<W, 10>(__VA_ARGS__);           \
-        case 11: return FN<W, 11>(__VA_ARGS__);           \
-        case 12: return FN<W, 12>(__VA_ARGS__);           \
-        case 13: return FN<W, 13>(__VA_ARGS__);           \
-        case 14: return FN<W, 14>(__VA_ARGS__);           \
-        case 15: return FN<W, 15>(__VA_ARGS__);           \
-        case 16: return FN<W, 16>(__VA_ARGS__);           \
-        case 17: return FN<W, 17>(__VA_ARGS__);           \
-        default: return (int)cudaErrorInvalidValue;       \
-    }
 
 // K1 (nkeys = 0) and K3 (nkeys = 1 or 2).  out0 may alias nothing of x;
 // out1 is written only for nkeys == 2.  Rs == NULL: no x R entry.
@@ -424,14 +314,9 @@ static int ntt_inv(const W* x, W* out, int rows, int C, int C_in, int logN,
 // (TT_FWD=1 forward, 0 inverse), the four in parallel: each instantiates
 // its kernels for every logN.
 // ---------------------------------------------------------------------
-#ifndef TT_LANE
-#define TT_LANE 0  // both lanes
-#endif
 #ifndef TT_FWD
 #define TT_FWD -1  // both directions
 #endif
-#define TT_I64 (TT_LANE == 0 || TT_LANE == 62)
-#define TT_I32 (TT_LANE == 0 || TT_LANE == 30)
 
 #if TT_I64 && TT_FWD != 0
 extern "C" int tt_ntt_fwd(const i64* x, i64* out0, i64* out1, int rows,

@@ -16,130 +16,27 @@
 // same operand order and the same lazy reductions, so the output equals the
 // plain torch transform bit for bit, in the same bit-reversed order.
 //
-// This header holds two cores of those stages:
-//
-//   * the register-tiled core (below, "Register-tiled core"), which
-//     ntt.cu's transforms (K1-K4 and the keyswitch chain) run on;
-//   * the first core, one shared-memory round trip and one barrier per
-//     stage with twiddles read from global memory (Geo, fwd_strided,
-//     fwd_contig, fwd_pass1), which tensor.cu (K5) and keyswitch.cu (K6)
-//     still call until they move onto the register-tiled core.
+// Every kernel of ntt.cu (K1-K4 and the keyswitch chain), tensor.cu (K5)
+// and keyswitch.cu (K6) runs these stages on the one core below.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include "mont.cuh"
 
-// ---------------------------------------------------------------------
-// The first core (K5, K6).
-// ---------------------------------------------------------------------
-#define TT_TC 16          // columns per strided block (128 B of i64 per j1 row)
-#define TT_THREADS 256
-
-struct Geo {
-    int logN, L1, L2, N1, N2, TC;
-};
-
-static inline Geo make_geo(int logN) {
-    Geo g;
-    g.logN = logN;
-    g.L1 = logN / 2;
-    g.L2 = logN - g.L1;
-    g.N1 = 1 << g.L1;
-    g.N2 = 1 << g.L2;
-    g.TC = g.N2 < TT_TC ? g.N2 : TT_TC;
-    return g;
-}
+// Lanes a translation unit instantiates: TT_LANE=62 (i64), 30 (i32), or
+// both when it is not set.  The build compiles each unit once per lane.
+#ifndef TT_LANE
+#define TT_LANE 0
+#endif
+#define TT_I64 (TT_LANE == 0 || TT_LANE == 62)
+#define TT_I32 (TT_LANE == 0 || TT_LANE == 30)
 
 // The block's dynamic shared memory as words of type W.
 template <typename W>
 __device__ __forceinline__ W* smem() {
     extern __shared__ __align__(16) unsigned char tt_smem[];
     return reinterpret_cast<W*>(tt_smem);
-}
-
-// Forward stages [0, L1) on a strided tile s[j1 * TC + col].
-template <typename W, typename U>
-__device__ __forceinline__ void fwd_strided(W* s, const Geo& g, const W* psi,
-                                            U q, U k) {
-    const W q2 = (W)(q << 1);
-    const int nb = (g.N1 >> 1) * g.TC;
-    for (int logm = 0; logm < g.L1; ++logm) {
-        const int sh = g.L1 - 1 - logm;
-        for (int w = threadIdx.x; w < nb; w += blockDim.x) {
-            const int col = w % g.TC;
-            const int b = w / g.TC;
-            const int grp = b >> sh;
-            const int ju = (grp << (sh + 1)) + (b & ((1 << sh) - 1));
-            const int jv = ju + (1 << sh);
-            const W S = psi[(1 << logm) + grp];
-            const W U0 = s[ju * g.TC + col];
-            const W V = redc(S, s[jv * g.TC + col], q, k);
-            s[ju * g.TC + col] = lazy_add(U0, V, q2);
-            s[jv * g.TC + col] = lazy_sub(U0, V, q2);
-        }
-        __syncthreads();
-    }
-}
-
-// Forward stages [L1, logN) on the contiguous chunk j1: s[0, N2).
-template <typename W, typename U>
-__device__ __forceinline__ void fwd_contig(W* s, const Geo& g, int j1,
-                                           const W* psi, U q, U k) {
-    const W q2 = (W)(q << 1);
-    const int nb = g.N2 >> 1;
-    for (int logm = g.L1; logm < g.logN; ++logm) {
-        const int sh = g.logN - 1 - logm;
-        const W* tw = psi + (1 << logm) + (j1 << (logm - g.L1));
-        for (int b = threadIdx.x; b < nb; b += blockDim.x) {
-            const int grp = b >> sh;
-            const int u = (grp << (sh + 1)) + (b & ((1 << sh) - 1));
-            const int v = u + (1 << sh);
-            const W U0 = s[u];
-            const W V = redc(tw[grp], s[v], q, k);
-            s[u] = lazy_add(U0, V, q2);
-            s[v] = lazy_sub(U0, V, q2);
-        }
-        __syncthreads();
-    }
-}
-
-// Global coefficient index of strided-tile element e (column tile ct).
-__device__ __forceinline__ int strided_x(const Geo& g, int ct, int e) {
-    return (e / g.TC) * g.N2 + ct * g.TC + (e % g.TC);
-}
-
-static inline int contig_threads(const Geo& g) {
-    int t = g.N2 >> 1;
-    return t < TT_THREADS ? t : TT_THREADS;
-}
-
-// Forward pass 1 of K5: x R entry, stages [0, L1) on strided tiles.
-// Grid (N2 / TC, rows); row = batch * C + channel.  Blocks of channels in
-// [skip_lo, skip_hi) return at once (an empty range skips nothing).
-template <typename W, bool ENTER>
-__global__ void fwd_pass1(const W* __restrict__ x, W* out, Geo g, int C,
-                          int skip_lo, int skip_hi,
-                          const W* __restrict__ qv,
-                          const W* __restrict__ kv,
-                          const W* __restrict__ psi,
-                          const W* __restrict__ Rs) {
-    typedef typename Lane<W>::U U;
-    W* s = smem<W>();
-    const int row = blockIdx.y;
-    const int c = row % C;
-    if (c >= skip_lo && c < skip_hi) return;
-    const int ct = blockIdx.x;
-    const U q = (U)qv[c], k = (U)kv[c];
-    const size_t base = (size_t)row << g.logN;
-    const int n = g.N1 * g.TC;
-    for (int e = threadIdx.x; e < n; e += blockDim.x) {
-        W v = x[base + strided_x(g, ct, e)];
-        if (ENTER) v = redc(v, Rs[c], q, k);
-        s[e] = v;
-    }
-    __syncthreads();
-    fwd_strided(s, g, psi + ((size_t)c << g.logN), q, k);
-    for (int e = threadIdx.x; e < n; e += blockDim.x)
-        out[base + strided_x(g, ct, e)] = s[e];
 }
 
 #define TT_CHECK()                                   \
@@ -149,7 +46,7 @@ __global__ void fwd_pass1(const W* __restrict__ x, W* out, Geo g, int C,
     } while (0)
 
 // ---------------------------------------------------------------------
-// Register-tiled core (ntt.cu).
+// Register-tiled core.
 //
 // A pass works on "lines" of 2^B coefficients: the N1 rows of one column
 // (strided pass, B = L1) or one chunk of N2 (contiguous pass, B = L2).
@@ -174,16 +71,18 @@ __global__ void fwd_pass1(const W* __restrict__ x, W* out, Geo g, int C,
 // pattern.  Two buffers alternate, so no second barrier guards the
 // overwrite.  Every index is a shift or mask of compile-time constants.
 //
-// Against the first core's four costs: (1) a line crosses shared memory
-// once per round of three stages, not once per stage, with one barrier
-// per crossing (a warp barrier for a chunk inside one warp); (2) the
-// plan (Plan<W, LOGN>) is compile-time, so no butterfly divides by a
-// runtime value and every round unrolls; (3) each block reads its
-// twiddles from global memory once, into the table; (4) strided tiles are
-// 128 B wide in both lanes, blocks take 256-512 threads, and a thread
-// that holds consecutive words moves them as 16-byte vectors.  This core
-// replaces the stages of _make_kernel (tiberate_tpu/ops/pallas_mxu.py:445,
-// run by _run_group :1395); ntt.cu says what it measured.
+// What it does about the four costs of a stage-at-a-time NTT: (1) a line
+// crosses shared memory once per round of three stages, not once per
+// stage, with one barrier per crossing (a warp barrier for a chunk inside
+// one warp); (2) the plan (Plan<W, LOGN>) is compile-time, so no
+// butterfly divides by a runtime value and every round unrolls; (3) each
+// block reads its twiddles from global memory once, into the table; (4)
+// strided tiles are 128 B wide in both lanes, blocks take 256-512
+// threads, and a thread that holds consecutive words moves them as
+// 16-byte vectors.  This core replaces the stages of _make_kernel
+// (tiberate_tpu/ops/pallas_mxu.py:445, run by _run_group :1395), of the
+// tensor kernel (:1084) and of the parts kernel (:678); ntt.cu,
+// tensor.cu and keyswitch.cu say what they measured.
 // ---------------------------------------------------------------------
 #define TT_RLOG 3             // registers a thread holds: R = 2^TT_RLOG
 #define TT_MAX_THREADS 512    // the most threads a strided block takes
@@ -240,22 +139,6 @@ struct PadLayout {
         return e + (e >> TT_PAD_SHIFT);
     }
 };
-
-// The lazy [0, 2q) add and sub of mont.cuh (the same value for every
-// input), selected on the sign of the difference: one 64-bit compare and
-// subtraction fewer in the 62-bit lane.  mont.cuh's stay as they are
-// while K5 and K6, the unchanged control, still compile against them.
-template <typename W>
-__device__ __forceinline__ W tile_add(W a, W b, W q2) {
-    const W s = a + b, d = s - q2;
-    return d < 0 ? s : d;
-}
-
-template <typename W>
-__device__ __forceinline__ W tile_sub(W a, W b, W q2) {
-    const W d = a - b;
-    return d < 0 ? d + q2 : d;
-}
 
 template <bool WARP>
 __device__ __forceinline__ void tile_sync() {
@@ -367,3 +250,161 @@ struct Plan {
     static constexpr int SMEM2 = CH * CHUNK * (int)sizeof(W);
     static constexpr bool WARP2 = TPC <= 32 && T2 >= 32;
 };
+
+// R consecutive words, as 16-byte vectors where p is 16-byte aligned.
+template <typename W, int R>
+__device__ __forceinline__ void ld_vec(W (&v)[R], const W* p) {
+    constexpr int PER = 16 / (int)sizeof(W);
+    if (R % PER == 0 && ((size_t)p & 15) == 0) {
+#pragma unroll
+        for (int n = 0; n < R / PER; ++n) {
+            const int4 a = reinterpret_cast<const int4*>(p)[n];
+            const W* w = reinterpret_cast<const W*>(&a);
+#pragma unroll
+            for (int i = 0; i < PER; ++i) v[n * PER + i] = w[i];
+        }
+        return;
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) v[i] = p[i];
+}
+
+template <typename W, int R>
+__device__ __forceinline__ void st_vec(W* p, const W (&v)[R]) {
+    constexpr int PER = 16 / (int)sizeof(W);
+    if (R % PER == 0 && ((size_t)p & 15) == 0) {
+#pragma unroll
+        for (int n = 0; n < R / PER; ++n) {
+            int4 a;
+            W* w = reinterpret_cast<W*>(&a);
+#pragma unroll
+            for (int i = 0; i < PER; ++i) w[i] = v[n * PER + i];
+            reinterpret_cast<int4*>(p)[n] = a;
+        }
+        return;
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) p[i] = v[i];
+}
+
+// ---------------------------------------------------------------------
+// The forward strided pass on the tile of TC columns blockIdx.x of one
+// row: fill(v, xo) puts the words at row offsets xo[i] into the thread's
+// registers (a prologue rides in the load), the stages [0, L1) run on the
+// core with the row's N1 twiddles tw staged once, and the tile is stored
+// to the row out.  K1/K3 (fwd_strided_k), K5 and K6 share it.
+// ---------------------------------------------------------------------
+template <typename W, int LOGN, class Fill>
+__device__ __forceinline__ void fwd_strided_tile(const Fill& fill,
+                                                 W* __restrict__ out,
+                                                 const W* __restrict__ tw,
+                                                 typename Lane<W>::U q,
+                                                 typename Lane<W>::U k) {
+    typedef Plan<W, LOGN> P;
+    typedef typename P::S1 SC;
+    typedef typename Lane<W>::U U;
+    const int col = threadIdx.x & (P::TC - 1);
+    const int t = threadIdx.x >> P::LTC;
+    const int x0 = blockIdx.x * P::TC + col;
+    constexpr int LO0 = SC::lo(true, 0), LOL = SC::lo(true, SC::ROUNDS - 1);
+    int xo[SC::R];
+#pragma unroll
+    for (int i = 0; i < SC::R; ++i)
+        xo[i] = x0 + (slot(t, i, LO0, P::RL1) << P::L2);
+    W v[SC::R];
+    fill(v, xo);
+    W* T = smem<W>();
+    for (int j = threadIdx.x; j < P::N1; j += P::T1) T[j] = tw[j];
+    __syncthreads();
+    run_rounds<W, U, P::L1, P::RL1, true, false, 0>(
+        v, t, T, T + P::N1, P::N1 * P::TC, ColLayout<P::TC>{col}, q, k,
+        (W)(q << 1));
+#pragma unroll
+    for (int i = 0; i < SC::R; ++i)
+        out[x0 + (slot(t, i, LOL, P::RL1) << P::L2)] = v[i];
+}
+
+// Forward, strided pass of K1 and K3: optional x R entry (Rs != NULL),
+// stages [0, L1) of TC columns.  Grid (N2 / TC, rows); row = batch * C +
+// channel.  Blocks of channels in [skip_lo, skip_hi) return at once (the
+// keyswitch in-part shortcut; an empty range skips nothing).
+template <typename W, int LOGN>
+__global__ void __launch_bounds__(Plan<W, LOGN>::T1)
+fwd_strided_k(const W* __restrict__ x, W* __restrict__ out, int C,
+              int skip_lo, int skip_hi, const W* __restrict__ qv,
+              const W* __restrict__ kv, const W* __restrict__ psi,
+              const W* __restrict__ Rs) {
+    typedef typename Plan<W, LOGN>::S1 SC;
+    typedef typename Lane<W>::U U;
+    const int row = blockIdx.y;
+    const int c = row % C;
+    if (c >= skip_lo && c < skip_hi) return;
+    const U q = (U)qv[c], k = (U)kv[c];
+    const W* xr = x + ((size_t)row << LOGN);
+    fwd_strided_tile<W, LOGN>(
+        [&](W(&v)[SC::R], const int(&xo)[SC::R]) {
+#pragma unroll
+            for (int i = 0; i < SC::R; ++i) v[i] = xr[xo[i]];
+            if (Rs != nullptr) {
+                const W rs = Rs[c];
+#pragma unroll
+                for (int i = 0; i < SC::R; ++i) v[i] = redc(v[i], rs, q, k);
+            }
+        },
+        out + ((size_t)row << LOGN), psi + ((size_t)c << LOGN), q, k);
+}
+
+// One chunk's forward stages [L1, logN) in registers, its twiddle table T
+// staged: the chunk src (N2 words) is loaded in round 0's pattern and every
+// round runs; on return thread t holds words tR .. tR+R-1.  K5 and K6 run
+// several lines through one table and one pair of exchange buffers: with
+// three rounds the two buffers' barriers separate one line's reads from
+// the next line's writes, with two rounds (one buffer) a barrier at the
+// end does.
+template <typename W, int LOGN>
+__device__ __forceinline__ void fwd_chunk(W (&v)[Plan<W, LOGN>::S2::R],
+                                          const W* __restrict__ src, int t,
+                                          W* T, typename Lane<W>::U q,
+                                          typename Lane<W>::U k, W q2) {
+    typedef Plan<W, LOGN> P;
+    typedef typename P::S2 SC;
+    typedef typename Lane<W>::U U;
+    constexpr int LO0 = SC::lo(true, 0);
+#pragma unroll
+    for (int i = 0; i < SC::R; ++i) v[i] = src[slot(t, i, LO0, P::RL2)];
+    run_rounds<W, U, P::L2, P::RL2, true, P::WARP2, 0>(
+        v, t, T, T + P::N2, P::P2, PadLayout{}, q, k, q2);
+    if constexpr (SC::ROUNDS == 2) tile_sync<P::WARP2>();
+}
+
+// ---------------------------------------------------------------------
+// Launch helpers.
+// ---------------------------------------------------------------------
+// Dynamic shared memory above 48 KB must be allowed per kernel, once.
+template <typename K>
+static bool allow_smem(K kernel, int bytes) {
+    return bytes <= 48 * 1024 ||
+           cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                bytes) == cudaSuccess;
+}
+
+// FN<W, logN>(args...) for logN in [4, 17] (ops/ntt_kernels.py checks it).
+#define TT_BY_LOGN(FN, ...)                               \
+    switch (logN) {                                       \
+        case 4: return FN<W, 4>(__VA_ARGS__);             \
+        case 5: return FN<W, 5>(__VA_ARGS__);             \
+        case 6: return FN<W, 6>(__VA_ARGS__);             \
+        case 7: return FN<W, 7>(__VA_ARGS__);             \
+        case 8: return FN<W, 8>(__VA_ARGS__);             \
+        case 9: return FN<W, 9>(__VA_ARGS__);             \
+        case 10: return FN<W, 10>(__VA_ARGS__);           \
+        case 11: return FN<W, 11>(__VA_ARGS__);           \
+        case 12: return FN<W, 12>(__VA_ARGS__);           \
+        case 13: return FN<W, 13>(__VA_ARGS__);           \
+        case 14: return FN<W, 14>(__VA_ARGS__);           \
+        case 15: return FN<W, 15>(__VA_ARGS__);           \
+        case 16: return FN<W, 16>(__VA_ARGS__);           \
+        case 17: return FN<W, 17>(__VA_ARGS__);           \
+        default: return (int)cudaErrorInvalidValue;       \
+    }

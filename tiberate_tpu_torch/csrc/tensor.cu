@@ -5,56 +5,154 @@
 // four enter-NTTs (x0, x1, y0, y1), then
 //     d0 = x0 y0,   d1 = x0 y1 + x1 y0,   d2 = x1 y1   (Montgomery).
 //
-// Pass 1 is the forward NTT's first pass with the x R entry (ntt.cu's
-// fwd_pass1, one launch per input).  Pass 2 loads the same coefficient
-// chunk of all four intermediates, finishes the four transforms in shared
-// memory and writes d0, d1, d2, so the finished transforms never reach
-// device memory: 4 reads and 3 writes per coefficient in pass 2 instead of
-// 4 writes plus 4 more reads for separate products.
+// Two launches on the register-tiled core of ntt.cuh:
 //
-// Two lanes, as in ntt.cu: tt_ntt_tensor over i64 words (R = 2^62) and
-// tt_ntt_tensor_30 over i32 words (R = 2^30), the single-lane variant of
-// the TPU kernel (pallas_mxu.py:1268).
+//   pass 1 (tensor_strided_k, grid (N2 / TC, rows, 4)): the forward
+//     strided pass fwd_strided_tile with the x R entry fused into the
+//     load, one launch for the four inputs (blockIdx.z picks the input),
+//     into tmp [4, rows, N];
+//   pass 2 (tensor_contig_k, grid (N1 / CH, rows)): per chunk, the
+//     twiddle table is staged once, then the four lines are transformed
+//     one after another in registers (fwd_chunk); each thread keeps its
+//     R words of X0 and X1 in shared memory beside the chunk (its own
+//     words: no barrier), forms d0 and X1 Y0 after Y0, d1 and d2 after
+//     Y1, and stores them as 16-byte vectors, so the finished transforms
+//     never reach device memory: 4 reads and 3 writes per coefficient in
+//     pass 2.
 //
-// What bounds it on the H100: not the bytes (it reaches 8-9% of the HBM
-// bound of its inputs and outputs in both lanes) but the same REDC
-// butterflies as ntt.cu, plus 4 REDCs per coefficient for the products
-// (ops/roofline.py counts them; PERF.md has its share of that bound).
-// Shared memory per pass-2 block is
-// 4 x N2 words (8 KB of i64 at logN15), so many blocks stay resident per
-// SM.
-#include <cuda_runtime.h>
-
+// Two lanes: tt_ntt_tensor over i64 words (R = 2^62) and tt_ntt_tensor_30
+// over i32 words (R = 2^30), the single-lane variant of the TPU kernel
+// (pallas_mxu.py:1268).  The build compiles this file once per lane
+// (TT_LANE), each instantiating both passes for every logN (4..17).
+//
+// What bounds it on the H100: the REDCs of the four transforms and the
+// four products per coefficient (ops/roofline.py), not the bytes.
+// Against the four costs of the stage-at-a-time design it replaces: (1)
+// three stages a round in registers, one shared-memory exchange and
+// barrier per round (warp barriers at logN15), none per stage; (2) the
+// plan is compile-time per logN, so no index divides by a runtime value;
+// (3) each block stages its twiddles once - a strided block N1 words, a
+// contiguous chunk N2 words for all four lines; (4) 128 B strided tiles,
+// 256-512 threads a block, and one pass-1 launch, not four.  Measured on
+// the H100 (cuobjdump of the sm_90a build, chip_smoke.py phase 2c): pass
+// 2 at logN15, four lines of 32 butterflies a thread and the products, is
+// 9579 SASS instructions (3997 IMAD-class) in the 62-bit lane, 74.8 a
+// butterfly, and 2519 (956) in the 30-bit lane, 19.7.  In the 62-bit lane
+// the two lines kept beside the chunk hold pass 2 to two blocks an SM
+// (shared memory), where the transforms' contiguous pass runs four, and
+// it runs at about two thirds of their rate per REDC (PERF.md).
 #include "ntt.cuh"
 
+// The four inputs of pass 1, chosen by blockIdx.z.
 template <typename W>
-__global__ void tensor_pass2(const W* __restrict__ tmp, W* __restrict__ d0,
-                             W* __restrict__ d1, W* __restrict__ d2, Geo g,
-                             int rows, int C, const W* __restrict__ qv,
-                             const W* __restrict__ kv,
-                             const W* __restrict__ psi) {
+struct Quad {
+    const W* x[4];
+};
+
+// in: four [rows, N] inputs; tmp [4, rows, N].  Row = batch * C + channel.
+template <typename W, int LOGN>
+__global__ void __launch_bounds__(Plan<W, LOGN>::T1)
+tensor_strided_k(Quad<W> in, W* __restrict__ tmp, int rows, int C,
+                 const W* __restrict__ qv, const W* __restrict__ kv,
+                 const W* __restrict__ psi, const W* __restrict__ Rs) {
+    typedef typename Plan<W, LOGN>::S1 SC;
     typedef typename Lane<W>::U U;
-    W* s = smem<W>();
     const int row = blockIdx.y;
     const int c = row % C;
-    const int j1 = blockIdx.x;
+    const int z = blockIdx.z;
     const U q = (U)qv[c], k = (U)kv[c];
-    const size_t off = ((size_t)row << g.logN) + ((size_t)j1 << g.L2);
-    const size_t plane = (size_t)rows << g.logN;
-    for (int i = 0; i < 4; ++i)
-        for (int e = threadIdx.x; e < g.N2; e += blockDim.x)
-            s[i * g.N2 + e] = tmp[i * plane + off + e];
-    __syncthreads();
-    const W* tw = psi + ((size_t)c << g.logN);
-    for (int i = 0; i < 4; ++i) fwd_contig(s + i * g.N2, g, j1, tw, q, k);
+    // selects, not in.x[z]: a parameter indexed at run time goes to the stack
+    const W* x = z == 0   ? in.x[0]
+                 : z == 1 ? in.x[1]
+                 : z == 2 ? in.x[2]
+                          : in.x[3];
+    const W* xr = x + ((size_t)row << LOGN);
+    fwd_strided_tile<W, LOGN>(
+        [&](W(&v)[SC::R], const int(&xo)[SC::R]) {
+#pragma unroll
+            for (int i = 0; i < SC::R; ++i) v[i] = xr[xo[i]];
+            const W rs = Rs[c];
+#pragma unroll
+            for (int i = 0; i < SC::R; ++i) v[i] = redc(v[i], rs, q, k);
+        },
+        tmp + (((size_t)z * rows + row) << LOGN), psi + ((size_t)c << LOGN),
+        q, k);
+}
+
+// tmp [4, rows, N] (x0, x1, y0, y1 after pass 1); d0, d1, d2 [rows, N].
+template <typename W, int LOGN>
+__global__ void __launch_bounds__(Plan<W, LOGN>::T2)
+tensor_contig_k(const W* __restrict__ tmp, W* __restrict__ d0,
+                W* __restrict__ d1, W* __restrict__ d2, int rows, int C,
+                const W* __restrict__ qv, const W* __restrict__ kv,
+                const W* __restrict__ psi) {
+    typedef Plan<W, LOGN> P;
+    typedef typename P::S2 SC;
+    typedef typename Lane<W>::U U;
+    const int row = blockIdx.y;
+    const int c = row % C;
+    const int cl = threadIdx.x / P::TPC;
+    const int t = threadIdx.x & (P::TPC - 1);
+    const int j1 = blockIdx.x * P::CH + cl;
+    const U q = (U)qv[c], k = (U)kv[c];
     const W q2 = (W)(q << 1);
-    for (int e = threadIdx.x; e < g.N2; e += blockDim.x) {
-        const W X0 = s[e], X1 = s[g.N2 + e];
-        const W Y0 = s[2 * g.N2 + e], Y1 = s[3 * g.N2 + e];
-        d0[off + e] = redc(X0, Y0, q, k);
-        d1[off + e] = lazy_add(redc(X0, Y1, q, k), redc(X1, Y0, q, k), q2);
-        d2[off + e] = redc(X1, Y1, q, k);
+    const size_t off = ((size_t)row << LOGN) + ((size_t)j1 << P::L2);
+    const size_t plane = (size_t)rows << LOGN;
+    W* T = smem<W>() + cl * P::CHUNK;
+    chunk_twiddles<W, P::L1, P::L2, P::TPC>(T, psi + ((size_t)c << LOGN), j1,
+                                            t);
+    tile_sync<P::WARP2>();
+    // X0 and X1 wait in shared memory after the chunks, word i of thread
+    // x at [i * T2 + x] (conflict-free): in registers the four lines need
+    // 130-odd registers a thread in the 62-bit lane, one block an SM
+    W* s0 = smem<W>() + P::CH * P::CHUNK + threadIdx.x;
+    W* s1 = s0 + P::T2 * SC::R;
+    W Y[SC::R], m[SC::R], d[SC::R];
+    fwd_chunk<W, LOGN>(Y, tmp + off, t, T, q, k, q2);
+#pragma unroll
+    for (int i = 0; i < SC::R; ++i) s0[i * P::T2] = Y[i];
+    fwd_chunk<W, LOGN>(Y, tmp + plane + off, t, T, q, k, q2);
+#pragma unroll
+    for (int i = 0; i < SC::R; ++i) s1[i * P::T2] = Y[i];
+    fwd_chunk<W, LOGN>(Y, tmp + 2 * plane + off, t, T, q, k, q2);  // Y0
+    // after the last round thread t holds words tR .. tR+R-1 of the chunk
+    const size_t o = off + (size_t)t * SC::R;
+#pragma unroll
+    for (int i = 0; i < SC::R; ++i) {
+        d[i] = redc(s0[i * P::T2], Y[i], q, k);
+        m[i] = redc(s1[i * P::T2], Y[i], q, k);
     }
+    st_vec(d0 + o, d);
+    fwd_chunk<W, LOGN>(Y, tmp + 3 * plane + off, t, T, q, k, q2);  // Y1
+#pragma unroll
+    for (int i = 0; i < SC::R; ++i)
+        d[i] = tile_add(redc(s0[i * P::T2], Y[i], q, k), m[i], q2);
+    st_vec(d1 + o, d);
+#pragma unroll
+    for (int i = 0; i < SC::R; ++i) d[i] = redc(s1[i * P::T2], Y[i], q, k);
+    st_vec(d2 + o, d);
+}
+
+template <typename W, int LOGN>
+static int tensor_n(const W* x0, const W* x1, const W* y0, const W* y1,
+                    W* tmp, W* d0, W* d1, W* d2, int rows, int C, const W* q,
+                    const W* k, const W* psi, const W* Rs, cudaStream_t s) {
+    typedef Plan<W, LOGN> P;
+    // pass 2: the chunks' tables and exchange buffers, then X0 and X1
+    constexpr int SMEM = P::SMEM2 + 2 * P::T2 * P::S2::R * (int)sizeof(W);
+    static const bool ready =
+        allow_smem(tensor_strided_k<W, LOGN>, P::SMEM1) &&
+        allow_smem(tensor_contig_k<W, LOGN>, SMEM);
+    if (!ready) return (int)cudaErrorInvalidValue;
+    const Quad<W> in = {{x0, x1, y0, y1}};
+    tensor_strided_k<W, LOGN><<<dim3(P::N2 / P::TC, rows, 4), P::T1,
+                                P::SMEM1, s>>>(in, tmp, rows, C, q, k, psi,
+                                               Rs);
+    TT_CHECK();
+    tensor_contig_k<W, LOGN><<<dim3(P::N1 / P::CH, rows), P::T2, SMEM,
+                               s>>>(tmp, d0, d1, d2, rows, C, q, k, psi);
+    TT_CHECK();
+    return 0;
 }
 
 // x0, x1, y0, y1, d0, d1, d2: [rows, N]; tmp: [4, rows, N] scratch.
@@ -63,23 +161,11 @@ static int ntt_tensor(const W* x0, const W* x1, const W* y0, const W* y1,
                       W* tmp, W* d0, W* d1, W* d2, int rows, int C, int logN,
                       const W* q, const W* k, const W* psi, const W* Rs,
                       void* stream) {
-    const Geo g = make_geo(logN);
-    cudaStream_t st = (cudaStream_t)stream;
-    const size_t sm1 = (size_t)g.N1 * g.TC * sizeof(W);
-    const size_t plane = (size_t)rows << logN;
-    dim3 g1(g.N2 / g.TC, rows), g2(g.N1, rows);
-    const W* in[4] = {x0, x1, y0, y1};
-    for (int i = 0; i < 4; ++i) {
-        fwd_pass1<W, true><<<g1, TT_THREADS, sm1, st>>>(
-            in[i], tmp + i * plane, g, C, 0, 0, q, k, psi, Rs);
-        TT_CHECK();
-    }
-    tensor_pass2<W><<<g2, contig_threads(g), 4 * g.N2 * sizeof(W), st>>>(
-        tmp, d0, d1, d2, g, rows, C, q, k, psi);
-    TT_CHECK();
-    return 0;
+    TT_BY_LOGN(tensor_n, x0, x1, y0, y1, tmp, d0, d1, d2, rows, C, q, k, psi,
+               Rs, (cudaStream_t)stream)
 }
 
+#if TT_I64
 extern "C" int tt_ntt_tensor(const i64* x0, const i64* x1, const i64* y0,
                              const i64* y1, i64* tmp, i64* d0, i64* d1,
                              i64* d2, int rows, int C, int logN,
@@ -88,7 +174,9 @@ extern "C" int tt_ntt_tensor(const i64* x0, const i64* x1, const i64* y0,
     return ntt_tensor(x0, x1, y0, y1, tmp, d0, d1, d2, rows, C, logN, q, k,
                       psi, Rs, stream);
 }
+#endif
 
+#if TT_I32
 extern "C" int tt_ntt_tensor_30(const i32* x0, const i32* x1, const i32* y0,
                                 const i32* y1, i32* tmp, i32* d0, i32* d1,
                                 i32* d2, int rows, int C, int logN,
@@ -97,3 +185,4 @@ extern "C" int tt_ntt_tensor_30(const i32* x0, const i32* x1, const i32* y0,
     return ntt_tensor(x0, x1, y0, y1, tmp, d0, d1, d2, rows, C, logN, q, k,
                       psi, Rs, stream);
 }
+#endif

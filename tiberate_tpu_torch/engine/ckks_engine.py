@@ -111,6 +111,16 @@ def _decrypt_double_core(ct0, ct1, sk, lp, base_lp, final_scalar,
     return scaled, pt
 
 
+def _check_plain_state(ct):
+    """A ciphertext to decrypt is in neither the NTT nor the Montgomery
+    state.  The reference checks it before the secret key in
+    ``decrypt_double`` and after it in ``decryptcode``; so does the port."""
+    if ct.has_flag(FLAGS.NTT_STATE):
+        raise errors.NTTStateError(expected=False)
+    if ct.has_flag(FLAGS.MONTGOMERY_STATE):
+        raise errors.MontgomeryStateError(expected=False)
+
+
 def _rescale_core(d, rescale_scale, lp_next, round_at):
     """Drop the top RNS channel with exact rounding.  d: [..., C, N] in
     [0, q) -> [..., C-1, N]."""
@@ -632,6 +642,7 @@ class CkksEngine:
     def decrypt_double(self, ct: Ciphertext, sk: SecretKey = None):
         """-> signed scaled coefficients [1, N]."""
         sk = sk or self.sk
+        _check_plain_state(ct)
         if not sk.has_flag(FLAGS.NTT_STATE):
             raise errors.NTTStateError(expected=True)
         lp, base_lp, fs, rh, base_at = self._decrypt_args(ct.level)
@@ -652,6 +663,7 @@ class CkksEngine:
             raise errors.NTTStateError(expected=True)
         if not sk.has_flag(FLAGS.MONTGOMERY_STATE):
             raise errors.MontgomeryStateError(expected=True)
+        _check_plain_state(ct)
         level = ct.level
         lp, base_lp, fs, rh, base_at = self._decrypt_args(level)
         C = base_at + 1

@@ -1,11 +1,13 @@
 """Build and load the Hopper kernels (``csrc/*.cu``) at first use.
 
-``nvcc`` compiles each source into an object file (``ntt.cu`` once per
-lane and direction), all at once in parallel processes, and links them into one shared library with a plain C
-interface under ``tiberate_tpu_torch/_build/`` (named by a hash of the
-sources, so an edited source is rebuilt); ``ctypes`` loads it.  Nothing
-here runs at import time: a machine without ``nvcc`` or a GPU imports the
-package and runs the plain torch versions on CPU tensors.
+``nvcc`` compiles each source into an object file (``tensor.cu`` and
+``keyswitch.cu`` once per lane, ``ntt.cu`` once per lane and direction),
+all at once in parallel processes, and links them into one shared library
+with a plain C interface under ``tiberate_tpu_torch/_build/`` (named by a
+hash of the sources, so an edited source is rebuilt); ``ctypes`` loads
+it.  Nothing here runs at import time: a machine without ``nvcc`` or a
+GPU imports the package and runs the plain torch versions on CPU
+tensors.
 """
 
 import ctypes
@@ -20,11 +22,14 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("ntt.cu", "tensor.cu", "keyswitch.cu", "fold_probe.cu")
 HEADERS = ("mont.cuh", "ntt.cuh")
-# (source, extra nvcc flags) per object file: ntt.cu instantiates its
-# transforms for every logN, so each lane and direction builds apart
+# (source, extra nvcc flags) per object file: ntt.cu, tensor.cu and
+# keyswitch.cu instantiate their kernels for every logN, so each lane (and
+# each direction of ntt.cu) builds apart
 UNITS = (*(("ntt.cu", (f"-DTT_LANE={lane}", f"-DTT_FWD={fwd}"))
            for lane in (62, 30) for fwd in (1, 0)),
-         *((src, ()) for src in SOURCES[1:]))
+         *((src, (f"-DTT_LANE={lane}",))
+           for src in ("tensor.cu", "keyswitch.cu") for lane in (62, 30)),
+         ("fold_probe.cu", ()))
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _P = ctypes.c_void_p
@@ -100,8 +105,8 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(lib_path) and not verbose:
         return lib_path
     tag = f"{os.getpid()}.tmp"  # concurrent builds
-    # --split-compile=0: optimise a unit's kernels in parallel (ntt.cu's
-    # units hold 28 unrolled kernels each)
+    # --split-compile=0: optimise a unit's kernels in parallel (each unit
+    # but fold_probe.cu holds 28 unrolled kernels)
     flags = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
              "--split-compile=0"]
     if verbose:

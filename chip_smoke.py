@@ -22,45 +22,68 @@ Phases (any failure exits non-zero):
    against their plain versions; and the SASS of the register-tiled core
    (``cuobjdump``): the instructions per butterfly of the inverse
    contiguous pass and of K5's and K6's contiguous passes;
+2d. the ChaCha20 CSPRNG on the card against the same generator on the
+   CPU, with the logN15 and the logN17 engine's channel model and one
+   (seed, nonce): ``randint`` over the full q chain, ``discrete_gaussian
+   (repeats=2)``, ``randround_batch`` and ``encrypt_noise_batch`` of 8,
+   three successive calls each, byte for byte, then the states; ms per
+   draw on the card (CUDA events);
+2e. the pinned digest: ``CkksEngine("logN14", seed=1234, nonce=1)
+   .encodecrypt(linspace(-1, 1))`` on the card hashes to
+   ``ct_sha256_seed1234_nonce1`` of ``tests/golden/presets.json`` and
+   decrypts below 1e-6;
 3. at the logN15 step shapes (batch 8, 16/17/18 channels, N = 32768) hold
    each kernel against its plain torch version on the same card tensors —
    byte for byte, lazy outputs included — and time both (the plain
    version by its one comparison call); K1 without entry, K2's "mont" and
    "exit" epilogues and K3 with one key are compared too;
-4. drive the main path at Preset.logN15 on the card: keygen, encodecrypt
-   of 8 message pairs, the fused cc_mult step on the batch (all keyswitch
-   parts in one kernel), decryptcode; the step's output for one pair must
-   equal, byte for byte, the same step run on CPU tensors through the
-   plain versions, the decrypt error must stay below 1e-6, and every
-   kernel of the path must have launched; ``CkksEngine.rescale`` of the
-   batch must equal the CPU's for one pair;
+4. drive the main path at Preset.logN15 on the card: keygen,
+   ``encodecrypt_batch`` of 8 messages twice, the fused cc_mult step on
+   the batch (all keyswitch parts in one kernel), ``decryptcode_batch``;
+   the decrypt error must stay below 1e-6 and every kernel of the path
+   must have launched.  Then, from the CSPRNG state before the batch
+   draws, the same 16 messages through single ``encodecrypt`` calls must
+   give the batch ciphertexts byte for byte, and 8 single
+   ``decryptcode`` calls the batch decode within 1e-9, and the batch forms
+   run again, warm, from the same state (same bytes); the launches of the
+   path with the single forms are printed beside the batch path's, and
+   the decrypt of the step's 8 ciphertexts, batch and single, is timed
+   part by part (``decrypt_parts``).
+   A CPU engine of the same preset and seed makes its own keys, which
+   must equal the card's byte for byte (sk, pk, every evk part); its
+   step on one pair and ``rescale`` must equal the card's;
 5. time the logN15 step (median of 3 loops after a warm-up), the same step
    with every wrapper swapped for its plain version (torch ops on the
    card), and the step through the per-part keyswitch chain instead of the
    all-parts kernel (byte-identical); profile one step with
    torch.profiler: device time by kernel, and the device's busy share of
    that profiled step's wall time (the profiler slows the host, so this
-   share is lower than an unprofiled step's);
+   share is lower than an unprofiled step's); a seed-expanded evk
+   (``a_seed``) through ``compress_ksk`` and ``expand_ksk`` gives back its
+   bytes; the CSPRNG's share of keygen and of ``encodecrypt_batch`` (its
+   draws timed, synchronised, in a second keygen and batch);
 6. at Preset.logN17 (N = 2^17, 73 + 6 primes; one engine for the whole
    phase): the kernels at the step's shapes (batch 8, level 1: 72 / 78
    channels) against their plain versions, the chain kernel with no skip
    range and with one part's range, and the all-parts kernel on digits
    [8, 13, 6, 2^17] (median of 3 single calls each);
-7. the logN17 main path: keygen, encodecrypt of 8 pairs, the cc_mult step
-   through the per-part chain (13 ``ntt_keymul_accum`` launches, no
-   all-parts launch), decryptcode (error below 1e-4, the JAX package's
-   logN17 bound); the step equals the plain-version step byte for byte;
+7. the logN17 main path as in 4 (batch forms, the single forms' bytes and
+   launches): the cc_mult step through the per-part chain (13
+   ``ntt_keymul_accum`` launches, no all-parts launch), decrypt error
+   below 1e-4 (the JAX package's logN17 bound); the step equals the
+   plain-version step byte for byte;
 8. logN17 ``switch_key``: a ciphertext under a second secret key switched
    to the engine's key decrypts within 1e-6;
 9. logN17 timing: the step with the kernels and with the plain versions,
    the route A/B (chain against the all-parts kernel, byte-identical, with
-   each run's peak device memory), and one profiled step;
+   each run's peak device memory), one profiled step, and the CSPRNG's
+   share of keygen and of ``encodecrypt_batch``;
 10. the 30-bit mode (int32 residues, R = 2^30) at "logN15_30" (19 primes):
     every 30-bit kernel (the ``_30`` lane) against its plain version at the
-    step's shapes; the main path (keygen, encodecrypt of 8 pairs, the step
-    through the all-parts kernel, decryptcode, error below 1e-2, the JAX
-    package's 30-bit bound), which must launch only ``_30`` kernels; the
-    step on one pair equal to the CPU's; step times with the kernels and
+    step's shapes; the main path as in 4 (the step through the all-parts
+    kernel, error below 1e-2, the JAX package's 30-bit bound), which must
+    launch only ``_30`` kernels; the keys and the step on one pair equal
+    to the CPU's; step times with the kernels and
     the plain versions, printed beside phase 5's 62-bit logN15 step; the
     route A/B; one profiled step;
 11. "logN17_30" (17 primes): the 30-bit kernels at the step's shapes; the
@@ -81,7 +104,9 @@ the probe's three kernels included; the last line is the device record.
 """
 
 import contextlib
+import hashlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -96,6 +121,10 @@ SEED = 1234
 DECRYPT_TOL = 1e-6       # fresh ciphertext; the JAX logN14/15 tests
 DECRYPT_TOL_17 = 1e-4    # cc_mult at logN17: tests/test_full_presets.py
 DECRYPT_TOL_30 = 1e-2    # the 30-bit mode: tests/test_mode30.py
+DECODE_SUM_TOL = 1e-9    # batch vs single decode: tests/test_codec.py
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM datasheet
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "golden", "presets.json")
 
 # kernel (its launch-count key) -> (source, the TPU kernel it replaces).
 # K1-K4 and the K3 chain variant are entry points of _run_group (:1395),
@@ -545,10 +574,18 @@ def only_30(counts, what):
         raise AssertionError(f"62-bit kernels launched on {what}: {wrong}")
 
 
+def msgs(eng, seed=SEED):
+    """BATCH random messages of ``eng``'s slot count."""
+    return np.random.default_rng(seed).uniform(-1, 1,
+                                               (BATCH, eng.num_slots))
+
+
 def drive(eng, kern, stack, unstack, tol, tag):
-    """keygen, encodecrypt of 8 pairs, cc_mult on the batch, decryptcode,
-    with the launch counts set to 0 before and read after; the step's own
-    counts separately.  Returns (A, B, out, launches, step counts, err)."""
+    """keygen, encodecrypt_batch of 8 messages twice, cc_mult on the batch,
+    decryptcode_batch, with the launch counts set to 0 before and read
+    after; the step's own counts separately.  Then the single forms from
+    the same CSPRNG state (:func:`single_forms`).  Returns (A, B, out,
+    launches, step counts, err, info)."""
     rng = np.random.default_rng(SEED)
     m1 = rng.uniform(-1, 1, (BATCH, eng.num_slots))
     m2 = rng.uniform(-1, 1, (BATCH, eng.num_slots))
@@ -558,9 +595,11 @@ def drive(eng, kern, stack, unstack, tol, tag):
     eng.sk, eng.pk, eng.evk  # noqa: B018 — keygen
     torch.cuda.synchronize()
     t_keygen = time.perf_counter() - t0
+    keygen_counts = dict(kern.LAUNCHES)
+    states = eng.rng.states.clone()
     t0 = time.perf_counter()
-    A = stack([eng.encodecrypt(m) for m in m1])
-    B = stack([eng.encodecrypt(m) for m in m2])
+    A = stack(eng.encodecrypt_batch(m1))
+    B = stack(eng.encodecrypt_batch(m2))
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t0
     before = dict(kern.LAUNCHES)
@@ -570,16 +609,15 @@ def drive(eng, kern, stack, unstack, tol, tag):
     t_first_step = time.perf_counter() - t0
     step_counts = {k: kern.LAUNCHES[k] - before[k] for k in kern.LAUNCHES}
     t0 = time.perf_counter()
-    decoded = np.stack([eng.decryptcode(ct, is_real=True)
-                        for ct in unstack(out)])
+    decoded = eng.decryptcode_batch(unstack(out), is_real=True)
     torch.cuda.synchronize()
     t_dec = time.perf_counter() - t0
     launches = dict(kern.LAUNCHES)
     log(f"{tag} main path launches {launches}; during the step "
         f"{step_counts}")
-    log(f"{tag} keygen {t_keygen:.3f} s, encodecrypt of {2 * BATCH} "
-        f"{t_enc:.3f} s, first step {t_first_step:.3f} s, decryptcode of "
-        f"{BATCH} {t_dec:.3f} s")
+    log(f"{tag} keygen {t_keygen:.3f} s, encodecrypt_batch of {BATCH} "
+        f"twice {t_enc:.3f} s, first step {t_first_step:.3f} s, "
+        f"decryptcode_batch of {BATCH} {t_dec:.3f} s")
     for d in out.data:
         if tuple(d.shape) != (BATCH, eng._lp(1).num_channels, eng.ckksCfg.N):
             raise AssertionError(f"{tag} step output shape {tuple(d.shape)}")
@@ -590,19 +628,191 @@ def drive(eng, kern, stack, unstack, tol, tag):
         f"{err:.3e} (limit {tol})")
     if not err < tol:
         raise AssertionError(f"{tag} decrypt error above the limit")
-    return A, B, out, launches, step_counts, err
+    single = single_forms(eng, kern, unstack, (m1, m2), states, (A, B), out,
+                          decoded, tag)
+    parts = decrypt_parts(eng, unstack(out), tag)
+    single_path = {k: keygen_counts[k] + step_counts[k] + single["counts"][k]
+                   for k in kern.LAUNCHES}
+    log(f"{tag} main-path launches by kernel, with the single forms "
+        f"({2 * BATCH} encodecrypt, {BATCH} decryptcode) -> with the batch "
+        f"forms: " + ", ".join(f"{k} {single_path[k]} -> {launches[k]}"
+                               for k in launches if single_path[k]))
+    info = dict(keygen_s=t_keygen, encodecrypt_batch_s=t_enc,
+                decryptcode_batch_s=t_dec,
+                encodecrypt_single_s=single["encodecrypt_s"],
+                decryptcode_single_s=single["decryptcode_s"],
+                encodecrypt_batch_warm_s=single["encodecrypt_batch_warm_s"],
+                decryptcode_batch_warm_s=single["decryptcode_batch_warm_s"],
+                launches_single_forms=single_path, decrypt_parts_s=parts)
+    return A, B, out, launches, step_counts, err, info
+
+
+def single_forms(eng, kern, unstack, msgs, states, batches, out, decoded,
+                 tag):
+    """From the CSPRNG ``states`` the batch draws started from, the same
+    messages through single ``encodecrypt`` calls (which must give the
+    batch ciphertexts byte for byte) and the step's output through single
+    ``decryptcode`` calls (within DECODE_SUM_TOL of the batch decode);
+    then the batch forms once more from the same state, warm as the
+    single forms are (the main path's first calls also build the codec's
+    cached tables).  The engine's CSPRNG state is restored after.
+    Returns the single forms' launch counts and the host times."""
+    saved, eng.rng.states = eng.rng.states, states.clone()
+    try:
+        kern.reset_launch_counts()
+        t0 = time.perf_counter()
+        cts = [[eng.encodecrypt(m) for m in ms] for ms in msgs]
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dec = np.stack([eng.decryptcode(ct, is_real=True)
+                        for ct in unstack(out)])
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        counts = dict(kern.LAUNCHES)
+        eng.rng.states = states.clone()
+        t0 = time.perf_counter()
+        again = [eng.encodecrypt_batch(ms) for ms in msgs]
+        torch.cuda.synchronize()
+        t_enc_b = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng.decryptcode_batch(unstack(out), is_real=True)
+        torch.cuda.synchronize()
+        t_dec_b = time.perf_counter() - t0
+    finally:
+        eng.rng.states = saved
+    same = all(torch.equal(c.data[i], X.data[i][b])
+               for X, row in zip(batches, cts)
+               for b, c in enumerate(row) for i in (0, 1)) and all(
+        torch.equal(c.data[i], X.data[i][b])
+        for X, row in zip(batches, again)
+        for b, c in enumerate(row) for i in (0, 1))
+    gap = float(np.abs(dec - decoded).max())
+    log(f"{tag} single forms from the same CSPRNG state: {2 * BATCH} "
+        f"encodecrypt {t_enc:.3f} s, byte-identical to the batch "
+        f"ciphertexts: {same}; {BATCH} decryptcode {t_dec:.3f} s, max "
+        f"|single - batch decode| {gap:.3e} (limit {DECODE_SUM_TOL}); "
+        f"the batch forms again, warm: encodecrypt_batch of {BATCH} twice "
+        f"{t_enc_b:.3f} s, decryptcode_batch of {BATCH} {t_dec_b:.3f} s")
+    if not same:
+        raise AssertionError(f"{tag} batch ciphertexts differ from the "
+                             f"single encodecrypt's")
+    if not gap <= DECODE_SUM_TOL:
+        raise AssertionError(f"{tag} batch decode differs from the single "
+                             f"decryptcode's")
+    return dict(counts=counts, encodecrypt_s=t_enc, decryptcode_s=t_dec,
+                encodecrypt_batch_warm_s=t_enc_b,
+                decryptcode_batch_warm_s=t_dec_b)
+
+
+def decrypt_parts(eng, cts, tag, reps=3):
+    """``decryptcode_batch`` of ``cts`` and as many single ``decryptcode``
+    calls, part by part (host clock, synchronised around each part; the
+    median of ``reps`` runs): the decrypt core (the batch stacks its
+    inputs first), the bias guard's DC fetch and CRT, the DC zeroing and
+    final scale, the fetch of the scaled coefficients, and the host
+    decode; the batch decode also in its earlier form, a scatter into the
+    columns of [B, N] (the same values).  Returns {form: {part: s}}."""
+    from tiberate_tpu_torch.engine import ckks_engine as mod
+    from tiberate_tpu_torch.utils import encoding as codec
+
+    if not eng.bias_guard:
+        raise AssertionError("decrypt_parts times the bias-guard path")
+    level = cts[0].level
+    lp, base_lp, fs, rh, base_at = eng._decrypt_args(level)
+    C = base_at + 1
+    sk = eng.sk.data[level : level + C]
+    scale, corr = eng.ckksCfg.scale, eng.params.corrections[level]
+    slots = eng.num_slots
+    _, post_perm = codec.prepost_perms(eng.ckksCfg.N)
+
+    def single_decode(x):
+        return np.stack([codec.decode(r, scale=scale, correction=corr,
+                                      return_without_scaling=True)[:slots]
+                         / scale * corr for r in x])
+
+    def scatter_decode(x):
+        mm = codec._ifft(x * codec._skewer(x.shape[-1]), "forward")
+        mm = mm / scale * corr
+        out = np.zeros_like(mm)
+        out[:, post_perm] = mm
+        return out[:, :slots]
+
+    def one_run(groups, decode):
+        spent = {}
+
+        def lap(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            return res
+
+        for g in groups:
+            def core():
+                if len(g) == 1:
+                    x0, x1 = g[0].data[0][:C], g[0].data[1][:C]
+                else:
+                    x0 = torch.stack([c.data[0][:C] for c in g])
+                    x1 = torch.stack([c.data[1][:C] for c in g])
+                return mod._decrypt_double_core(x0, x1, sk, lp, base_lp, fs,
+                                                rh, base_at,
+                                                final_round=False)[1]
+
+            def final():
+                z = pt.clone()
+                z[..., base_at, 0] = 0
+                z[..., 0, 0] = 0
+                return mod._final_scale(z, base_lp, fs, rh, base_at,
+                                        final_round=True)
+
+            pt = lap("core", core)
+            lap("dc_crt", lambda: eng._dc_crt(pt[..., [base_at, 0, 1], 0],
+                                              level, base_at))
+            scaled = lap("final_scale", final)
+            host = lap("fetch", lambda: np.asarray(scaled.cpu()).reshape(
+                len(g), -1))
+            lap("decode", lambda: decode(host))
+        return spent
+
+    forms = {
+        "batch": ([cts], lambda x: codec.decode_batch(
+            x, scale=scale, correction=corr)[:, :slots]),
+        "batch_scatter_decode": ([cts], scatter_decode),
+        "single": ([[c] for c in cts], single_decode),
+    }
+    res = {}
+    for form, (groups, decode) in forms.items():
+        runs = [one_run(groups, decode) for _ in range(reps)]
+        res[form] = {k: statistics.median(r[k] for r in runs)
+                     for k in runs[0]}
+        res[form]["total"] = sum(res[form].values())
+    log(f"{tag} decrypt of {len(cts)} by part (s, host clock, median of "
+        f"{reps}): " + "; ".join(
+            f"{form} " + ", ".join(f"{k} {v:.4f}" for k, v in r.items())
+            for form, r in res.items()))
+    return res
 
 
 def check_against_cpu(eng, CkksEngine, preset, A, B, out, tag):
-    """The step and rescale on pair 0 against CPU tensors (the plain
-    versions) of an engine of the same preset."""
+    """An engine of the same preset and seed on the CPU makes its own keys:
+    sk, pk and every evk part must equal the card's byte for byte.  Then
+    the step and rescale on pair 0 against CPU tensors (the plain
+    versions)."""
     eng_cpu = CkksEngine(preset, device="cpu", seed=SEED)
     cpu = torch.device("cpu")
-    evk = eng.evk
-    eng_cpu.evk = type(evk)(
-        data=tuple(tuple(t.to(cpu) for t in part) for part in evk.data),
-        flags=evk._flags, level=evk.level,
-    )
+    t0 = time.perf_counter()
+    eng_cpu.sk, eng_cpu.pk, eng_cpu.evk  # noqa: B018 — keygen
+    t_keygen = time.perf_counter() - t0
+    pairs = [(eng_cpu.sk.data, eng.sk.data)] + [
+        (c, g) for X in ("pk", "evk")
+        for c, g in zip(leaves(getattr(eng_cpu, X)), leaves(getattr(eng, X)))]
+    same = all(torch.equal(c, g.cpu()) for c, g in pairs)
+    log(f"{tag} keygen on the CPU ({t_keygen:.1f} s) == keygen on the card "
+        f"byte for byte (sk, pk, {len(eng.evk.data)} evk parts): {same}")
+    if not same:
+        raise AssertionError(f"{tag} the card's keys differ from the CPU's")
     t0 = time.perf_counter()
     pair = [type(A)(data=tuple(d[0].to(cpu) for d in X.data), level=0)
             for X in (A, B)]
@@ -622,6 +832,164 @@ def check_against_cpu(eng, CkksEngine, preset, A, B, out, tag):
     if not same:
         raise AssertionError(f"{tag} GPU rescale differs from the CPU "
                              f"rescale")
+
+
+def leaves(key):
+    """The tensors of a key: (pk0, pk1), or every part's (k0, k1)."""
+    return [t for d in key.data
+            for t in (d if isinstance(d, tuple) else (d,))]
+
+
+def csprng_phase(Csprng, CkksConfig, presets, smi):
+    """Phase 2d.  A generator on the card and one on the CPU with the
+    channel model of each preset's engine and one (seed, nonce); each draw
+    three times in a row on both, byte for byte, then the states; ms per
+    draw on the card (CUDA events: median of 3 loops of 3 draws) beside
+    the bytes bound of the block function (the rows' states read once,
+    their stepped states and the samples written once).  Returns
+    {preset: {draw: result}}."""
+    results = {}
+    for preset in presets:
+        cfg = CkksConfig.parse(preset)
+        S = cfg.num_special_primes
+        tag = f"logN{cfg.logN}"
+        kw = dict(num_coefs=cfg.N, num_channels=[len(cfg.q) - S],
+                  num_repeating_channels=max(S, 2), sigma=cfg.sigma,
+                  seed=SEED, nonce=7)
+        gpu, cpu = Csprng(**kw, device="cuda"), Csprng(**kw, device="cpu")
+        coefs = np.random.default_rng(SEED).uniform(-2.0**40, 2.0**40,
+                                                    (BATCH, cfg.N))
+        L16 = cfg.N // 16
+        # draw -> (call, state rows it runs the block function on)
+        draws = {
+            f"randint over the q chain ({len(cfg.q)} channels)": (
+                lambda r: (r.randint(amax=cfg.q, repeats=S),),
+                len(cfg.q) * gpu.L),
+            "discrete_gaussian(repeats=2)": (
+                lambda r: (r.discrete_gaussian(repeats=2),), 2 * gpu.L),
+            f"randround_batch({BATCH})": (
+                lambda r: (r.randround_batch(coefs),), BATCH * L16),
+            f"encrypt_noise_batch({BATCH})": (
+                lambda r: r.encrypt_noise_batch(BATCH), 3 * BATCH * gpu.L),
+        }
+        out_bytes = {}
+        for name, (fn, _) in draws.items():
+            t0 = time.perf_counter()
+            for _ in range(3):
+                got, want = fn(gpu), fn(cpu)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+                    raise AssertionError(f"{tag} CSPRNG {name} on the card "
+                                         f"differs from the CPU's")
+            out_bytes[name] = nbytes(*got)
+            log(f"{tag} CSPRNG {name}: card == CPU over 3 successive calls "
+                f"({time.perf_counter() - t0:.1f} s with the CPU's)")
+        if not torch.equal(gpu.states.cpu(), cpu.states):
+            raise AssertionError(f"{tag} CSPRNG states differ after the "
+                                 f"draws")
+        res = {}
+        for name, (fn, rows) in draws.items():
+            ms = cuda_ms(lambda fn=fn: fn(gpu))
+            nbytes_ = rows * 16 * 8 + rows * 2 * 8 + out_bytes[name]
+            bound_ms = nbytes_ / HBM_BYTES_PER_S * 1e3
+            res[name] = dict(ms=ms, rows=rows, bytes=nbytes_,
+                             bytes_bound_ms=bound_ms)
+            log(f"{tag} CSPRNG {name}: {ms:.4f} ms per draw on the card, "
+                f"{rows} block rows, bytes bound {bound_ms:.4f} ms ({smi})")
+        results[tag] = res
+    return results
+
+
+def digest_phase(CkksEngine):
+    """Phase 2e.  The JAX package's pinned logN14 ciphertext digest from
+    the port's keygen, CSPRNG, codec and encrypt on the card."""
+    with open(GOLDEN) as f:
+        want = json.load(f)["logN14"]["ct_sha256_seed1234_nonce1"]
+    eng = CkksEngine("logN14", device="cuda", seed=1234, nonce=1)
+    m = np.linspace(-1, 1, eng.num_slots)
+    ct = eng.encodecrypt(m)
+    h = hashlib.sha256()
+    for d in ct.data:
+        h.update(np.ascontiguousarray(d.cpu().numpy()).tobytes())
+    err = float(np.abs(eng.decryptcode(ct, is_real=True) - m).max())
+    log(f"logN14 seed 1234 nonce 1: ciphertext sha256 {h.hexdigest()} == "
+        f"the pinned digest: {h.hexdigest() == want}; decrypt max error "
+        f"{err:.3e} (limit {DECRYPT_TOL})")
+    if h.hexdigest() != want:
+        raise AssertionError("the logN14 ciphertext digest differs from "
+                             "tests/golden/presets.json")
+    if not err < DECRYPT_TOL:
+        raise AssertionError("logN14 decrypt error above the limit")
+    return err
+
+
+def compressed_keys(eng, typing, mont):
+    """A seed-expanded evk (``a_seed``): ``compress_ksk`` drops the a
+    halves, ``expand_ksk`` gives back the key's bytes."""
+    sk = eng.sk
+    sk2 = typing.SecretKey(
+        data=mont.mont_mult(sk.data, sk.data, eng._lp(0, True).pack),
+        flags=sk._flags, level=0)
+    evk = typing.EvaluationKey.wrap(
+        eng.create_key_switching_key(sk2, sk, a_seed=SEED))
+    t0 = time.perf_counter()
+    ck = eng.compress_ksk(evk)
+    back = eng.expand_ksk(ck)
+    torch.cuda.synchronize()
+    t_round = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(leaves(evk), leaves(back)))
+    log(f"logN15 a_seed evk: {nbytes(*leaves(evk)) / 2**20:.1f} MiB, "
+        f"compressed {nbytes(*leaves(ck)) / 2**20:.1f} MiB; compress + "
+        f"expand {t_round:.3f} s, byte-identical to the key: {same}")
+    if not same:
+        raise AssertionError("expand_ksk(compress_ksk(evk)) differs from "
+                             "the evk")
+
+
+def draw_share(eng, msgs, tag):
+    """The CSPRNG's share of keygen and of one ``encodecrypt_batch``: both
+    run again with every draw method timed (host clock, synchronised
+    before and after each draw).  Replaces the engine's keys."""
+    rng = eng.rng
+    names = ("randint", "discrete_gaussian", "randround", "randround_batch",
+             "encrypt_noise_batch")
+    spent = [0.0]
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return out
+        return run
+
+    def keygen():
+        eng.sk = eng._create_secret_key()
+        eng.pk, eng.evk  # noqa: B018
+
+    res = {}
+    try:
+        for name in names:
+            setattr(rng, name, timed(getattr(rng, name)))
+        for what, fn in (("keygen", keygen),
+                         (f"encodecrypt_batch of {BATCH}",
+                          lambda: eng.encodecrypt_batch(msgs))):
+            spent[0] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            res[what] = dict(total_s=total, csprng_s=spent[0],
+                             share=spent[0] / total)
+            log(f"{tag} {what}: {total:.4f} s, of which CSPRNG draws "
+                f"{spent[0]:.4f} s ({100 * spent[0] / total:.1f}%)")
+    finally:
+        for name in names:
+            delattr(rng, name)
+    return res
 
 
 def time_step(eng, kern, A, B, tag, smi, loops, plain_reps):
@@ -750,7 +1118,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    from tiberate_tpu_torch import Preset
+    from tiberate_tpu_torch import CkksConfig, Preset
+    from tiberate_tpu_torch import typing as ttyping
     from tiberate_tpu_torch.engine import (
         CkksEngine,
         stack_ciphertexts,
@@ -758,9 +1127,10 @@ def main():
     )
     from tiberate_tpu_torch.benchmarks.profiling import fold_microbench
     from tiberate_tpu_torch.engine import ckks_engine as mod
-    from tiberate_tpu_torch.ops import cuda_build, fold_probe, roofline
+    from tiberate_tpu_torch.ops import cuda_build, fold_probe, mont, roofline
     from tiberate_tpu_torch.ops import ntt_kernels as kern
     from tiberate_tpu_torch.parallel import sharded
+    from tiberate_tpu_torch.rng.csprng import Csprng
 
     # 1. the card
     smi = subprocess.run(
@@ -808,6 +1178,11 @@ def main():
             f"{imad} IMAD-class, for {bfly} butterflies a thread: "
             f"{total / bfly:.1f} ({imad / bfly:.1f} IMAD-class) a butterfly")
 
+    # 2d. the CSPRNG on the card against the CPU; 2e. the pinned digest
+    csprng = csprng_phase(Csprng, CkksConfig, (Preset.logN15, Preset.logN17),
+                          smi)
+    err14 = digest_phase(CkksEngine)
+
     # 3. logN15 kernels against their plain versions
     eng_k = CkksEngine(Preset.logN15, device="cuda", seed=SEED)
     results15 = check_kernels(eng_k, kern, mod, roofline, "logN15", (3, 3),
@@ -816,7 +1191,7 @@ def main():
 
     # 4. the logN15 main path
     eng = CkksEngine(Preset.logN15, device="cuda", seed=SEED)
-    A, B, out, launches15, step15, err15 = drive(
+    A, B, out, launches15, step15, err15, info15 = drive(
         eng, kern, stack_ciphertexts, unstack_ciphertext, DECRYPT_TOL,
         "logN15")
     require(launches15, PATH_15, "the logN15 main path")
@@ -828,6 +1203,8 @@ def main():
                                        (3, 3), 3)
     ab15 = route_ab(eng, kern, sharded, A, B, "logN15", (3, 3))
     profile_step(lambda: eng.cc_mult(A, B), "logN15")
+    compressed_keys(eng, ttyping, mont)
+    share15 = draw_share(eng, msgs(eng), "logN15")
     del eng, A, B, out
     torch.cuda.empty_cache()
 
@@ -842,7 +1219,7 @@ def main():
                               rate)
 
     # 7. the logN17 main path
-    A, B, out, launches17, step17, err17 = drive(
+    A, B, out, launches17, step17, err17, info17 = drive(
         eng17, kern, stack_ciphertexts, unstack_ciphertext, DECRYPT_TOL_17,
         "logN17")
     require(launches17, PATH_17, "the logN17 main path")
@@ -863,6 +1240,7 @@ def main():
                                            (3, 1), 1)
     ab17 = route_ab(eng17, kern, sharded, A, B, "logN17", (3, 1))
     profile_step(lambda: eng17.cc_mult(A, B), "logN17", top=16)
+    share17 = draw_share(eng17, msgs(eng17), "logN17")
 
     del eng17, A, B, out
     torch.cuda.empty_cache()
@@ -874,7 +1252,7 @@ def main():
                                  (3, 3), rate30)
     del eng_k
     eng = CkksEngine("logN15_30", device="cuda", seed=SEED)
-    A, B, out, launches15_30, step15_30, err15_30 = drive(
+    A, B, out, launches15_30, step15_30, err15_30, info15_30 = drive(
         eng, kern, stack_ciphertexts, unstack_ciphertext, DECRYPT_TOL_30,
         "logN15_30")
     require(launches15_30, lane(PATH_15, "_30"), "the logN15_30 main path")
@@ -900,7 +1278,7 @@ def main():
         f"{len(eng.params.q)} primes, {n_parts} keyswitch parts at level 1")
     results17_30 = check_kernels(eng, kern, mod, roofline, "logN17_30",
                                  (3, 1), rate30)
-    A, B, out, launches17_30, step17_30, err17_30 = drive(
+    A, B, out, launches17_30, step17_30, err17_30, info17_30 = drive(
         eng, kern, stack_ciphertexts, unstack_ciphertext, DECRYPT_TOL_30,
         "logN17_30")
     require(launches17_30, lane(PATH_17, "_30"), "the logN17_30 main path")
@@ -949,23 +1327,27 @@ def main():
                 for key, (src, rep) in PROBE.items()]
     log(json.dumps({
         "card": smi, "batch": BATCH,
+        "csprng": csprng, "logN14_digest_decrypt_max_err": err14,
         "logN15": {"step_ms": step_ms, "step_ms_per_ct": step_ms / BATCH,
                    "plain_step_ms": plain_step_ms,
-                   "decrypt_max_err": err15, "route_ab": ab15},
+                   "decrypt_max_err": err15, "route_ab": ab15,
+                   "csprng_share": share15, **info15},
         "logN17": {"step_ms": step17_ms,
                    "step_ms_per_ct": step17_ms / BATCH,
                    "plain_step_ms": plain_step17_ms,
                    "decrypt_max_err": err17,
                    "switch_key_decrypt_max_err": err_sw,
-                   "route_ab": ab17},
+                   "route_ab": ab17, "csprng_share": share17, **info17},
         "logN15_30": {"step_ms": step15_30_ms,
                       "step_ms_per_ct": step15_30_ms / BATCH,
                       "plain_step_ms": plain_step15_30_ms,
-                      "decrypt_max_err": err15_30, "route_ab": ab15_30},
+                      "decrypt_max_err": err15_30, "route_ab": ab15_30,
+                      **info15_30},
         "logN17_30": {"step_ms": step17_30_ms,
                       "step_ms_per_ct": step17_30_ms / BATCH,
                       "plain_step_ms": plain_step17_30_ms,
-                      "decrypt_max_err": err17_30, "route_ab": ab17_30},
+                      "decrypt_max_err": err17_30, "route_ab": ab17_30,
+                      **info17_30},
         "seconds": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": kernels}))

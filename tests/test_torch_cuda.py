@@ -4,9 +4,10 @@ Every test here needs a GPU and skips without one: the kernels against
 their plain versions (the keyswitch-chain kernel with and without a skip
 range), the chain step against the all-parts step, each in both lanes (the
 62-bit int64 lane and the 30-bit int32 lane), the card's step against
-the CPU's, and the fold-rate probe's three kernels against their plain
-versions.  The file imports no jax, so it also runs on a machine
-that has only torch:
+the CPU's, the fold-rate probe's three kernels against their plain
+versions, and the CSPRNG, keygen and the batch encrypt and decrypt forms
+on the card against the CPU's.  The file imports no jax, so it also
+runs on a machine that has only torch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
@@ -27,6 +28,7 @@ from tiberate_tpu_torch.engine import ckks_engine as teng
 from tiberate_tpu_torch.ops import fold_probe as fp
 from tiberate_tpu_torch.ops import ntt_kernels as K
 from tiberate_tpu_torch.parallel import sharded
+from tiberate_tpu_torch.rng.csprng import Csprng
 from tiberate_tpu_torch.typing import Ciphertext
 
 LEVEL = 1
@@ -251,3 +253,57 @@ def test_engine_step_on_card_equals_cpu(card):
                                 level=c.level) for c in (a, b)))
     for g, r in zip(out.data, ref.data):
         assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.cuda
+def test_csprng_on_card_equals_cpu(card):
+    """Every draw of the ChaCha20 CSPRNG on the card, three times in a row,
+    equals the same generator's on the CPU, and so do the states after."""
+    kw = dict(num_coefs=1 << 10, num_channels=[6], num_repeating_channels=3,
+              seed=11, nonce=2)
+    gpu, cpu = Csprng(**kw, device=card), Csprng(**kw, device="cpu")
+    q = [(1 << 62) - 57, (1 << 61) - 1, 97, 3, 1 << 40, 12289, 7, 5, 2]
+    coefs = np.random.default_rng(1).uniform(-1e9, 1e9, (3, 1 << 10))
+    draws = (
+        lambda r: (r.randint(amax=q, repeats=3),),
+        lambda r: (r.randint(amax=3, shift=-1, repeats=1),),
+        lambda r: (r.discrete_gaussian(non_repeats=2, repeats=2),),
+        lambda r: (r.randround(coefs[0]),),
+        lambda r: (r.randround_batch(coefs),),
+        lambda r: r.encrypt_noise_batch(4),
+        lambda r: (r.randbytes(repeats=1),),
+    )
+    for _ in range(3):
+        for fn in draws:
+            for g, c in zip(fn(gpu), fn(cpu)):
+                assert g.device.type == "cuda" and torch.equal(g.cpu(), c)
+    assert torch.equal(gpu.states.cpu(), cpu.states)
+
+
+@pytest.mark.cuda
+def test_keys_and_batch_forms_on_card_equal_cpu(card):
+    """An engine on the card and one on the CPU from the same seed: equal
+    sk, pk and evk; equal ``encodecrypt_batch`` ciphertexts, which equal
+    single ``encodecrypt`` calls from the same state; the batch decode
+    within 1e-9 of the single decodes (float summation order)."""
+    engs = [teng.CkksEngine(_cfg(10), device=d, seed=8, nonce=3)
+            for d in (card, "cpu")]
+    keys = [(e.sk.data, *e.pk.data,
+             *(t for part in e.evk.data for t in part)) for e in engs]
+    for g, c in zip(*keys):
+        assert torch.equal(g.cpu(), c)
+    ms = np.random.default_rng(6).uniform(-1, 1, (3, engs[0].num_slots))
+    state = engs[0].rng.states.clone()
+    cts = [e.encodecrypt_batch(ms) for e in engs]
+    for g, c in zip(*cts):
+        for a, b in zip(g.data, c.data):
+            assert torch.equal(a.cpu(), b)
+    engs[0].rng.states = state
+    single = [engs[0].encodecrypt(m) for m in ms]
+    for g, s1 in zip(cts[0], single):
+        for a, b in zip(g.data, s1.data):
+            assert torch.equal(a, b)
+    bat = engs[0].decryptcode_batch(cts[0], is_real=True)
+    seq = np.stack([engs[0].decryptcode(c, is_real=True) for c in cts[0]])
+    np.testing.assert_allclose(bat, seq, rtol=0, atol=1e-9)
+    assert np.abs(bat - ms).max() < 5e-5

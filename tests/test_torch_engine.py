@@ -6,9 +6,14 @@
   error below the bound tests/test_engine.py uses at this toy size;
 * the same round trip, in the 62-bit and the 30-bit mode, in a subprocess
   where jax cannot be imported;
-* the stand-in sampler's draws have the supports and moments asked of them.
+* engines of both packages from the same (seed, nonce): byte-identical sk,
+  pk and evk, batch and single encrypts, seed-expanded keys and their
+  compressed forms; the pinned logN14 ciphertext digest of
+  tests/test_golden.py; the decrypt forms on JAX-made ciphertexts.
 """
 
+import hashlib
+import json
 import os
 import subprocess
 import sys
@@ -21,6 +26,7 @@ import torch
 from tiberate_tpu.config.toy import toy_config
 from tiberate_tpu.context.ntt_context import CkksParams as JParams
 from tiberate_tpu.engine import ckks_engine as jeng
+from tiberate_tpu_torch import interop
 from tiberate_tpu_torch.context.ntt_context import CkksParams as TParams
 from tiberate_tpu_torch.engine import ckks_engine as teng
 
@@ -99,32 +105,6 @@ def test_keygen_and_encrypt_cores_match_jnp(params):
         rh, P - 1, True)
     assert _eq(j_dec[1], t_dec[1])
     assert _eq(np.asarray(j_dec[0]).reshape(-1), t_dec[0].reshape(-1))
-
-
-def test_sampler_draws():
-    """Supports of every draw, and the discrete Gaussian's spread: over
-    2^17 draws the sample std lies within 2% of sigma = 3.2 (its standard
-    error there is about 0.2%) and no draw exceeds the table's 32 points.
-    Stochastic rounding is unbiased to within 1% of a unit."""
-    from tiberate_tpu_torch.rng.sampler import Sampler
-
-    N = 1 << 14
-    smp = Sampler(N, 3.2, seed=4)
-    assert set(smp.ternary().tolist()) == {-1, 0, 1}
-    assert set(smp.binary().tolist()) == {0, 1}
-    q = [97, 1 << 40, (1 << 61) - 1]
-    u = smp.uniform(q)
-    assert u.shape == (3, N)
-    for row, qi in zip(u, q):
-        assert 0 <= int(row.min()) and int(row.max()) < qi
-    g = smp.discrete_gaussian(8).double()
-    assert g.shape == (8, N)
-    assert abs(float(g.std()) / 3.2 - 1) < 0.02
-    assert float(g.abs().max()) <= 32
-    x = np.full(N, 2.25)
-    r = smp.randround(-x)
-    assert set(r.tolist()) == {-2, -3}
-    assert abs(float(r.double().mean()) + 2.25) < 0.01
 
 
 @pytest.fixture(scope="module")
@@ -222,12 +202,33 @@ def test_cuda_engine_needs_a_card():
         teng.CkksEngine(_cfg())
 
 
+def test_interop_needs_a_card_by_default(jax_engine):
+    """No silent CPU default in the carry-over either: ``from_jax`` and
+    ``csprng_from_jax`` put their tensors on the card unless asked for the
+    CPU, so without a GPU they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    for carry, obj in ((interop.from_jax, jax_engine.sk),
+                       (interop.csprng_from_jax, jax_engine.rng)):
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            carry(obj)
+        assert carry(obj, device="cpu") is not None
+
+
 _NO_JAX = """
 import sys
 sys.modules["jax"] = None          # any import of jax now fails
 import numpy as np
 from tiberate_tpu_torch.config.toy import toy_config
 from tiberate_tpu_torch.engine import CkksEngine
+from tiberate_tpu_torch.rng import (chacha20, csprng,
+                                    discrete_gaussian_sampler, interface,
+                                    simplerng)
+
+assert issubclass(csprng.Csprng, interface.RandNumGen)
+assert issubclass(simplerng.SimpleRNG, interface.RandNumGen)
+rng = csprng.Csprng(num_coefs=64, num_channels=[2], seed=1, device="cpu")
+assert rng.randint(amax=[5, 7], repeats=1).shape == (2, 64)
 
 rng = np.random.default_rng(1)
 for bits, scale_bits, tol in ((62, 30, {tol}), (30, 21, {tol30})):
@@ -253,3 +254,228 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+# ----------------------------------------------------------------------
+# Both packages from the same (seed, nonce).
+# ----------------------------------------------------------------------
+
+REPO_GOLDEN = os.path.join(REPO, "tests", "golden", "presets.json")
+
+KEY_CASES = {
+    "toy": _cfg,
+    "toy30": lambda: toy_config(logN=7, num_scales=4, num_special_primes=2,
+                                scale_bits=21, buffer_bit_length=30),
+    "logN14": lambda: "logN14",
+}
+_PAIRS = {}
+
+
+def _keyed_pair(case):
+    """(JAX engine, port engine) of ``case`` from seed 21, nonce 5, with
+    sk, pk and evk drawn in that order; built once per case.  Tests that
+    draw more carry the JAX stream over first (``csprng_from_jax``)."""
+    if case not in _PAIRS:
+        cfg = KEY_CASES[case]()
+        j = jeng.CkksEngine(cfg, seed=21, nonce=5)
+        t = teng.CkksEngine(cfg, device="cpu", seed=21, nonce=5)
+        for eng in (j, t):
+            eng.sk, eng.pk, eng.evk  # noqa: B018 — keygen
+        _PAIRS[case] = (j, t)
+    return _PAIRS[case]
+
+
+def _same(j_leaves, t_leaves):
+    return all(_eq(a, b) for a, b in zip(j_leaves, t_leaves))
+
+
+def _ksk_leaves(ksk):
+    return [leaf for part in ksk.data
+            for leaf in (part if isinstance(part, tuple) else (part,))]
+
+
+@pytest.mark.parametrize("case", sorted(KEY_CASES))
+def test_keys_match_jax(case):
+    """sk, pk and evk of both packages from the same (seed, nonce) are
+    byte-identical (the 30-bit toy's in int32)."""
+    j, t = _keyed_pair(case)
+    assert t.sk.data.dtype == t.params.dtype
+    assert _eq(j.sk.data, t.sk.data)
+    assert _same(j.pk.data, t.pk.data)
+    assert len(t.evk.data) == len(j.evk.data)
+    assert _same(_ksk_leaves(j.evk), _ksk_leaves(t.evk))
+    assert t.pk._flags == interop.from_jax(j.pk, device="cpu")._flags
+
+
+def test_port_logN14_ciphertext_digest_pinned():
+    """The port's counterpart of tests/test_golden.py's pinned digest: its
+    own keygen, CSPRNG, codec and encrypt at Preset.logN14 give the JAX
+    package's ciphertext bytes; the ciphertext decrypts below 1e-6."""
+    with open(REPO_GOLDEN) as f:
+        golden = json.load(f)["logN14"]["ct_sha256_seed1234_nonce1"]
+    eng = teng.CkksEngine("logN14", device="cpu", seed=1234, nonce=1)
+    m = np.linspace(-1, 1, eng.num_slots)
+    ct = eng.encodecrypt(m)
+    h = hashlib.sha256()
+    for d in ct.data:
+        h.update(np.ascontiguousarray(d.numpy()).tobytes())
+    assert h.hexdigest() == golden
+    assert np.abs(eng.decryptcode(ct, is_real=True) - m).max() < 1e-6
+
+
+@pytest.mark.parametrize("bias_guard", [True, False])
+def test_encodecrypt_batch_matches_jax_and_sequential(bias_guard):
+    """Three messages (one with a DC of 3, which the bias guard splits)
+    through the port's ``encodecrypt_batch``: the bytes of three
+    sequential ``encodecrypt`` calls of a port engine in the same state;
+    with the bias guard on (the engine's default), also the bytes of the
+    JAX package's ``encodecrypt_batch``."""
+    if bias_guard:
+        j, t = _keyed_pair("toy")
+        t.rng = interop.csprng_from_jax(j.rng, device="cpu")
+    else:
+        t = teng.CkksEngine(_cfg(), device="cpu", seed=21, nonce=5,
+                            bias_guard=False)
+        t.sk, t.pk, t.evk  # noqa: B018 — keygen
+    rng = np.random.default_rng(17)
+    ms = [rng.uniform(-1, 1, t.num_slots) for _ in range(3)]
+    ms[1] = ms[1] + 3.0
+    twin = teng.CkksEngine(_cfg(), device="cpu", seed=21, nonce=5,
+                           bias_guard=bias_guard)
+    twin.sk, twin.pk, twin.evk  # noqa: B018 — t's keys
+    twin.rng.states = t.rng.states.clone()
+    tb = t.encodecrypt_batch(ms)
+    seq = [twin.encodecrypt(m) for m in ms]
+    assert len(tb) == 3
+    for tc, sc in zip(tb, seq):
+        assert tc.level == 0 and tc._flags == sc._flags
+        for a, b in zip(tc.data, sc.data):
+            assert torch.equal(a, b)
+    if bias_guard:
+        for jc, tc in zip(j.encodecrypt_batch(ms), tb):
+            assert _same(jc.data, tc.data)
+    assert torch.equal(t.rng.states, twin.rng.states)
+    out = t.decryptcode_batch(tb, is_real=True)
+    assert np.abs(out - np.stack(ms)).max() < TOL
+
+
+def test_encrypt_matches_jax():
+    """``encrypt`` of the same encoded coefficients, twice in a row, from
+    the same CSPRNG state: the JAX package's bytes (the port draws its
+    noise by ``encrypt_noise_batch(1)``, the JAX package by
+    ``discrete_gaussian`` then ``randint``), and the same states after."""
+    j, t = _keyed_pair("toy")
+    t.rng = interop.csprng_from_jax(j.rng, device="cpu")
+    pt = np.random.default_rng(31).integers(-2**40, 2**40, t.ckksCfg.N)
+    for _ in range(2):
+        jc, tc = j.encrypt(pt), t.encrypt(pt)
+        assert tc._flags == interop.from_jax(jc, device="cpu")._flags
+        assert _same(jc.data, tc.data)
+    assert _eq(j.rng.states, t.rng.states)
+
+
+@pytest.fixture(scope="module")
+def jax_made():
+    """JAX-made ciphertexts at the toy: three fresh ones (one with a DC of
+    3) and the triplet of a cc_mult without relinearization."""
+    j, _ = _keyed_pair("toy")
+    rng = np.random.default_rng(23)
+    ms = [rng.uniform(-1, 1, j.num_slots) for _ in range(3)]
+    ms[2] = ms[2] + 3.0
+    cts = [j.encodecrypt(m) for m in ms]
+    triplet = j.cc_mult(cts[0], cts[1], post_relin=False)
+    return ms, cts, triplet
+
+
+def test_decrypt_forms_match_jax(jax_made):
+    """``decryptcode_batch``, ``decrypt_triplet``, ``decrypt`` (both kinds)
+    and ``decryptcode`` of a triplet, on JAX-made ciphertexts carried over
+    by ``from_jax``: the scaled coefficients byte-identical to the JAX
+    package's, the batch decode equal to the JAX batch decode and within
+    the JAX package's 1e-9 of the sequential decode (float summation
+    order), and every message within the toy bound."""
+    j, t = _keyed_pair("toy")
+    ms, jcts, jtrip = jax_made
+    tcts = [interop.from_jax(c, device="cpu") for c in jcts]
+    ttrip = interop.from_jax(jtrip, device="cpu")
+    assert type(ttrip).__name__ == "CiphertextTriplet"
+
+    jbat = j.decryptcode_batch(jcts, is_real=True)
+    tbat = t.decryptcode_batch(tcts, is_real=True)
+    assert np.array_equal(jbat, tbat)
+    seq = np.stack([t.decryptcode(c, is_real=True) for c in tcts])
+    np.testing.assert_allclose(tbat, seq, rtol=0, atol=1e-9)
+    assert np.abs(tbat - np.stack(ms)).max() < TOL
+
+    assert _eq(np.asarray(j.decrypt_triplet(jtrip)).reshape(-1),
+               t.decrypt_triplet(ttrip).reshape(-1))
+    assert torch.equal(t.decrypt(ttrip), t.decrypt_triplet(ttrip))
+    assert _eq(np.asarray(j.decrypt(jcts[0])).reshape(-1),
+               t.decrypt(tcts[0]).reshape(-1))
+    jdec = j.decryptcode(jtrip, is_real=True)
+    tdec = t.decryptcode(ttrip, is_real=True)
+    assert np.array_equal(jdec, tdec)
+    assert np.abs(tdec - ms[0] * ms[1]).max() < TOL
+
+
+def test_intt_exit_to_mont_matches_jax():
+    """The iNTT that keeps the Montgomery factor, on the same residues."""
+    jp, tp = JParams(_cfg()), TParams(_cfg(), "cpu")
+    x = _uniform(np.random.default_rng(29), jp.q[: jp.P], jp.N)
+    want = jeng._intt_exit_to_mont(jnp.asarray(x), jp.lp(0, False))
+    assert _eq(want, teng._intt_exit_to_mont(torch.from_numpy(x),
+                                             tp.lp(0, False)))
+
+
+def test_seed_expanded_keys_compress_and_expand(jax_made):
+    """``a_seed`` keys in both packages: a key-switching key and a public
+    key (with and without the special primes) byte-identical across the
+    packages; compressing drops the a halves; expanding gives back the
+    bytes in both packages, and across them through ``from_jax``."""
+    j, t = _keyed_pair("toy")
+    # the streams may have parted
+    t.rng = interop.csprng_from_jax(j.rng, device="cpu")
+    jsk2, tsk2 = j._create_secret_key(), t._create_secret_key()
+    assert _eq(jsk2.data, tsk2.data)
+    jk = j.create_key_switching_key(jsk2, j.sk, a_seed=12345)
+    tk = t.create_key_switching_key(tsk2, t.sk, a_seed=12345)
+    assert tk.misc["a_seed"] == 12345
+    assert _same(_ksk_leaves(jk), _ksk_leaves(tk))
+    t.switch_key(teng.stack_ciphertexts(
+        [interop.from_jax(c, device="cpu") for c in jax_made[1][:2]]), tk)
+    ck = t.compress_ksk(tk)
+    assert ck.misc["compressed"] and len(_ksk_leaves(ck)) == len(tk.data)
+    assert not any(k.startswith("_") for k in ck.misc)
+    assert _same(_ksk_leaves(j.expand_ksk(j.compress_ksk(jk))),
+                 _ksk_leaves(tk))
+    for cksk in (ck, interop.from_jax(j.compress_ksk(jk), device="cpu")):
+        back = t.expand_ksk(cksk)
+        assert "compressed" not in back.misc
+        assert all(torch.equal(a, b) for a, b in
+                   zip(_ksk_leaves(back), _ksk_leaves(tk)))
+    with pytest.raises(ValueError, match="a_seed"):
+        t.compress_ksk(t.evk)
+    for special in (False, True):
+        jpk = j.create_public_key(include_special=special, a_seed=777)
+        tpk = t.create_public_key(include_special=special, a_seed=777)
+        assert _same(jpk.data, tpk.data)
+        cpk = t.compress_pk(tpk)
+        assert len(cpk.data) == 1
+        for c in (cpk, interop.from_jax(j.compress_pk(jpk), device="cpu")):
+            assert all(torch.equal(a, b) for a, b in
+                       zip(t.expand_pk(c).data, tpk.data))
+
+
+def test_decryptcode_batch_refuses_ntt_and_montgomery_state(port_engine):
+    """The batch decrypt checks each ciphertext as ``decryptcode`` does;
+    the JAX package's batch form refuses only the NTT state."""
+    from tiberate_tpu_torch import errors as terrors
+    from tiberate_tpu_torch import typing as ttyping
+
+    ok = port_engine.encodecrypt(np.zeros(port_engine.num_slots))
+    for flag, exc in (("NTT_STATE", terrors.NTTStateError),
+                      ("MONTGOMERY_STATE", terrors.MontgomeryStateError)):
+        bad = ttyping.Ciphertext(data=ok.data, level=0,
+                                 flags=getattr(ttyping.FLAGS, flag))
+        with pytest.raises(exc, match=f"requires {flag}=False"):
+            port_engine.decryptcode_batch([ok, bad])

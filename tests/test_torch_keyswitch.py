@@ -218,8 +218,8 @@ def jax_switch():
 def test_switch_key_matches_jax(jax_switch, route):
     jeng_, jct, jksk, want, m = jax_switch
     eng = TorchEngine(jeng_.ckksCfg, device="cpu", seed=0)
-    eng.sk = interop.from_jax(jeng_.sk)
-    ct, ksk = interop.from_jax(jct), interop.from_jax(jksk)
+    eng.sk = interop.from_jax(jeng_.sk, device="cpu")
+    ct, ksk = interop.from_jax(jct, device="cpu"), interop.from_jax(jksk, device="cpu")
     if route == "default":
         got = eng.switch_key(ct, ksk)
         assert got.level == want.level and got._flags == ct._flags

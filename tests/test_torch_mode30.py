@@ -70,11 +70,11 @@ def test_from_jax_keeps_int32():
     jax_eng = JaxEngine(jax_toy_config(**CFG), seed=13, nonce=3)
     m = np.random.default_rng(39).uniform(-1, 1, jax_eng.num_slots)
     ct = jax_eng.encodecrypt(m)
-    tct = interop.from_jax(ct)
+    tct = interop.from_jax(ct, device="cpu")
     assert all(d.dtype == torch.int32 for d in tct.data)
     assert all(np.array_equal(np.asarray(j), d.numpy())
                for j, d in zip(ct.data, tct.data))
     eng = TorchEngine(toy_config(**CFG), device="cpu", seed=13)
-    eng.sk = interop.from_jax(jax_eng.sk)
+    eng.sk = interop.from_jax(jax_eng.sk, device="cpu")
     assert eng.sk.data.dtype == torch.int32
     assert np.abs(eng.decryptcode(tct, is_real=True) - m).max() < TOL

@@ -64,9 +64,9 @@ def test_port_step_matches_jax_step(case):
                  jsharded.mult_step_params(jeng, 0))
 
     teng = TorchEngine(jeng.ckksCfg, device="cpu", seed=21)
-    teng.sk = interop.from_jax(jeng.sk)
-    teng.evk = interop.from_jax(jeng.evk)
-    ta, tb = interop.from_jax(ca), interop.from_jax(cb)
+    teng.sk = interop.from_jax(jeng.sk, device="cpu")
+    teng.evk = interop.from_jax(jeng.evk, device="cpu")
+    ta, tb = interop.from_jax(ca, device="cpu"), interop.from_jax(cb, device="cpu")
     step = tsharded.make_mult_step(teng, 0)
     prm = tsharded.mult_step_params(teng, 0)
     assert prm["parts_fused"] is not None  # below logN17: all-parts kernel
@@ -88,7 +88,7 @@ def test_port_rescale_matches_jax_rescale():
     teng = TorchEngine(jeng.ckksCfg, device="cpu", seed=21)
     m = np.random.default_rng(10).uniform(-1, 1, jeng.num_slots)
     jct = jeng.encodecrypt(m)
-    tct = interop.from_jax(jct)
+    tct = interop.from_jax(jct, device="cpu")
     for level in (1, 2):
         jct, tct = jeng.rescale(jct), teng.rescale(tct)
         assert jct.level == tct.level == level

@@ -9,9 +9,10 @@ NTTs, the tensor product, the keyswitch part loop and the P-division run
 as CUDA kernels (``csrc/``) on CUDA tensors and as their plain torch
 versions on CPU tensors.
 
-This package never imports jax.  Its random draws come from a
-``torch.Generator`` and are NOT cryptographically secure (see
-``rng/sampler.py``).
+This package never imports jax.  Its keys and noise come from the JAX
+package's counter-mode ChaCha20 CSPRNG, ported as torch ops
+(``rng/csprng.py``): the same seed and nonce give the JAX package's keys
+and ciphertexts byte for byte.
 """
 
 from tiberate_tpu_torch import errors

@@ -1,8 +1,15 @@
-"""The CKKS engine over torch tensors: the encrypt -> cc_mult -> decrypt
-and switch_key slice of ``tiberate_tpu/engine/ckks_engine.py``.
+"""The CKKS engine over torch tensors: the keygen -> encrypt -> cc_mult ->
+decrypt and switch_key slice of ``tiberate_tpu/engine/ckks_engine.py``.
 
 Each core below is the torch twin of the jnp core of the same name, with a
-batch written out as leading dimensions where the JAX package ``vmap``s.
+batch written out as leading dimensions where the JAX package ``vmap``s:
+the JAX package's ``_encrypt_batch_core``, ``_decrypt_double_batch_core``
+and ``_final_scale_batch`` are :func:`_encrypt_core`,
+:func:`_decrypt_double_core` and :func:`_final_scale` on ``[B, C, N]``
+operands.  Keys and noise come from the counter-mode ChaCha20 CSPRNG
+(:mod:`tiberate_tpu_torch.rng.csprng`) on the engine's device, drawn in
+the JAX package's order, so the same ``(seed, nonce)`` gives the JAX
+package's keys and ciphertexts byte for byte.
 The NTTs, the tensor product, the keyswitch (all parts in one kernel at
 logN <= 16, the per-part chain at logN 17, as the JAX package routes it)
 and the P-division go through the kernel wrappers of
@@ -23,10 +30,11 @@ from tiberate_tpu_torch.config import CkksConfig, Preset
 from tiberate_tpu_torch.context.ntt_context import CkksParams, PartPack
 from tiberate_tpu_torch.ops import mont
 from tiberate_tpu_torch.ops import ntt_kernels as kern
-from tiberate_tpu_torch.rng.sampler import Sampler
+from tiberate_tpu_torch.rng.csprng import Csprng
 from tiberate_tpu_torch.typing import (
     FLAGS,
     Ciphertext,
+    CiphertextTriplet,
     EvaluationKey,
     KeySwitchKey,
     PublicKey,
@@ -111,6 +119,31 @@ def _decrypt_double_core(ct0, ct1, sk, lp, base_lp, final_scalar,
     return scaled, pt
 
 
+def _decrypt_triplet_core(d0, d1, d2, sk, lp, base_lp, final_scalar,
+                          rounding_half, base_at, final_round):
+    """Decrypt an NTT/Montgomery-state triplet: d0 + d1 s + d2 s^2.
+    -> (scaled [..., 1, N], pt [..., C, N])."""
+    pk = lp.pack
+    d0x = kern.intt(d0, lp, "exit_reduce")
+    d1_s = mont.mont_mult(d1, sk, pk)
+    s2 = mont.mont_mult(sk, sk, pk)
+    d2_s2 = mont.mont_mult(d2, s2, pk)
+    d1_s = kern.intt(d1_s, lp, "exit")
+    d2_s2 = kern.intt(d2_s2, lp, "exit")
+    pt = mont.mont_add(d0x, d1_s, pk)
+    pt = mont.mont_add(pt, d2_s2, pk)
+    pt = mont.reduce_2q(pt, pk)
+    scaled = _final_scale(pt, base_lp, final_scalar, rounding_half,
+                          base_at, final_round)
+    return scaled, pt
+
+
+def _intt_exit_to_mont(x, lp):
+    """iNTT keeping the Montgomery factor (key material leaves the NTT
+    domain this way before a rotation permutes it)."""
+    return kern.intt(x, lp, "mont")
+
+
 def _check_plain_state(ct):
     """A ciphertext to decrypt is in neither the NTT nor the Montgomery
     state.  The reference checks it before the secret key in
@@ -119,6 +152,15 @@ def _check_plain_state(ct):
         raise errors.NTTStateError(expected=False)
     if ct.has_flag(FLAGS.MONTGOMERY_STATE):
         raise errors.MontgomeryStateError(expected=False)
+
+
+def _check_ntt_mont_state(ds):
+    """A key, or a triplet to decrypt, is in the NTT and the Montgomery
+    state."""
+    if not ds.has_flag(FLAGS.NTT_STATE):
+        raise errors.NTTStateError(expected=True)
+    if not ds.has_flag(FLAGS.MONTGOMERY_STATE):
+        raise errors.MontgomeryStateError(expected=True)
 
 
 def _rescale_core(d, rescale_scale, lp_next, round_at):
@@ -322,11 +364,13 @@ class CkksEngine:
     """CKKS engine on one device.
 
     ``device`` is explicit: "cuda" (the default) raises when no GPU is
-    present; pass "cpu" to run the plain torch versions.
+    present; pass "cpu" to run the plain torch versions.  ``seed`` and
+    ``nonce`` key the CSPRNG as in the JAX package: an int seed without a
+    nonce is fully deterministic; None draws from ``os.urandom``.
     """
 
     def __init__(self, ckks_config=None, device="cuda", *,
-                 bias_guard: bool = True, seed=None):
+                 bias_guard: bool = True, seed=None, nonce=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -345,7 +389,7 @@ class CkksEngine:
 
         self.params = CkksParams(self.ckksCfg, self.device)
         self.montCtx = self.params.montCtx
-        self.rng = Sampler(self.ckksCfg.N, self.ckksCfg.sigma, seed=seed)
+        self.rng = self._csprng(seed, nonce)
         self.bias_guard = bias_guard
         self.__sk = None
         self.__pk = None
@@ -420,16 +464,36 @@ class CkksEngine:
     def evk(self, evk: EvaluationKey):
         self.__evk = evk
 
+    def _csprng(self, seed, nonce):
+        """The engine's channel model: P channels, max(S, 2) repeating
+        ones, on the engine's device."""
+        return Csprng(
+            num_coefs=self.ckksCfg.N,
+            num_channels=[self.params.P],
+            num_repeating_channels=max(self.ckksCfg.num_special_primes, 2),
+            sigma=self.ckksCfg.sigma,
+            seed=seed,
+            nonce=nonce,
+            device=self.device,
+        )
+
     def _create_secret_key(self) -> SecretKey:
         lp = self._lp(0, True)
-        ternary = self._to_dev(self.rng.ternary())
+        ternary = self.rng.randint(amax=3, shift=-1, repeats=1)[0]
         return SecretKey(
-            data=_keygen_sk_core(ternary, lp),
+            data=_keygen_sk_core(self._to_dev(ternary), lp),
             flags=FLAGS.INCLUDE_SPECIAL | FLAGS.MONTGOMERY_STATE
             | FLAGS.NTT_STATE,
             level=0,
             **self._meta(),
         )
+
+    def _a_moduli(self, include_special: bool):
+        """(moduli, repeats) of a uniform ``a``: the special primes come
+        from the repeating channels."""
+        if include_special:
+            return self.params.q, self.ckksCfg.num_special_primes
+        return self.params.q[: self.params.P], 0
 
     def _create_public_key(self, sk: SecretKey = None, *,
                            include_special: bool = False, a=None
@@ -440,11 +504,14 @@ class CkksEngine:
             raise errors.SecretKeyNotIncludeSpecialPrime()
         lp = self._lp(0, include_special)
         C = lp.num_channels
-        e = self._to_dev(self.rng.discrete_gaussian(1)[0])
+        e = self.rng.discrete_gaussian(repeats=1)[0]
         if a is None:
-            a = self.rng.uniform(self.params.q[:C])
+            amax = self._a_moduli(include_special)[0]
+            repeats = (self.ckksCfg.num_special_primes
+                       if sk.has_flag(FLAGS.INCLUDE_SPECIAL) else 0)
+            a = self.rng.randint(amax=amax, repeats=repeats)
         a = self._to_dev(a)
-        pk0 = _keygen_pk_core(e, a, sk.data[:C], lp)
+        pk0 = _keygen_pk_core(self._to_dev(e), a, sk.data[:C], lp)
         return PublicKey(
             data=(pk0, a),
             flags=(FLAGS.INCLUDE_SPECIAL if include_special else FLAGS(0))
@@ -454,15 +521,21 @@ class CkksEngine:
         )
 
     def create_key_switching_key(self, sk_from: SecretKey, sk_to: SecretKey,
-                                 a=None) -> KeySwitchKey:
+                                 a=None, a_seed=None) -> KeySwitchKey:
         """Per-part P-scaled source-key shards folded into fresh public
         keys under ``sk_to``; ``a`` optionally gives each part's uniform
-        polynomial ([P+S, N] each)."""
+        polynomial ([P+S, N] each).
+
+        ``a_seed``: draw those polynomials from a CSPRNG keyed by this
+        seed (:meth:`_seed_rng`): the key is then seed-expandable —
+        :meth:`compress_ksk` drops the ``a`` halves and :meth:`expand_ksk`
+        regenerates them."""
         for key in (sk_from, sk_to):
-            if not key.has_flag(FLAGS.NTT_STATE):
-                raise errors.NTTStateError(expected=True)
-            if not key.has_flag(FLAGS.MONTGOMERY_STATE):
-                raise errors.MontgomeryStateError(expected=True)
+            _check_ntt_mont_state(key)
+        if a_seed is not None:
+            if a is not None:
+                raise ValueError("pass either a or a_seed")
+            a = self._expand_ksk_a(a_seed)
         P = self.params.P
         lp_ord = self._lp(0, False)
         Psk = mont.mont_mult(sk_from.data[:P], self.params.mont_PR,
@@ -481,8 +554,86 @@ class CkksEngine:
             flags=FLAGS.INCLUDE_SPECIAL | FLAGS.MONTGOMERY_STATE
             | FLAGS.NTT_STATE,
             level=0,
+            a_seed=a_seed,
             **self._meta(),
         )
+
+    def _seed_rng(self, a_seed: int):
+        """A fresh CSPRNG with the engine's channel model, keyed by
+        ``a_seed`` (nonce 0x5EED)."""
+        return self._csprng(a_seed, 0x5EED)
+
+    def _expand_ksk_a(self, a_seed: int):
+        """Deterministic per-part uniform ``a`` polynomials from a seed."""
+        rng = self._seed_rng(a_seed)
+        amax, repeats = self._a_moduli(True)
+        return [rng.randint(amax=amax, repeats=repeats)
+                for _ in self.params.parts[0]]
+
+    def create_public_key(self, sk: SecretKey = None, *,
+                          include_special: bool = False, a_seed=None
+                          ) -> PublicKey:
+        """Public keygen with an optional seed-expandable ``a`` (see
+        :meth:`create_key_switching_key`); :meth:`compress_pk` /
+        :meth:`expand_pk` halve the stored bytes."""
+        a = None
+        if a_seed is not None:
+            amax, repeats = self._a_moduli(include_special)
+            a = self._seed_rng(a_seed).randint(amax=amax, repeats=repeats)
+        pk = self._create_public_key(sk, include_special=include_special,
+                                     a=a)
+        pk.misc["a_seed"] = a_seed
+        pk.misc["include_special"] = bool(include_special)
+        return pk
+
+    @staticmethod
+    def _compressed_misc(key):
+        if key.misc.get("a_seed") is None:
+            raise ValueError("only keys created with a_seed= are "
+                             "compressible")
+        # the key-form caches (_parts_fused, _inpart) hold the a halves
+        misc = {k: v for k, v in key.misc.items() if not k.startswith("_")}
+        return dict(misc, compressed=True)
+
+    @staticmethod
+    def _expanded_misc(key):
+        misc = dict(key.misc)
+        misc.pop("compressed", None)
+        return misc
+
+    def compress_pk(self, pk: PublicKey) -> PublicKey:
+        """Drop the regenerable ``a`` half of a seed-expanded public key."""
+        return PublicKey(data=(pk.data[0],), flags=pk._flags, level=pk.level,
+                         **self._compressed_misc(pk))
+
+    def expand_pk(self, cpk: PublicKey) -> PublicKey:
+        """Regenerate a compressed public key's ``a`` from its seed."""
+        if not cpk.misc.get("compressed"):
+            return cpk
+        amax, repeats = self._a_moduli(bool(cpk.misc.get("include_special")))
+        a = self._seed_rng(cpk.misc["a_seed"]).randint(amax=amax,
+                                                       repeats=repeats)
+        return PublicKey(data=(cpk.data[0], self._to_dev(a)),
+                         flags=cpk._flags, level=cpk.level,
+                         **self._expanded_misc(cpk))
+
+    def compress_ksk(self, ksk: KeySwitchKey) -> KeySwitchKey:
+        """Drop the regenerable ``a`` halves of a seed-expanded key-switching
+        key: half the bytes; :meth:`expand_ksk` restores it."""
+        return KeySwitchKey(data=tuple(k0 for k0, _ in ksk.data),
+                            flags=ksk._flags, level=ksk.level,
+                            **self._compressed_misc(ksk))
+
+    def expand_ksk(self, cksk: KeySwitchKey) -> KeySwitchKey:
+        """Regenerate a compressed key's ``a`` halves from its seed."""
+        if not cksk.misc.get("compressed"):
+            return cksk
+        a_list = self._expand_ksk_a(cksk.misc["a_seed"])
+        return KeySwitchKey(
+            data=tuple((k0, self._to_dev(a))
+                       for k0, a in zip(cksk.data, a_list)),
+            flags=cksk._flags, level=cksk.level,
+            **self._expanded_misc(cksk))
 
     def _create_evk(self, sk: SecretKey = None) -> EvaluationKey:
         sk = sk or self.sk
@@ -560,7 +711,8 @@ class CkksEngine:
     # ------------------------------------------------------------------
 
     def encode(self, m, level: int = 0, padding=True):
-        """Message -> signed integer coefficients [N] (CPU int64)."""
+        """Message -> signed integer coefficients [N] (int64, on the
+        device)."""
         if padding:
             m = codec.padding(m, num_slots=self.num_slots)
         return codec.encode(
@@ -581,14 +733,14 @@ class CkksEngine:
     # Encrypt / decrypt.
     # ------------------------------------------------------------------
 
-    def _encrypt(self, pt, dc_rns, pk, level):
+    def _encrypt(self, pt, dc_rns, e0, e1, v, pk, level):
+        """pt, e0, e1, v: [..., N]; dc_rns: [..., C] -> Ciphertext with
+        data [..., C, N]."""
         include_special = pk.has_flag(FLAGS.INCLUDE_SPECIAL)
         lp = self._lp(level, include_special)
         C = lp.num_channels
-        e0e1 = self._to_dev(self.rng.discrete_gaussian(2))
-        v = self._to_dev(self.rng.binary())
         ct0, ct1 = _encrypt_core(
-            self._to_dev(pt), self._to_dev(dc_rns), e0e1[0], e0e1[1], v,
+            *map(self._to_dev, (pt, dc_rns, e0, e1, v)),
             pk.data[0][level : level + C], pk.data[1][level : level + C], lp,
         )
         return Ciphertext(
@@ -598,41 +750,69 @@ class CkksEngine:
             **self._meta(),
         )
 
+    def _channels(self, pk, level):
+        return self._lp(level, pk.has_flag(FLAGS.INCLUDE_SPECIAL)
+                        ).num_channels
+
     def encrypt(self, pt, pk: PublicKey = None, *, level: int = 0
                 ) -> Ciphertext:
         """Encrypt encoded coefficients pt ([N] integers)."""
         pk = pk or self.pk
-        C = self._lp(level, pk.has_flag(FLAGS.INCLUDE_SPECIAL)).num_channels
-        return self._encrypt(pt, np.zeros(C, dtype=self.ckksCfg.numpy_dtype),
-                             pk, level)
+        dc_rns = np.zeros(self._channels(pk, level),
+                          dtype=self.ckksCfg.numpy_dtype)
+        e, v = self.rng.encrypt_noise_batch(1)
+        return self._encrypt(pt, dc_rns, e[0, 0], e[0, 1], v[0], pk, level)
+
+    def _dc_residues(self, dc_integral, level, C):
+        """Bias guard: the DC integral parts [...] times the scale, as
+        residues [..., C] of the level's primes."""
+        scale = int(self.ckksCfg.scale)
+        return np.array(
+            [[int(d) * scale % self.params.q[i] for i in range(level,
+                                                               level + C)]
+             for d in np.reshape(dc_integral, -1)],
+            dtype=self.ckksCfg.numpy_dtype,
+        ).reshape(*np.shape(dc_integral), C)
 
     def encodecrypt(self, m, pk: PublicKey = None, *, level: int = 0,
                     padding=True) -> Ciphertext:
+        """:meth:`encodecrypt_batch` of one message."""
+        return self.encodecrypt_batch([m], pk, level=level,
+                                      padding=padding)[0]
+
+    def encodecrypt_batch(self, ms, pk: PublicKey = None, *,
+                          level: int = 0, padding=True) -> list:
+        """Encrypt a batch of messages: one vectorized encode (one host FFT,
+        one ``randround_batch``), one ``encrypt_noise_batch`` and one
+        encrypt core on [B, C, N] (one launch of each kernel).  The
+        ciphertexts are the bytes of sequential :meth:`encodecrypt` calls,
+        with the bias guard on or off."""
         pk = pk or self.pk
         if padding:
-            m = codec.padding(m, num_slots=self.num_slots)
+            ms = [codec.padding(m, num_slots=self.num_slots) for m in ms]
+        ms = np.stack([np.asarray(m) for m in ms])
         deviation = self.params.deviations[level]
-        C = self._lp(level, pk.has_flag(FLAGS.INCLUDE_SPECIAL)).num_channels
-        dc_rns = np.zeros(C, dtype=self.ckksCfg.numpy_dtype)
+        C = self._channels(pk, level)
+        B = ms.shape[0]
+        scale = self.ckksCfg.scale
+        dc_rns = np.zeros((B, C), dtype=self.ckksCfg.numpy_dtype)
         if self.bias_guard:
-            # move the DC integral part out of the rounded coefficients and
-            # add it back exactly as RNS residues
-            pt = codec.encode(
-                m, scale=self.ckksCfg.scale, deviation=deviation,
-                rng=self.rng, return_without_scaling=True,
+            pts = codec.encode_batch(
+                ms, scale=scale, deviation=deviation, rng=self.rng,
+                return_without_scaling=True,
             ).copy()
-            dc_integral = float(pt[0]) // 1
-            pt[0] -= dc_integral
-            dc_scale = int(dc_integral) * int(self.ckksCfg.scale)
-            dc_rns = np.array(
-                [dc_scale % self.params.q[i] for i in range(level, level + C)],
-                dtype=self.ckksCfg.numpy_dtype,
-            )
-            pt = self.rng.randround(pt * np.float64(self.ckksCfg.scale))
+            dc_integral = np.floor(pts[:, 0])
+            pts[:, 0] -= dc_integral
+            dc_rns = self._dc_residues(dc_integral, level, C)
+            pts = self.rng.randround_batch(pts * np.float64(scale))
         else:
-            pt = codec.encode(m, scale=self.ckksCfg.scale,
-                              deviation=deviation, rng=self.rng)
-        return self._encrypt(pt, dc_rns, pk, level)
+            pts = codec.encode_batch(ms, scale=scale, deviation=deviation,
+                                     rng=self.rng)
+        e, v = self.rng.encrypt_noise_batch(B)
+        ct = self._encrypt(pts, dc_rns, e[:, 0], e[:, 1], v, pk, level)
+        return [Ciphertext(data=(d0, d1), flags=ct._flags, level=level,
+                           **self._meta())
+                for d0, d1 in zip(*ct.data)]
 
     def _decrypt_args(self, level):
         C = self._lp(level, False).num_channels
@@ -654,44 +834,84 @@ class CkksEngine:
         )
         return scaled
 
-    def decryptcode(self, ct: Ciphertext, sk: SecretKey = None, *,
-                    is_real=False):
-        """Decrypt and decode one ciphertext; with bias_guard (and >= 3
-        channels left) the DC slot is recovered exactly by a 3-prime CRT."""
+    def decrypt_triplet(self, ct_mult: CiphertextTriplet,
+                        sk: SecretKey = None):
+        """-> signed scaled coefficients [1, N] of d0 + d1 s + d2 s^2."""
         sk = sk or self.sk
+        _check_ntt_mont_state(ct_mult)
         if not sk.has_flag(FLAGS.NTT_STATE):
             raise errors.NTTStateError(expected=True)
-        if not sk.has_flag(FLAGS.MONTGOMERY_STATE):
-            raise errors.MontgomeryStateError(expected=True)
-        _check_plain_state(ct)
-        level = ct.level
+        level = ct_mult.level
         lp, base_lp, fs, rh, base_at = self._decrypt_args(level)
         C = base_at + 1
-        use_bias_guard = C >= 3 and self.bias_guard
-        args = (ct.data[0][..., :C, :], ct.data[1][..., :C, :],
-                sk.data[level : level + C], lp, base_lp, fs, rh, base_at)
-        dc = 0
-        if use_bias_guard:
-            _, pt = _decrypt_double_core(*args, final_round=False)
-            dc0, dc1, dc2 = (int(v) for v in pt[[base_at, 0, 1], 0].cpu())
-            q = self.params.q
-            q0, q1, q2 = q[level + base_at], q[level], q[level + 1]
-            Q = q0 * q1 * q2
-            Q0, Q1, Q2 = q1 * q2, q0 * q2, q0 * q1
-            dc = (
-                dc0 * pow(Q0, -1, q0) * Q0
-                + dc1 * pow(Q1, -1, q1) * Q1
-                + dc2 * pow(Q2, -1, q2) * Q2
-            ) % Q
+        scaled, _ = _decrypt_triplet_core(
+            *ct_mult.data, sk.data[level : level + C], lp, base_lp, fs, rh,
+            base_at, final_round=True,
+        )
+        return scaled
+
+    def decrypt(self, ct, sk: SecretKey = None):
+        """:meth:`decrypt_triplet` or :meth:`decrypt_double` by kind."""
+        if isinstance(ct, CiphertextTriplet):
+            return self.decrypt_triplet(ct, sk)
+        return self.decrypt_double(ct, sk)
+
+    def _dc_crt(self, residues, level, base_at):
+        """Bias guard: the exact DC values from their residues [..., 3]
+        mod (q[level + base_at], q[level], q[level + 1]) by CRT, divided
+        by q[level] rounding up; a list of python ints."""
+        q = self.params.q
+        q0, q1, q2 = q[level + base_at], q[level], q[level + 1]
+        Q = q0 * q1 * q2
+        m0 = pow(q1 * q2, -1, q0) * q1 * q2
+        m1 = pow(q0 * q2, -1, q1) * q0 * q2
+        m2 = pow(q0 * q1, -1, q2) * q0 * q1
+        dcs = []
+        for r0, r1, r2 in np.asarray(residues.cpu()).reshape(-1, 3).tolist():
+            dc = (r0 * m0 + r1 * m1 + r2 * m2) % Q
             dc = dc if dc <= Q // 2 else dc - Q
-            dc = (dc + (q1 - 1)) // q1
-            pt_z = pt.clone()
-            pt_z[base_at, 0] = 0
-            pt_z[0, 0] = 0
-            scaled = _final_scale(pt_z, base_lp, fs, rh, base_at,
-                                  final_round=True)
+            dcs.append((dc + (q1 - 1)) // q1)
+        return dcs
+
+    def _decrypt_scaled(self, core, sk, level):
+        """The decrypt epilogue of :meth:`decryptcode` and
+        :meth:`decryptcode_batch` over leading dims [..., C, N]: ``core``
+        (a decrypt core with its ciphertext bound) -> (scaled [..., 1, N],
+        the exact DC values as a list of python ints, or None).  With the
+        bias guard (and >= 3 channels left) the DC slots are zeroed before
+        the final scale and recovered by a 3-prime CRT; only their three
+        residues leave the device."""
+        lp, base_lp, fs, rh, base_at = self._decrypt_args(level)
+        C = base_at + 1
+        args = (sk.data[level : level + C], lp, base_lp, fs, rh, base_at)
+        if not (C >= 3 and self.bias_guard):
+            scaled, _ = core(*args, final_round=True)
+            return scaled, None
+        _, pt = core(*args, final_round=False)
+        dcs = self._dc_crt(pt[..., [base_at, 0, 1], 0], level, base_at)
+        pt_z = pt.clone()
+        pt_z[..., base_at, 0] = 0
+        pt_z[..., 0, 0] = 0
+        return _final_scale(pt_z, base_lp, fs, rh, base_at,
+                            final_round=True), dcs
+
+    def decryptcode(self, ct, sk: SecretKey = None, *, is_real=False):
+        """Decrypt and decode one ciphertext or triplet; with bias_guard
+        (and >= 3 channels left) the DC slot is recovered exactly by a
+        3-prime CRT."""
+        sk = sk or self.sk
+        _check_ntt_mont_state(sk)
+        level = ct.level
+        C = self._lp(level, False).num_channels
+        if isinstance(ct, CiphertextTriplet):
+            _check_ntt_mont_state(ct)
+            core = functools.partial(_decrypt_triplet_core, *ct.data)
         else:
-            scaled, _ = _decrypt_double_core(*args, final_round=True)
+            _check_plain_state(ct)
+            core = functools.partial(_decrypt_double_core,
+                                     ct.data[0][..., :C, :],
+                                     ct.data[1][..., :C, :])
+        scaled, dcs = self._decrypt_scaled(core, sk, level)
 
         correction = self.params.corrections[level]
         decoded = codec.decode(
@@ -700,8 +920,42 @@ class CkksEngine:
             return_without_scaling=True,
         )[: self.num_slots]
         decoded = decoded / self.ckksCfg.scale * correction
-        if use_bias_guard:
-            decoded = decoded + dc / self.ckksCfg.scale * correction
+        if dcs is not None:
+            decoded = decoded + dcs[0] / self.ckksCfg.scale * correction
+        return decoded.real if is_real else decoded
+
+    def decryptcode_batch(self, cts, sk: SecretKey = None, *,
+                          is_real=False):
+        """Decrypt and decode same-level ciphertexts with one decrypt core
+        on [B, C, N] and one vectorized decode; per message the result is
+        :meth:`decryptcode`'s up to the decode's float summation order.
+        Returns [B, slots]."""
+        sk = sk or self.sk
+        _check_ntt_mont_state(sk)
+        level = cts[0].level
+        if any(ct.level != level for ct in cts):
+            raise errors.NotMatchType(origin="mixed ciphertext levels",
+                                      to="decryptcode_batch")
+        for ct in cts:
+            _check_plain_state(ct)
+        C = self._lp(level, False).num_channels
+        core = functools.partial(
+            _decrypt_double_core,
+            torch.stack([ct.data[0][:C] for ct in cts]),
+            torch.stack([ct.data[1][:C] for ct in cts]),
+        )
+        scaled, dcs = self._decrypt_scaled(core, sk, level)
+
+        correction = self.params.corrections[level]
+        decoded = codec.decode_batch(
+            np.asarray(scaled.cpu()).reshape(len(cts), -1),
+            scale=self.ckksCfg.scale, correction=correction,
+        )[:, : self.num_slots]
+        if dcs is not None:
+            decoded = decoded + (
+                np.asarray(dcs, dtype=np.float64)[:, None]
+                / self.ckksCfg.scale * correction
+            )
         return decoded.real if is_real else decoded
 
     # ------------------------------------------------------------------

@@ -1,9 +1,12 @@
-"""Carry keys and ciphertexts from the JAX package into the port.
+"""Carry keys, ciphertexts and generator state from the JAX package into
+the port.
 
-The JAX package's data structures are read duck-typed — class name,
-``data`` leaves through ``np.array``, ``level`` and the flag names — so
-this module imports neither jax nor ``tiberate_tpu``.  With it, tests hand
-identical keys and ciphertexts to both packages.
+The JAX package's objects are read duck-typed — class name, ``data``
+leaves through ``np.array``, ``level``, the flag names and the scalar
+``misc`` entries (``a_seed``, ``compressed``); a ``Csprng``'s channel
+model, key, nonce and states — so this module imports neither jax nor
+``tiberate_tpu``.  With it, tests hand identical keys, ciphertexts and
+random streams to both packages.
 """
 
 import numpy as np
@@ -13,12 +16,12 @@ from tiberate_tpu_torch import typing as tt
 
 _CLASSES = {
     name: getattr(tt, name)
-    for name in ("Ciphertext", "SecretKey", "PublicKey", "KeySwitchKey",
-                 "EvaluationKey")
+    for name in ("Ciphertext", "CiphertextTriplet", "SecretKey", "PublicKey",
+                 "KeySwitchKey", "EvaluationKey")
 }
 
 
-def to_tensor(x, device="cpu") -> torch.Tensor:
+def to_tensor(x, device="cuda") -> torch.Tensor:
     """An array-like (numpy, jax) -> tensor on ``device``: int32 arrays (the
     30-bit mode's residues) stay int32, every other array becomes int64."""
     x = np.array(x)
@@ -33,7 +36,7 @@ def _leaves(data, device):
     return to_tensor(data, device)
 
 
-def from_jax(obj, device="cpu"):
+def from_jax(obj, device="cuda"):
     """A JAX-package ``Ciphertext`` / key -> the port's class of the same
     name, with its data on ``device``."""
     name = type(obj).__name__
@@ -49,3 +52,22 @@ def from_jax(obj, device="cpu"):
         level=obj.level,
         **misc,
     )
+
+
+def csprng_from_jax(rng, device="cuda"):
+    """A JAX-package ``Csprng`` -> a port ``Csprng`` on ``device`` that
+    continues the same stream: the same channel model, key and nonce, and
+    the JAX generator's current states (counters included)."""
+    from tiberate_tpu_torch.rng.csprng import Csprng
+
+    out = Csprng(
+        num_coefs=rng.num_coefs, num_channels=rng.num_channels,
+        num_repeating_channels=rng.num_repeating_channels, sigma=rng.sigma,
+        seed=list(rng.key), nonce=list(rng.nonce), device=device,
+    )
+    states = to_tensor(np.array(rng.states), device)
+    if states.shape != out.states.shape:
+        raise ValueError(f"states {tuple(states.shape)} do not fit the "
+                         f"channel model {tuple(out.states.shape)}")
+    out.states = states
+    return out

@@ -201,7 +201,7 @@ def make_unsigned(a, pack: ModPack):
 def tile_unsigned(a, pack: ModPack):
     """Broadcast a signed ``[..., N]`` polynomial (values in (-q, q)) into
     unsigned ``[..., C, N]`` RNS residues, in the pack's storage dtype (the
-    sampler's and codec's int64 draws are cast, as the JAX package does)."""
+    CSPRNG's and codec's int64 draws are cast, as the JAX package does)."""
     q = pack._2q >> 1
     a = torch.as_tensor(a).to(device=q.device, dtype=pack.dtype)[
         ..., None, :

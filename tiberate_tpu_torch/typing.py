@@ -75,16 +75,26 @@ class Ciphertext(DataStruct):
     """(ct0, ct1), each [..., C, N] canonical residues."""
 
 
+class CiphertextTriplet(DataStruct):
+    """(d0, d1, d2) of a tensor product before relinearization, each
+    [..., C, N] in the NTT and Montgomery state."""
+
+
 class SecretKey(DataStruct):
     pass
 
 
 class PublicKey(DataStruct):
-    pass
+    """(pk0, a).  ``misc["a_seed"]``: the seed ``a`` was drawn from
+    (``create_public_key(a_seed=)``), else None; a compressed key
+    (``misc["compressed"]``) holds ``(pk0,)`` alone."""
 
 
 class KeySwitchKey(DataStruct):
-    """One (pk0, pk1) pair of [P+S, N] tensors per decomposition part."""
+    """One (pk0, pk1) pair of [P+S, N] tensors per decomposition part.
+    ``misc["a_seed"]``: the seed every part's ``pk1`` was drawn from
+    (``create_key_switching_key(a_seed=)``), else None; a compressed key
+    (``misc["compressed"]``) holds each part's ``pk0`` alone."""
 
 
 class EvaluationKey(KeySwitchKey):

@@ -1,6 +1,7 @@
 """CKKS codec: canonical-embedding encode/decode and slot permutations.
 
-A numpy copy of the encode/decode half of ``tiberate_tpu/utils/encoding.py``
+A numpy copy of the encode/decode half of ``tiberate_tpu/utils/encoding.py``,
+batch forms included
 (the port cannot import the JAX package; the rotation and conjugation
 tables come with the port's rotations).  The codec is host-side, low-rate
 work where fp64 precision matters more than throughput, so it runs in numpy
@@ -171,6 +172,51 @@ def encode(
     if return_without_scaling:
         return coeffs
     return rng.randround(coeffs * np.float64(scale))
+
+
+def encode_batch(
+    ms,
+    rng=None,
+    scale=2**40,
+    deviation=1.0,
+    norm="forward",
+    return_without_scaling=False,
+):
+    """Batched :func:`encode`: [B, N/2] message slots -> [B, N] signed
+    integer coefficients, one vectorized FFT and one stochastic-rounding
+    call (``rng.randround_batch``) for the whole batch; bit-identical to B
+    sequential :func:`encode` calls."""
+    ms = np.asarray(ms)
+    if ms.ndim != 2:
+        raise ValueError(f"expected [B, slots] messages, got {ms.shape}")
+    B, slots = ms.shape
+    N = 2 * slots
+    pre_perm, _ = prepost_perms(N)
+    permed = np.zeros((B, N), dtype=np.complex128)
+    permed[:, pre_perm] = ms * deviation
+    mm = permed + np.conj(permed)[:, ::-1]
+    coeffs = (_fft(mm, norm) * _twister(N)).real
+    if return_without_scaling:
+        return coeffs
+    return rng.randround_batch(coeffs * np.float64(scale))
+
+
+@lru_cache(maxsize=None)
+def _post_gather(N):
+    """The inverse of ``post_perm``: ``out[:, post_perm] = mm`` is
+    ``out = mm[:, _post_gather(N)]``."""
+    return inverse_permutation(prepost_perms(N)[1])
+
+
+def decode_batch(ms, scale=2**40, correction=1.0, norm="forward"):
+    """Batched :func:`decode`: [B, N] coefficients -> [B, N] complex
+    slots (pre-truncation), one vectorized iFFT.  The slot permutation is
+    a gather along the rows: numpy's scatter into the columns of a
+    [B, N] array is slower, by about as much as the iFFT at N = 2^17."""
+    ms = np.asarray(ms)
+    N = ms.shape[-1]
+    mm = _ifft(ms * _skewer(N), norm) / scale * correction
+    return np.take(mm, _post_gather(N), axis=1)
 
 
 def decode(

@@ -19,7 +19,9 @@ Phases (any failure exits non-zero):
 2c. every entry of the register-tiled kernels (K1, K2 with its three
    epilogues, K3 with one and two keys, the chain with and without a skip
    range, K4, K5 and K6) at logN 4, 7 and 10 in both lanes, byte for byte
-   against their plain versions; and the SASS of the register-tiled core
+   against their plain versions, K1 without entry also on the signed
+   (negative) words of a rotated and of a conjugated secret key; and the
+   SASS of the register-tiled core
    (``cuobjdump``): the instructions per butterfly of the inverse
    contiguous pass and of K5's and K6's contiguous passes;
 2d. the ChaCha20 CSPRNG on the card against the same generator on the
@@ -60,8 +62,23 @@ Phases (any failure exits non-zero):
    that profiled step's wall time (the profiler slows the host, so this
    share is lower than an unprofiled step's); a seed-expanded evk
    (``a_seed``) through ``compress_ksk`` and ``expand_ksk`` gives back its
-   bytes; the CSPRNG's share of keygen and of ``encodecrypt_batch`` (its
-   draws timed, synchronised, in a second keygen and batch);
+   bytes; then 5b; then the CSPRNG's share of keygen and of
+   ``encodecrypt_batch`` (its draws timed, synchronised, in a second
+   keygen and batch);
+5b. the evaluation path at logN15 on the batch of 8, its launch counts set
+   to 0 before it and read after: the Galois keys (14 rotation keys) and
+   the conjugation key (time, device memory), ``rotate_offset`` by 1, 5
+   and -1, ``conjugate``, ``negate``, ``cc_add``, ``cc_sub``, ``pc_add``,
+   ``pc_mult``, ``mult_int_scalar``, ``mult_scalar``, ``add_scalar``,
+   ``level_up``, ``cc_mult`` of two levels, ``square(post_relin=False)`` +
+   ``relinearize``, ``sum``, ``mean`` and ``var``, each decrypted against
+   numpy (1e-6 fresh, 1e-5 rotations and products, ``pc_add`` 100x and
+   ``sum`` 200x those: the JAX tests' bounds and ratios); every keyswitch
+   one K6 and two K4, ``pc_mult`` two K3; the rotation key for delta 1
+   and the conjugation key equal to the CPU engine's from the same CSPRNG
+   state; the batch rotation equal to 8 single ones; times of
+   ``rotate_single``, ``conjugate``, ``pc_mult``, ``sum``, ``mean`` and
+   ``var`` (CUDA events) and of the Galois keys;
 6. at Preset.logN17 (N = 2^17, 73 + 6 primes; one engine for the whole
    phase): the kernels at the step's shapes (batch 8, level 1: 72 / 78
    channels) against their plain versions, the chain kernel with no skip
@@ -74,6 +91,11 @@ Phases (any failure exits non-zero):
    plain-version step byte for byte;
 8. logN17 ``switch_key``: a ciphertext under a second secret key switched
    to the engine's key decrypts within 1e-6;
+8b. logN17 evaluation: the rotation key for delta 1 and the conjugation
+   key (a full Galois set, 16 keys of about 2 GiB, is left out), one
+   ``rotate_offset(., 1)`` and one ``conjugate`` of the batch, each through
+   the per-part chain (one K3 and n_parts - 1 chain launches, no K6),
+   within 1e-4;
 9. logN17 timing: the step with the kernels and with the plain versions,
    the route A/B (chain against the all-parts kernel, byte-identical, with
    each run's peak device memory), one profiled step, and the CSPRNG's
@@ -83,13 +105,17 @@ Phases (any failure exits non-zero):
     step's shapes; the main path as in 4 (the step through the all-parts
     kernel, error below 1e-2, the JAX package's 30-bit bound), which must
     launch only ``_30`` kernels; the keys and the step on one pair equal
-    to the CPU's; step times with the kernels and
+    to the CPU's; the evaluation path cut to ``rotate_offset`` by 2,
+    ``add_scalar`` and ``sum`` (within 5e-3, the JAX package's 30-bit
+    preset bound, and ``sum`` 200x that), ``_30`` kernels only; step
+    times with the kernels and
     the plain versions, printed beside phase 5's 62-bit logN15 step; the
     route A/B; one profiled step;
 11. "logN17_30" (17 primes): the 30-bit kernels at the step's shapes; the
     main path through the per-part chain (8 ``ntt_keymul_accum_30``
-    launches, no all-parts launch; error below 1e-2); the step equal to the
-    plain-version step; the route A/B with peak memory; one profiled step.
+    launches, no all-parts launch; error below 1e-2); the evaluation as in
+    8b, within 5e-3; the step equal to the plain-version step; the route
+    A/B with peak memory; one profiled step.
 
 Each kernel has two bounds (``tiberate_tpu_torch/ops/roofline.py``): the
 time its bytes take at the H100's datasheet HBM rate (every input read
@@ -98,7 +124,8 @@ source at the shape of the call, take at the REDC rate of its lane that
 phase 2b measured on this card.  ``bound_ms`` is the larger; ``bound_by``
 says which ("bytes" or "operations": the REDCs).  Before the JSON lines,
 the kernels of each driven path are ranked by launches x (time - bound),
-once with the launches of the whole path and once with the step's.  The
+once with the launches of the whole path, once with the step's and once
+with the evaluation path's.  The
 second-to-last line is a JSON object with one entry per kernel and lane,
 the probe's three kernels included; the last line is the device record.
 """
@@ -119,8 +146,10 @@ import torch
 BATCH = 8
 SEED = 1234
 DECRYPT_TOL = 1e-6       # fresh ciphertext; the JAX logN14/15 tests
+DECRYPT_TOL_OP = 1e-5    # rotations, products: tests/test_full_presets.py:34
 DECRYPT_TOL_17 = 1e-4    # cc_mult at logN17: tests/test_full_presets.py
 DECRYPT_TOL_30 = 1e-2    # the 30-bit mode: tests/test_mode30.py
+DECRYPT_TOL_30_OP = 5e-3  # 30-bit presets: tests/test_full_presets.py:95
 DECODE_SUM_TOL = 1e-9    # batch vs single decode: tests/test_codec.py
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM datasheet
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
@@ -161,6 +190,10 @@ STEP_15 = ("intt", "intt_pdiv", "ntt_tensor", "ntt_keymul_parts")
 PATH_17 = ("ntt", "intt", "ntt_keymul", "ntt_keymul_accum", "intt_pdiv",
            "ntt_tensor")
 STEP_17 = ("intt", "ntt_keymul_accum", "intt_pdiv", "ntt_tensor")
+# the kernels the logN15 evaluation path launches (phase 5b): keys (K1, K2),
+# pc_mult (K3 and its K1 cache), keyswitches (K6, K4), square (K5)
+EVAL_15 = ("ntt", "intt", "ntt_keymul", "intt_pdiv", "ntt_tensor",
+           "ntt_keymul_parts")
 
 
 def lane(names, sfx):
@@ -377,12 +410,41 @@ def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
     return results
 
 
+def signed_key_rows(kern, mod, tp):
+    """K1 without entry on what a rotation or a conjugation key transforms
+    (``CkksEngine._galois_secret_key``): a secret key's ordinary rows out
+    of the NTT domain keeping R, permuted and sign-flipped, so that words
+    are negative.  {case: (kernel output, plain output)}."""
+    from tiberate_tpu_torch.utils import encoding as codec
+
+    N, P = tp.N, tp.P
+    lp = tp.lp(0, False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2 * N)
+    ternary = torch.randint(-1, 2, (N,), generator=gen, device="cuda")
+    sk = mod._keygen_sk_core(ternary, tp.lp(0, True))
+    sk_ord = mod._intt_exit_to_mont(sk[:P].contiguous(), lp)
+    cases = {}
+    for name, leap in (("rotation", codec.rotate_leap(1, N)),
+                       ("conjugation", codec.conjugate_leap(N))):
+        src, sign = codec.rotation_perm_tables(N, leap)
+        x = mod._perm_core(
+            sk_ord, torch.from_numpy(src.astype(np.int64)).cuda(),
+            torch.from_numpy(sign).to("cuda", tp.dtype)).contiguous()
+        if not bool((x < 0).any()):
+            raise AssertionError(f"the {name} key rows hold no negative "
+                                 f"word")
+        cases[f"ntt on signed {name}-key rows"] = (
+            kern.ntt(x, lp, False), kern.ntt_plain(x, lp, False))
+    return cases
+
+
 def check_small(kern, mod, CkksParams, toy_config):
     """Phase 2c: every entry of the two ntt.cu transforms, K5 (tensor.cu)
     and K6 (keyswitch.cu) at logN 4, 7 and 10 (odd and even logN: both
     splits L1 = L2 and L1 + 1 = L2), in both lanes, on a toy parameter set
-    at batch 2, against its plain version byte for byte.  Returns the
-    number of cases."""
+    at batch 2, against its plain version byte for byte; K1 without entry
+    also on the signed rows of a rotated and of a conjugated secret key.
+    Returns the number of cases."""
     n = 0
     for logN in (4, 7, 10):
         for lane, opts in ((62, dict(scale_bits=30)),
@@ -418,6 +480,7 @@ def check_small(kern, mod, CkksParams, toy_config):
                                                     skip))
 
             cases = {
+                **signed_key_rows(kern, mod, tp),
                 "ntt enter": (kern.ntt(x, lp, True),
                               kern.ntt_plain(x, lp, True)),
                 "ntt": (kern.ntt(x, lp, False), kern.ntt_plain(x, lp, False)),
@@ -574,10 +637,12 @@ def only_30(counts, what):
         raise AssertionError(f"62-bit kernels launched on {what}: {wrong}")
 
 
-def msgs(eng, seed=SEED):
-    """BATCH random messages of ``eng``'s slot count."""
-    return np.random.default_rng(seed).uniform(-1, 1,
-                                               (BATCH, eng.num_slots))
+def msgs(eng):
+    """The main path's two batches of BATCH random messages (m1, m2) of
+    ``eng``'s slot count."""
+    rng = np.random.default_rng(SEED)
+    return tuple(rng.uniform(-1, 1, (BATCH, eng.num_slots))
+                 for _ in range(2))
 
 
 def drive(eng, kern, stack, unstack, tol, tag):
@@ -586,9 +651,7 @@ def drive(eng, kern, stack, unstack, tol, tag):
     after; the step's own counts separately.  Then the single forms from
     the same CSPRNG state (:func:`single_forms`).  Returns (A, B, out,
     launches, step counts, err, info)."""
-    rng = np.random.default_rng(SEED)
-    m1 = rng.uniform(-1, 1, (BATCH, eng.num_slots))
-    m2 = rng.uniform(-1, 1, (BATCH, eng.num_slots))
+    m1, m2 = msgs(eng)
 
     kern.reset_launch_counts()
     t0 = time.perf_counter()
@@ -799,7 +862,7 @@ def check_against_cpu(eng, CkksEngine, preset, A, B, out, tag):
     """An engine of the same preset and seed on the CPU makes its own keys:
     sk, pk and every evk part must equal the card's byte for byte.  Then
     the step and rescale on pair 0 against CPU tensors (the plain
-    versions)."""
+    versions).  Returns the CPU engine."""
     eng_cpu = CkksEngine(preset, device="cpu", seed=SEED)
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
@@ -832,6 +895,7 @@ def check_against_cpu(eng, CkksEngine, preset, A, B, out, tag):
     if not same:
         raise AssertionError(f"{tag} GPU rescale differs from the CPU "
                              f"rescale")
+    return eng_cpu
 
 
 def leaves(key):
@@ -1082,6 +1146,268 @@ def switch_key_17(eng, kern, stack, unstack):
     return err, counts
 
 
+def run_op(eng, kern, fn, unstack, want, tol, name, tag, is_real=True):
+    """One evaluation op on the batch: its launches (counted from the
+    counts before it), its host time, and the decrypt of its output held
+    to ``want`` within ``tol``.  Returns (output, counts, err)."""
+    before = dict(kern.LAUNCHES)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    t_op = time.perf_counter() - t0
+    counts = {k: kern.LAUNCHES[k] - before[k] for k in kern.LAUNCHES}
+    dec = eng.decryptcode_batch(unstack(out), is_real=is_real)
+    if dec.shape != (BATCH, eng.num_slots) or not np.all(np.isfinite(dec)):
+        raise AssertionError(f"{tag} {name}: decrypt of shape {dec.shape} "
+                             f"or not finite")
+    err = float(np.abs(dec - want).max())
+    log(f"{tag} {name}: {t_op:.4f} s (first call), launches "
+        f"{ {k: n for k, n in counts.items() if n} }; decrypt max error "
+        f"{err:.3e} (limit {tol})")
+    if not err < tol:
+        raise AssertionError(f"{tag} {name}: decrypt error above the limit")
+    return out, counts, err
+
+
+def keyswitch_launches(counts, n, tag, name, sfx="", chain_parts=None):
+    """A keyswitched op's launches: ``n`` keyswitches through the all-parts
+    kernel (one K6 and two K4 each, no chain), or, with ``chain_parts``,
+    through the per-part chain (one K3 and chain_parts - 1 chain launches
+    each, no K6)."""
+    got = (counts["ntt_keymul_parts" + sfx], counts["intt_pdiv" + sfx],
+           counts["ntt_keymul_accum" + sfx], counts["ntt_keymul" + sfx])
+    if chain_parts is None:  # K3 may run besides (mean's pc_mult)
+        got, want = got[:3], (n, 2 * n, 0)
+    else:
+        want = (0, 2 * n, n * (chain_parts - 1), n)
+    if got != want:
+        raise AssertionError(
+            f"{tag} {name}: (K6, K4, chain, K3) launches {got}, want {want}")
+
+
+def make_keys(eng, tag, galois):
+    """The rotation keys (the Galois set, or delta 1 alone) and the
+    conjugation key, timed (host clock, synchronised), with the device
+    memory they add.  Returns (CSPRNG states before each, info)."""
+    mem0 = torch.cuda.memory_allocated()
+    states = {"rot": eng.rng.states.clone()}
+    t0 = time.perf_counter()
+    if galois:
+        eng.rotk = {k.delta: k for k in eng.gk.data}
+    else:
+        eng.rotk[1]  # noqa: B018
+    torch.cuda.synchronize()
+    t_rot = time.perf_counter() - t0
+    states["conj"] = eng.rng.states.clone()
+    t0 = time.perf_counter()
+    eng.conjk  # noqa: B018
+    torch.cuda.synchronize()
+    t_conj = time.perf_counter() - t0
+    mem = torch.cuda.memory_allocated() - mem0
+    n = len(eng.rotk)
+    key_bytes = nbytes(*(t for k in (*map(eng.get_rotation_key, eng.rotk),
+                                     eng.conjk)
+                         for t in leaves(k)))
+    log(f"{tag} {n} rotation key{'s' if n > 1 else ''} "
+        f"{'(the Galois set, deltas 1 .. 2^(logN-2)) ' if galois else ''}"
+        f"{t_rot:.3f} s, conjugation key {t_conj:.3f} s (host clock, "
+        f"synchronised); the keys' tensors {key_bytes / 2**30:.3f} GiB; "
+        f"device memory +{mem / 2**30:.3f} GiB, "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    return states, dict(rotation_keys=n, rotation_keys_s=t_rot,
+                        conjugation_key_s=t_conj, key_bytes=key_bytes,
+                        memory_added=mem)
+
+
+def evaluate15(eng, eng_cpu, kern, stack, unstack, A, B, out, smi):
+    """Phase 5b: the evaluation path at logN15 on the batch of 8, with the
+    launch counts set to 0 before it and read after: the Galois keys and
+    the conjugation key, then rotations (by 1, by 5 composed of 1 and 4,
+    by -1 composed of all 14), conjugation, negate, add/sub, pc_add,
+    pc_mult, the three scalar ops, level_up, cc_mult of two levels,
+    square + relinearize, sum, mean and var, each decrypted against
+    numpy.  After the counts are read: the rotation key for delta 1 and
+    the conjugation key against the CPU engine's from the same CSPRNG
+    state, byte for byte; the batch rotation against the 8 single ones;
+    the timings, and one profiled rotation, conjugation and sum.  Returns
+    (launches, per-op results, timings, key info)."""
+    from tiberate_tpu_torch.typing import Plaintext
+
+    tag = "logN15 evaluation"
+    m1, m2 = msgs(eng)
+    mc = m1 + 1j * m2
+    C = stack(eng.encodecrypt_batch(mc))
+    p = m2[0]
+    L = eng.ckksCfg.logN - 1  # keyswitches of sum / mean, and of -1
+    kern.reset_launch_counts()
+    states, keys = make_keys(eng, tag, galois=True)
+    require(kern.LAUNCHES, ("ntt", "intt"), f"{tag} key creation")
+
+    def row(v):
+        return np.broadcast_to(v, m1.shape)
+
+    ops = {
+        "rotate_offset 1": (lambda: eng.rotate_offset(A, 1),
+                            np.roll(m1, 1, -1), DECRYPT_TOL_OP, 1),
+        "rotate_offset 5": (lambda: eng.rotate_offset(A, 5),
+                            np.roll(m1, 5, -1), DECRYPT_TOL_OP, 2),
+        "rotate_offset -1": (lambda: eng.rotate_offset(A, -1),
+                             np.roll(m1, -1, -1), DECRYPT_TOL_OP, L),
+        "conjugate": (lambda: eng.conjugate(C), np.conj(mc),
+                      DECRYPT_TOL_OP, 1),
+        "negate": (lambda: eng.negate(A), -m1, DECRYPT_TOL, 0),
+        "cc_add": (lambda: eng.cc_add(A, B), m1 + m2, DECRYPT_TOL, 0),
+        "cc_sub": (lambda: eng.cc_sub(A, B), m1 - m2, DECRYPT_TOL, 0),
+        "pc_add": (lambda: eng.pc_add(Plaintext(p), A), m1 + p,
+                   100 * DECRYPT_TOL, 0),
+        "pc_mult": (lambda: eng.pc_mult(Plaintext(p), A), m1 * p,
+                    DECRYPT_TOL_OP, 0),
+        "mult_int_scalar 3": (lambda: eng.mult_int_scalar(A, 3), 3 * m1,
+                              DECRYPT_TOL, 0),
+        "mult_scalar -1.5": (lambda: eng.mult_scalar(A, -1.5), -1.5 * m1,
+                             DECRYPT_TOL_OP, 0),
+        "add_scalar 0.25": (lambda: eng.add_scalar(A, 0.25), m1 + 0.25,
+                            DECRYPT_TOL, 0),
+        "level_up to 2": (lambda: eng.level_up(A, 2), m1, DECRYPT_TOL_OP, 0),
+        "cc_mult of levels 1 and 0": (lambda: eng.cc_mult(out, A),
+                                      m1 * m2 * m1, DECRYPT_TOL_OP, 1),
+        "square(post_relin=False) + relinearize": (
+            lambda: eng.relinearize(eng.square(A, post_relin=False)),
+            m1 * m1, DECRYPT_TOL_OP, 1),
+        "sum": (lambda: eng.sum(A), row(m1.sum(-1, keepdims=True)),
+                200 * DECRYPT_TOL_OP, L),
+        "mean": (lambda: eng.mean(A), row(m1.mean(-1, keepdims=True)),
+                 DECRYPT_TOL_OP, L),
+        "var": (lambda: eng.var(A), row(m1.var(-1, keepdims=True)),
+                DECRYPT_TOL_OP, 2 * L + 1),
+    }
+    res, outs = {}, {}
+    for name, (fn, want, tol, n_ks) in ops.items():
+        outs[name], counts, err = run_op(eng, kern, fn, unstack, want, tol,
+                                         name, tag,
+                                         is_real=name != "conjugate")
+        if name.startswith(("rotate", "conjugate", "sum", "mean", "var")):
+            keyswitch_launches(counts, n_ks, tag, name)
+        if name == "pc_mult" and counts["ntt_keymul"] != 2:
+            raise AssertionError(f"{tag} pc_mult: {counts['ntt_keymul']} "
+                                 f"ntt_keymul launches, want 2")
+        if name.startswith("square") and counts["ntt_tensor"] != 1:
+            raise AssertionError(f"{tag} square: no ntt_tensor launch")
+        res[name] = dict(max_abs_err=err, limit=tol, launches={
+            k: v for k, v in counts.items() if v})
+    launches = dict(kern.LAUNCHES)
+    require(launches, EVAL_15, "the logN15 evaluation path")
+    log(f"{tag} path launches {launches}")
+
+    # after the counted path: bytes against the CPU and against singles
+    for what, state, make_cpu, card_key in (
+            ("rotation key (delta 1)", states["rot"],
+             lambda: eng_cpu._create_rotation_key(1), eng.rotk[1]),
+            ("conjugation key", states["conj"],
+             eng_cpu.create_conjugation_key, eng.conjk)):
+        eng_cpu.rng.states = state.cpu()
+        t0 = time.perf_counter()
+        cpu_key = make_cpu()
+        t_cpu = time.perf_counter() - t0
+        same = all(torch.equal(c, g.cpu())
+                   for c, g in zip(leaves(cpu_key), leaves(card_key)))
+        log(f"{tag} {what}: card == CPU byte for byte: {same} "
+            f"({len(card_key.data)} parts; CPU {t_cpu:.1f} s)")
+        if not same:
+            raise AssertionError(f"{tag} the card's {what} differs from "
+                                 f"the CPU's")
+    singles = [eng.rotate_offset(c, 1) for c in unstack(A)]
+    same = all(torch.equal(b, s) for one, batch in zip(
+        singles, unstack(outs["rotate_offset 1"]))
+        for b, s in zip(batch.data, one.data))
+    log(f"{tag} rotate_offset 1 of the batch == the {BATCH} single "
+        f"rotations byte for byte: {same}")
+    if not same:
+        raise AssertionError(f"{tag} batch rotation differs from the "
+                             f"single rotations")
+
+    pt = Plaintext(p)
+    eng.pc_mult(pt, A)
+    timed = {
+        "rotate_single (delta 1)": (lambda: eng.rotate_single(
+            A, eng.rotk[1]), 3),
+        "conjugate": (lambda: eng.conjugate(C), 3),
+        "pc_mult (cached plaintext)": (lambda: eng.pc_mult(pt, A), 3),
+        "sum": (lambda: eng.sum(A), 1),
+        "mean": (lambda: eng.mean(A), 1),
+        "var": (lambda: eng.var(A), 1),
+    }
+    times = {}
+    for name, (fn, inner) in timed.items():
+        times[name] = cuda_ms(fn, 3, inner)
+        log(f"{tag} {name} of the batch of {BATCH}: {times[name]:.3f} ms, "
+            f"{times[name] / BATCH:.3f} ms/ct (CUDA events, median of 3 "
+            f"after a warm-up; {smi})")
+    log(f"{tag} Galois key creation ({keys['rotation_keys']} keys): "
+        f"{keys['rotation_keys_s']:.3f} s, "
+        f"{keys['rotation_keys_s'] / keys['rotation_keys']:.3f} s a key "
+        f"(host clock; {smi})")
+    profile_step(lambda: eng.rotate_single(A, eng.rotk[1]),
+                 f"{tag} rotate_single")
+    profile_step(lambda: eng.conjugate(C), f"{tag} conjugate")
+    profile_step(lambda: eng.sum(A), f"{tag} sum", top=8)
+    return launches, res, times, keys
+
+
+def evaluate_light(eng, kern, stack, unstack, A, tol, sfx, tag, chain):
+    """The evaluation path cut for the other presets, on the batch of 8
+    with the launch counts set to 0 before and read after.  ``chain``
+    False (logN15_30): ``rotate_offset`` by 2, ``add_scalar`` and ``sum``
+    (its 14 keys made on first use); True (logN17, logN17_30): the
+    rotation key for delta 1 and the conjugation key, one
+    ``rotate_offset(., 1)`` and one ``conjugate``, each through the
+    per-part chain.  Returns (launches, per-op results, key info)."""
+    m1, m2 = msgs(eng)
+    mc = m1 + 1j * m2
+    C = stack(eng.encodecrypt_batch(mc)) if chain else None
+    n_parts = len(eng.params.parts[0])
+    kern.reset_launch_counts()
+    keys = None
+    if chain:
+        _, keys = make_keys(eng, tag, galois=False)
+        log(f"{tag}: no full Galois set here: its {eng.ckksCfg.logN - 1} "
+            f"keys would take {eng.ckksCfg.logN - 1} x "
+            f"{keys['key_bytes'] / 2 / 2**30:.2f} GiB of key tensors")
+        ops = {
+            "rotate_offset 1": (lambda: eng.rotate_offset(A, 1),
+                                np.roll(m1, 1, -1), 1),
+            "conjugate": (lambda: eng.conjugate(C), np.conj(mc), 1),
+        }
+    else:
+        row = np.broadcast_to(m1.sum(-1, keepdims=True), m1.shape)
+        ops = {
+            "rotate_offset 2": (lambda: eng.rotate_offset(A, 2),
+                                np.roll(m1, 2, -1), 1),
+            "add_scalar 0.5": (lambda: eng.add_scalar(A, 0.5), m1 + 0.5, 0),
+            "sum": (lambda: eng.sum(A), row, eng.ckksCfg.logN - 1),
+        }
+    res = {}
+    for name, (fn, want, n_ks) in ops.items():
+        limit = 200 * tol if name == "sum" else tol
+        _, counts, err = run_op(eng, kern, fn, unstack, want, limit, name,
+                                tag, is_real=name != "conjugate")
+        if n_ks:
+            keyswitch_launches(counts, n_ks, tag, name, sfx,
+                               n_parts if chain else None)
+        res[name] = dict(max_abs_err=err, limit=limit, launches={
+            k: v for k, v in counts.items() if v})
+    launches = dict(kern.LAUNCHES)
+    need = ("ntt", "intt", "intt_pdiv") + (
+        ("ntt_keymul", "ntt_keymul_accum") if chain
+        else ("ntt_keymul_parts",))
+    require(launches, lane(need, sfx), f"the {tag} evaluation path")
+    if sfx:
+        only_30(launches, f"the {tag} evaluation path")
+    log(f"{tag} evaluation path launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    return launches, res, keys
+
+
 def profile_step(fn, tag, top=12):
     """Device time by kernel over one step (CUDA kernel events only), and
     the busy share of its wall time (kernel times summed; kernels on one
@@ -1196,7 +1522,8 @@ def main():
         "logN15")
     require(launches15, PATH_15, "the logN15 main path")
     require(step15, STEP_15, "the logN15 step")
-    check_against_cpu(eng, CkksEngine, Preset.logN15, A, B, out, "logN15")
+    eng_cpu = check_against_cpu(eng, CkksEngine, Preset.logN15, A, B, out,
+                                "logN15")
 
     # 5. logN15 timing, route A/B, profile
     step_ms, plain_step_ms = time_step(eng, kern, A, B, "logN15", smi,
@@ -1204,7 +1531,14 @@ def main():
     ab15 = route_ab(eng, kern, sharded, A, B, "logN15", (3, 3))
     profile_step(lambda: eng.cc_mult(A, B), "logN15")
     compressed_keys(eng, ttyping, mont)
-    share15 = draw_share(eng, msgs(eng), "logN15")
+
+    # 5b. the evaluation path: Galois and conjugation keys, rotations,
+    # add/sub, plaintext and scalar ops, levels, sum / mean / var
+    eval15, evalres15, evaltimes15, evalkeys15 = evaluate15(
+        eng, eng_cpu, kern, stack_ciphertexts, unstack_ciphertext, A, B,
+        out, smi)
+    del eng_cpu
+    share15 = draw_share(eng, msgs(eng)[0], "logN15")
     del eng, A, B, out
     torch.cuda.empty_cache()
 
@@ -1234,13 +1568,18 @@ def main():
     err_sw, sw_counts = switch_key_17(eng17, kern, stack_ciphertexts,
                                       unstack_ciphertext)
 
+    # 8b. a rotation and a conjugation through the per-part chain
+    eval17, evalres17, evalkeys17 = evaluate_light(
+        eng17, kern, stack_ciphertexts, unstack_ciphertext, A,
+        DECRYPT_TOL_17, "", "logN17", chain=True)
+
     # 9. logN17 timing (3 single-step loops; one for the plain versions,
     # whose step takes seconds), route A/B, profile
     step17_ms, plain_step17_ms = time_step(eng17, kern, A, B, "logN17", smi,
                                            (3, 1), 1)
     ab17 = route_ab(eng17, kern, sharded, A, B, "logN17", (3, 1))
     profile_step(lambda: eng17.cc_mult(A, B), "logN17", top=16)
-    share17 = draw_share(eng17, msgs(eng17), "logN17")
+    share17 = draw_share(eng17, msgs(eng17)[0], "logN17")
 
     del eng17, A, B, out
     torch.cuda.empty_cache()
@@ -1259,6 +1598,9 @@ def main():
     require(step15_30, lane(STEP_15, "_30"), "the logN15_30 step")
     only_30(launches15_30, "logN15_30")
     check_against_cpu(eng, CkksEngine, "logN15_30", A, B, out, "logN15_30")
+    eval15_30, evalres15_30, _ = evaluate_light(
+        eng, kern, stack_ciphertexts, unstack_ciphertext, A,
+        DECRYPT_TOL_30_OP, "_30", "logN15_30", chain=False)
     step15_30_ms, plain_step15_30_ms = time_step(
         eng, kern, A, B, "logN15_30", smi, (3, 3), 3)
     log(f"logN15 fused step, batch {BATCH}, same call: 62-bit "
@@ -1290,13 +1632,17 @@ def main():
             f"logN17_30 step: {step17_30['ntt_keymul_accum_30']} chain "
             f"launches (want {n_parts}), {step17_30['ntt_keymul_parts_30']} "
             f"all-parts")
+    eval17_30, evalres17_30, evalkeys17_30 = evaluate_light(
+        eng, kern, stack_ciphertexts, unstack_ciphertext, A,
+        DECRYPT_TOL_30_OP, "_30", "logN17_30", chain=True)
     step17_30_ms, plain_step17_30_ms = time_step(
         eng, kern, A, B, "logN17_30", smi, (3, 1), 1)
     ab17_30 = route_ab(eng, kern, sharded, A, B, "logN17_30", (3, 1))
     profile_step(lambda: eng.cc_mult(A, B), "logN17_30", top=16)
 
     counts = {k: launches15[k] + launches17[k] + sw_counts[k]
-              + launches15_30[k] + launches17_30[k] for k in KERNELS}
+              + launches15_30[k] + launches17_30[k] + eval15[k] + eval17[k]
+              + eval15_30[k] + eval17_30[k] for k in KERNELS}
     counts.update(probe_counts)
     require(counts, [*KERNELS, *PROBE], "the driven paths")
     for res, launches, step, sfx, tag in (
@@ -1306,6 +1652,12 @@ def main():
             (results17_30, launches17_30, step17_30, "_30", "logN17_30")):
         rank(res, launches, sfx, f"{tag} main path:")
         rank(res, step, sfx, f"{tag} step:")
+    for res, launches, sfx, tag in (
+            (results15, eval15, "", "logN15"),
+            (results17, eval17, "", "logN17"),
+            (results15_30, eval15_30, "_30", "logN15_30"),
+            (results17_30, eval17_30, "_30", "logN17_30")):
+        rank(res, launches, sfx, f"{tag} evaluation path:")
     measured = {"": (results17, results15, "logN17", "logN15"),
                 "_30": (results17_30, results15_30, "logN17_30",
                         "logN15_30")}
@@ -1331,22 +1683,28 @@ def main():
         "logN15": {"step_ms": step_ms, "step_ms_per_ct": step_ms / BATCH,
                    "plain_step_ms": plain_step_ms,
                    "decrypt_max_err": err15, "route_ab": ab15,
-                   "csprng_share": share15, **info15},
+                   "csprng_share": share15,
+                   "evaluation": {"ops": evalres15, "ms": evaltimes15,
+                                  "keys": evalkeys15}, **info15},
         "logN17": {"step_ms": step17_ms,
                    "step_ms_per_ct": step17_ms / BATCH,
                    "plain_step_ms": plain_step17_ms,
                    "decrypt_max_err": err17,
                    "switch_key_decrypt_max_err": err_sw,
-                   "route_ab": ab17, "csprng_share": share17, **info17},
+                   "route_ab": ab17, "csprng_share": share17,
+                   "evaluation": {"ops": evalres17, "keys": evalkeys17},
+                   **info17},
         "logN15_30": {"step_ms": step15_30_ms,
                       "step_ms_per_ct": step15_30_ms / BATCH,
                       "plain_step_ms": plain_step15_30_ms,
                       "decrypt_max_err": err15_30, "route_ab": ab15_30,
-                      **info15_30},
+                      "evaluation": {"ops": evalres15_30}, **info15_30},
         "logN17_30": {"step_ms": step17_30_ms,
                       "step_ms_per_ct": step17_30_ms / BATCH,
                       "plain_step_ms": plain_step17_30_ms,
                       "decrypt_max_err": err17_30, "route_ab": ab17_30,
+                      "evaluation": {"ops": evalres17_30,
+                                     "keys": evalkeys17_30},
                       **info17_30},
         "seconds": time.perf_counter() - t_start,
     }))

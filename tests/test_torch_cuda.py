@@ -5,8 +5,10 @@ their plain versions (the keyswitch-chain kernel with and without a skip
 range), the chain step against the all-parts step, each in both lanes (the
 62-bit int64 lane and the 30-bit int32 lane), the card's step against
 the CPU's, the fold-rate probe's three kernels against their plain
-versions, and the CSPRNG, keygen and the batch encrypt and decrypt forms
-on the card against the CPU's.  The file imports no jax, so it also
+versions, K1 without entry on the signed rows of a rotated or conjugated
+secret key, and the CSPRNG, keygen, the batch encrypt and decrypt forms,
+the rotation and conjugation keys, rotations and ``pc_mult`` on the card
+against the CPU's.  The file imports no jax, so it also
 runs on a machine that has only torch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -26,10 +28,12 @@ from tiberate_tpu_torch.config.toy import toy_config
 from tiberate_tpu_torch.context.ntt_context import CkksParams
 from tiberate_tpu_torch.engine import ckks_engine as teng
 from tiberate_tpu_torch.ops import fold_probe as fp
+from tiberate_tpu_torch.ops import ntt as ntt_ops
 from tiberate_tpu_torch.ops import ntt_kernels as K
 from tiberate_tpu_torch.parallel import sharded
 from tiberate_tpu_torch.rng.csprng import Csprng
-from tiberate_tpu_torch.typing import Ciphertext
+from tiberate_tpu_torch.typing import Ciphertext, Plaintext
+from tiberate_tpu_torch.utils import encoding as codec
 
 LEVEL = 1
 BATCH = 2
@@ -307,3 +311,80 @@ def test_keys_and_batch_forms_on_card_equal_cpu(card):
     seq = np.stack([engs[0].decryptcode(c, is_real=True) for c in cts[0]])
     np.testing.assert_allclose(bat, seq, rtol=0, atol=1e-9)
     assert np.abs(bat - ms).max() < 5e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", sorted(LANES))
+@pytest.mark.parametrize("logN", [4, 7, 10])
+def test_ntt_on_signed_key_rows_matches_plain_on_card(card, logN, lane):
+    """K1 without entry on what a rotation or conjugation key transforms:
+    the secret key's ordinary rows out of the NTT domain (K2 "mont"),
+    permuted and sign-flipped, so that some words are negative; equal to
+    the plain ``ops/ntt.ntt`` on the card and on the CPU, byte for
+    byte."""
+    tp = CkksParams(_cfg(logN, lane), card)
+    lp = tp.lp(0, False)
+    N = 1 << logN
+    gen = torch.Generator().manual_seed(200 + logN)
+    ternary = torch.randint(-1, 2, (N,), generator=gen).to(card)
+    sk = teng._keygen_sk_core(ternary, tp.lp(0, True))
+    sk_ord = teng._intt_exit_to_mont(sk[: tp.P].contiguous(), lp)
+    for leap in (codec.rotate_leap(1, N), codec.rotate_leap(5, N),
+                 codec.conjugate_leap(N)):
+        src, sign = codec.rotation_perm_tables(N, leap)
+        x = teng._perm_core(sk_ord, torch.from_numpy(src.astype(np.int64))
+                            .to(card), torch.from_numpy(sign).to(card,
+                                                                 tp.dtype))
+        assert bool((x < 0).any())
+        got = K.ntt(x.contiguous(), lp, enter=False)
+        want = ntt_ops.ntt(x, lp.psi, lp.pack)
+        torch.cuda.synchronize()
+        assert got.dtype == tp.dtype and torch.equal(got, want), leap
+        lp_cpu = CkksParams(_cfg(logN, lane), "cpu").lp(0, False)
+        assert torch.equal(got.cpu(), ntt_ops.ntt(x.cpu(), lp_cpu.psi,
+                                                  lp_cpu.pack))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", sorted(LANES))
+def test_rotations_and_pc_mult_on_card_equal_cpu(card, lane):
+    """An engine on the card and one on the CPU from the same seed: equal
+    rotation and conjugation keys; equal ``rotate_offset`` (one key, and
+    composed), ``conjugate`` and ``pc_mult`` on a batch of 2.  On the card
+    key creation launches K1 and K2, a rotation one K6 and two K4 (no
+    chain), ``pc_mult`` K3."""
+    sfx = LANES[lane][1]
+    ms = np.random.default_rng(2).uniform(-1, 1, (2, 1 << 9))
+
+    def run(device):
+        e = teng.CkksEngine(_cfg(10, lane), device=device, seed=4, nonce=1)
+        e.sk, e.pk, e.evk  # noqa: B018 — keygen
+        counts = []
+        K.reset_launch_counts()
+        keys = (e.rotk[1], e.conjk)
+        counts.append(dict(K.LAUNCHES))
+        x = teng.stack_ciphertexts(e.encodecrypt_batch(ms))
+        K.reset_launch_counts()
+        rot = e.rotate_offset(x, 1)
+        counts.append(dict(K.LAUNCHES))
+        K.reset_launch_counts()
+        pcm = e.pc_mult(Plaintext(ms[1]), x)
+        counts.append(dict(K.LAUNCHES))
+        outs = [*(t for k in keys for part in k.data for t in part)]
+        for ct in (rot, e.rotate_offset(x, 3), e.conjugate(x), pcm):
+            outs += list(ct.data)
+        return e, rot, outs, counts
+
+    eng, rot, outs, (keys, rots, pcs) = run(card)
+    torch.cuda.synchronize()
+    assert keys["ntt" + sfx] > 0 and keys["intt" + sfx] > 0
+    assert (rots["ntt_keymul_parts" + sfx], rots["intt_pdiv" + sfx],
+            rots["ntt_keymul_accum" + sfx]) == (1, 2, 0)
+    assert pcs["ntt_keymul" + sfx] > 0
+    _, _, ref, _ = run("cpu")
+    assert len(outs) == len(ref)
+    for g, c in zip(outs, ref):
+        assert torch.equal(g.cpu(), c)
+    tol = 5e-5 if lane == 62 else 1e-2
+    dec = eng.decryptcode_batch(teng.unstack_ciphertext(rot), is_real=True)
+    assert np.abs(dec - np.roll(ms, 1, axis=-1)).max() < tol

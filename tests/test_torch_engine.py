@@ -4,8 +4,8 @@
   numpy-drawn ternary / a / e / v — byte-identical outputs;
 * a port-only encodecrypt -> cc_mult -> decryptcode round trip, decrypt
   error below the bound tests/test_engine.py uses at this toy size;
-* the same round trip, in the 62-bit and the 30-bit mode, in a subprocess
-  where jax cannot be imported;
+* the same round trip, a rotation and a ``pc_mult``, in the 62-bit and the
+  30-bit mode, in a subprocess where jax cannot be imported;
 * engines of both packages from the same (seed, nonce): byte-identical sk,
   pk and evk, batch and single encrypts, seed-expanded keys and their
   compressed forms; the pinned logN14 ciphertext digest of
@@ -221,6 +221,7 @@ sys.modules["jax"] = None          # any import of jax now fails
 import numpy as np
 from tiberate_tpu_torch.config.toy import toy_config
 from tiberate_tpu_torch.engine import CkksEngine
+from tiberate_tpu_torch.typing import Plaintext
 from tiberate_tpu_torch.rng import (chacha20, csprng,
                                     discrete_gaussian_sampler, interface,
                                     simplerng)
@@ -240,6 +241,11 @@ for bits, scale_bits, tol in ((62, 30, {tol}), (30, 21, {tol30})):
     assert ct.data[0].dtype == eng.params.dtype
     out = eng.decryptcode(ct, is_real=True)
     assert np.abs(out - m1 * m2).max() < tol, bits
+    ct1 = eng.encodecrypt(m1)
+    rot = eng.decryptcode(eng.rotate_offset(ct1, 1), is_real=True)
+    assert np.abs(rot - np.roll(m1, 1)).max() < tol, bits
+    pc = eng.decryptcode(eng.pc_mult(Plaintext(m2), ct1), is_real=True)
+    assert np.abs(pc - m1 * m2).max() < tol, bits
 assert "tiberate_tpu" not in sys.modules
 print("ok")
 """

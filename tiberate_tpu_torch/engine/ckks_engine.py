@@ -1,5 +1,8 @@
-"""The CKKS engine over torch tensors: the keygen -> encrypt -> cc_mult ->
-decrypt and switch_key slice of ``tiberate_tpu/engine/ckks_engine.py``.
+"""The CKKS engine over torch tensors: the torch counterpart of
+``tiberate_tpu/engine/ckks_engine.py`` — keygen (rotation, Galois and
+conjugation keys included), encrypt/decrypt, cc_mult, switch_key, the
+rotations and conjugation, add/sub, plaintext and scalar ops, level
+management and the statistics built on them.
 
 Each core below is the torch twin of the jnp core of the same name, with a
 batch written out as leading dimensions where the JAX package ``vmap``s:
@@ -20,6 +23,7 @@ package's jnp path on the same inputs.
 """
 
 import functools
+import math
 from hashlib import sha256
 
 import numpy as np
@@ -35,12 +39,17 @@ from tiberate_tpu_torch.typing import (
     FLAGS,
     Ciphertext,
     CiphertextTriplet,
+    ConjugationKey,
     EvaluationKey,
+    GaloisKey,
     KeySwitchKey,
+    Plaintext,
     PublicKey,
+    RotationKey,
     SecretKey,
 )
 from tiberate_tpu_torch.utils import encoding as codec
+from tiberate_tpu_torch.utils.massive import decompose_rot_offsets
 
 # ======================================================================
 # Cores.
@@ -163,13 +172,14 @@ def _check_ntt_mont_state(ds):
         raise errors.MontgomeryStateError(expected=True)
 
 
-def _rescale_core(d, rescale_scale, lp_next, round_at):
-    """Drop the top RNS channel with exact rounding.  d: [..., C, N] in
-    [0, q) -> [..., C-1, N]."""
+def _rescale_core(d, rescale_scale, lp_next, round_at, exact_rounding=True):
+    """Drop the top RNS channel, rounding exactly unless told not to.
+    d: [..., C, N] in [0, q) -> [..., C-1, N]."""
     rescaler = d[..., 0:1, :]
     data = d[..., 1:, :] - rescaler
     data = mont.mont_mult(data, rescale_scale, lp_next.pack)
-    data = data + (rescaler > round_at).to(data.dtype)
+    if exact_rounding:
+        data = data + (rescaler > round_at).to(data.dtype)
     # REDC of a signed difference can land marginally below zero
     data = mont.make_unsigned(data, lp_next.pack)
     return mont.reduce_2q(data, lp_next.pack)
@@ -178,7 +188,85 @@ def _rescale_core(d, rescale_scale, lp_next, round_at):
 def _ccmult_tensor_core(x0, x1, y0, y1, lp):
     """Tensor product in the NTT domain: d0 = x0y0, d1 = x0y1 + x1y0,
     d2 = x1y1."""
-    return kern.ntt_tensor(x0, x1, y0, y1, lp)
+    return kern.ntt_tensor(*(x.contiguous() for x in (x0, x1, y0, y1)), lp)
+
+
+def _cc_add_core(a, b, lp):
+    return mont.reduce_2q(mont.mont_add(a, b, lp.pack), lp.pack)
+
+
+def _cc_sub_core(a, b, lp):
+    return mont.reduce_2q(mont.mont_sub(a, b, lp.pack), lp.pack)
+
+
+def _perm_core(d, src, sign):
+    """Bare Galois coefficient permutation (key material): a gather along
+    the last dimension and a sign multiply, ``sign * d[..., src]``."""
+    return sign * d[..., src]
+
+
+def _rotate_data_core(d, src, sign, lp):
+    """Galois permutation of ciphertext rows, back to [0, q)."""
+    out = mont.make_unsigned(_perm_core(d, src, sign), lp.pack)
+    return mont.reduce_2q(out, lp.pack)
+
+
+def _ntt_plain(x, lp):
+    """Forward NTT of Montgomery-form input, no entry (K1): the JAX
+    package's ``_ntt_plain(signed=True)``.  The input may hold negative
+    representatives (the sign-flipped, permuted secret key of a rotation or
+    conjugation key); the kernel's butterflies, like the plain ones, take
+    them as they are."""
+    return kern.ntt(x.contiguous(), lp, enter=False)
+
+
+def _pc_add_core(pt_m, ct0, lp):
+    """pt (cached, = pt * scale * R) + ct0."""
+    pk = lp.pack
+    new0 = mont.mont_enter(ct0, lp.Rs, pk)
+    s = mont.mont_add(pt_m, new0, pk)
+    s = mont.mont_reduce(s, pk)
+    return mont.reduce_2q(s, pk)
+
+
+def _pc_mult_core(pt_ntt, ct0, ct1, lp):
+    """pt (cached: its enter-NTT row [C, N]) * ct: one ``ntt_keymul`` (K3,
+    one key, with entry) and one ``exit_reduce`` iNTT (K2) per ciphertext
+    polynomial.  The plain versions are the JAX package's CPU branch:
+    enter-NTT, ``mont_mult`` by the row, iNTT."""
+    (d0,) = kern.ntt_keymul(ct0.contiguous(), lp, (pt_ntt,), enter=True)
+    (d1,) = kern.ntt_keymul(ct1.contiguous(), lp, (pt_ntt,), enter=True)
+    return kern.intt(d0, lp, "exit_reduce"), kern.intt(d1, lp, "exit_reduce")
+
+
+def _mont_scalar_core(d, scalar_col, lp):
+    return mont.reduce_2q(mont.mont_mult(d, scalar_col, lp.pack), lp.pack)
+
+
+def _add_scalar_core(ct0, scalar_col, lp):
+    """Add one value per channel ([C, 1]) to coefficient 0."""
+    out = ct0.clone()
+    out[..., 0] += scalar_col[:, 0]
+    return mont.reduce_2q(out, lp.pack)
+
+
+def _negate_core(d, lp):
+    """-d normalized to [0, q)."""
+    s = mont.make_signed(-d, lp.pack)
+    return mont.make_unsigned(s, lp.pack)
+
+
+def _prepare_pc_add_cache(pt, lp):
+    """Encoded coefficients [N] -> pt * scale * R residues [C, N]."""
+    pk = lp.pack
+    return mont.mont_enter(mont.tile_unsigned(pt, pk), lp.Rs_scale, pk)
+
+
+def _prepare_pc_mult_cache(pt, lp):
+    """Encoded coefficients [N] -> their enter-NTT row [C, N] (K1), the key
+    row ``_pc_mult_core``'s K3 takes."""
+    return kern.ntt(mont.tile_unsigned(pt, lp.pack).contiguous(), lp,
+                    enter=True)
 
 
 def _pre_extend(a_part, part: PartPack, plp):
@@ -360,6 +448,29 @@ def _relin_core(d0, d1, d2, ksk_parts, parts, lp_sp, lp_ord, PiRs, lvl, S,
 # ======================================================================
 
 
+class _RotkCache:
+    """``engine.rotk`` view: subscripting generates keys on demand,
+    membership checks consult only the existing store."""
+
+    def __init__(self, eng):
+        self._eng = eng
+
+    def __getitem__(self, delta: int):
+        return self._eng.get_rotation_key(delta)
+
+    def __contains__(self, delta) -> bool:
+        return delta in self._eng._rotk_store
+
+    def keys(self):
+        return self._eng._rotk_store.keys()
+
+    def __iter__(self):
+        return iter(self._eng._rotk_store)
+
+    def __len__(self):
+        return len(self._eng._rotk_store)
+
+
 class CkksEngine:
     """CKKS engine on one device.
 
@@ -367,10 +478,13 @@ class CkksEngine:
     present; pass "cpu" to run the plain torch versions.  ``seed`` and
     ``nonce`` key the CSPRNG as in the JAX package: an int seed without a
     nonce is fully deterministic; None draws from ``os.urandom``.
+    ``allow_sk_gen=False`` refuses to make a secret key (or a rotation key
+    that is missing); ``norm`` is the codec's FFT normalization.
     """
 
     def __init__(self, ckks_config=None, device="cuda", *,
-                 bias_guard: bool = True, seed=None, nonce=None):
+                 allow_sk_gen: bool = True, bias_guard: bool = True,
+                 norm: str = "forward", seed=None, nonce=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -391,11 +505,17 @@ class CkksEngine:
         self.montCtx = self.params.montCtx
         self.rng = self._csprng(seed, nonce)
         self.bias_guard = bias_guard
+        self.norm = norm
+        self.allow_sk_gen = allow_sk_gen
         self.__sk = None
         self.__pk = None
         self.__evk = None
+        self.__gk = None
+        self.__rotk = {}
+        self.__conjk = None
         self._steps = {}    # level -> fused step
         self._consts = {}   # level -> all-parts keyswitch constants
+        self._perms = {}    # Galois leap -> (src, sign) on the device
 
     # ------------------------------------------------------------------
 
@@ -418,6 +538,9 @@ class CkksEngine:
     def _lp(self, lvl, special=False):
         return self.params.lp(lvl, special)
 
+    def _lp_for(self, ds):
+        return self._lp(ds.level, ds.has_flag(FLAGS.INCLUDE_SPECIAL))
+
     def _to_dev(self, x):
         """Host draws and codec output -> the device, in the storage dtype
         (int32 in the 30-bit mode, where every value is below 2^28)."""
@@ -435,6 +558,8 @@ class CkksEngine:
     @property
     def sk(self) -> SecretKey:
         if self.__sk is None:
+            if not self.allow_sk_gen:
+                raise RuntimeError("Secret key generation is disabled.")
             self.sk = self._create_secret_key()
         return self.__sk
 
@@ -442,6 +567,9 @@ class CkksEngine:
     def sk(self, sk: SecretKey):
         self.__pk = None
         self.__evk = None
+        self.__gk = None
+        self.__rotk = {}
+        self.__conjk = None
         self.__sk = sk
 
     @property
@@ -463,6 +591,47 @@ class CkksEngine:
     @evk.setter
     def evk(self, evk: EvaluationKey):
         self.__evk = evk
+
+    @property
+    def gk(self) -> GaloisKey:
+        if self.__gk is None:
+            self.__gk = self._create_galois_key(self.sk)
+        return self.__gk
+
+    @gk.setter
+    def gk(self, gk: GaloisKey):
+        self.__gk = gk
+
+    @property
+    def rotk(self) -> _RotkCache:
+        """Rotation-key cache; ``engine.rotk[delta]`` generates on first
+        access."""
+        return _RotkCache(self)
+
+    @rotk.setter
+    def rotk(self, rotk):
+        self.__rotk = dict(rotk)
+
+    @property
+    def _rotk_store(self) -> dict:
+        return self.__rotk
+
+    def get_rotation_key(self, delta: int) -> RotationKey:
+        """The rotation key for ``delta``, made on first use."""
+        if delta not in self.__rotk:
+            if not self.allow_sk_gen:
+                raise RuntimeError(
+                    f"No rotation key for delta={delta} and key generation "
+                    f"is disabled."
+                )
+            self.__rotk[delta] = self._create_rotation_key(delta, sk=self.sk)
+        return self.__rotk[delta]
+
+    @property
+    def conjk(self) -> ConjugationKey:
+        if self.__conjk is None:
+            self.__conjk = self.create_conjugation_key(self.sk)
+        return self.__conjk
 
     def _csprng(self, seed, nonce):
         """The engine's channel model: P channels, max(S, 2) repeating
@@ -710,14 +879,14 @@ class CkksEngine:
     # Encode / decode (host codec).
     # ------------------------------------------------------------------
 
-    def encode(self, m, level: int = 0, padding=True):
-        """Message -> signed integer coefficients [N] (int64, on the
-        device)."""
+    def encode(self, m, level: int = 0, padding=True, scale=None):
+        """Message -> signed integer coefficients [N] (numpy int64), at
+        ``scale`` (default: the configuration's)."""
         if padding:
             m = codec.padding(m, num_slots=self.num_slots)
         return codec.encode(
-            m, scale=self.ckksCfg.scale, rng=self.rng,
-            deviation=self.params.deviations[level],
+            m, scale=scale or self.ckksCfg.scale, rng=self.rng,
+            deviation=self.params.deviations[level], norm=self.norm,
         )
 
     def decode(self, m, level=0, is_real: bool = False):
@@ -725,7 +894,7 @@ class CkksEngine:
         m = np.asarray(torch.as_tensor(m).cpu()).reshape(-1)
         decoded = codec.decode(
             m, scale=self.ckksCfg.scale,
-            correction=self.params.corrections[level],
+            correction=self.params.corrections[level], norm=self.norm,
         )[: self.num_slots]
         return decoded.real if is_real else decoded
 
@@ -799,7 +968,7 @@ class CkksEngine:
         if self.bias_guard:
             pts = codec.encode_batch(
                 ms, scale=scale, deviation=deviation, rng=self.rng,
-                return_without_scaling=True,
+                norm=self.norm, return_without_scaling=True,
             ).copy()
             dc_integral = np.floor(pts[:, 0])
             pts[:, 0] -= dc_integral
@@ -807,7 +976,7 @@ class CkksEngine:
             pts = self.rng.randround_batch(pts * np.float64(scale))
         else:
             pts = codec.encode_batch(ms, scale=scale, deviation=deviation,
-                                     rng=self.rng)
+                                     rng=self.rng, norm=self.norm)
         e, v = self.rng.encrypt_noise_batch(B)
         ct = self._encrypt(pts, dc_rns, e[:, 0], e[:, 1], v, pk, level)
         return [Ciphertext(data=(d0, d1), flags=ct._flags, level=level,
@@ -819,7 +988,8 @@ class CkksEngine:
         return (self._lp(level, False), self.params.base_lp(),
                 self.params.final_scalar[level], self._rounding_half, C - 1)
 
-    def decrypt_double(self, ct: Ciphertext, sk: SecretKey = None):
+    def decrypt_double(self, ct: Ciphertext, sk: SecretKey = None, *,
+                       final_round=True):
         """-> signed scaled coefficients [1, N]."""
         sk = sk or self.sk
         _check_plain_state(ct)
@@ -830,12 +1000,12 @@ class CkksEngine:
         scaled, _ = _decrypt_double_core(
             ct.data[0][..., :C, :], ct.data[1][..., :C, :],
             sk.data[ct.level : ct.level + C], lp, base_lp, fs, rh,
-            base_at, final_round=True,
+            base_at, final_round=final_round,
         )
         return scaled
 
     def decrypt_triplet(self, ct_mult: CiphertextTriplet,
-                        sk: SecretKey = None):
+                        sk: SecretKey = None, *, final_round=True):
         """-> signed scaled coefficients [1, N] of d0 + d1 s + d2 s^2."""
         sk = sk or self.sk
         _check_ntt_mont_state(ct_mult)
@@ -846,15 +1016,15 @@ class CkksEngine:
         C = base_at + 1
         scaled, _ = _decrypt_triplet_core(
             *ct_mult.data, sk.data[level : level + C], lp, base_lp, fs, rh,
-            base_at, final_round=True,
+            base_at, final_round=final_round,
         )
         return scaled
 
-    def decrypt(self, ct, sk: SecretKey = None):
+    def decrypt(self, ct, sk: SecretKey = None, *, final_round=True):
         """:meth:`decrypt_triplet` or :meth:`decrypt_double` by kind."""
         if isinstance(ct, CiphertextTriplet):
-            return self.decrypt_triplet(ct, sk)
-        return self.decrypt_double(ct, sk)
+            return self.decrypt_triplet(ct, sk, final_round=final_round)
+        return self.decrypt_double(ct, sk, final_round=final_round)
 
     def _dc_crt(self, residues, level, base_at):
         """Bias guard: the exact DC values from their residues [..., 3]
@@ -873,7 +1043,7 @@ class CkksEngine:
             dcs.append((dc + (q1 - 1)) // q1)
         return dcs
 
-    def _decrypt_scaled(self, core, sk, level):
+    def _decrypt_scaled(self, core, sk, level, final_round):
         """The decrypt epilogue of :meth:`decryptcode` and
         :meth:`decryptcode_batch` over leading dims [..., C, N]: ``core``
         (a decrypt core with its ciphertext bound) -> (scaled [..., 1, N],
@@ -885,7 +1055,7 @@ class CkksEngine:
         C = base_at + 1
         args = (sk.data[level : level + C], lp, base_lp, fs, rh, base_at)
         if not (C >= 3 and self.bias_guard):
-            scaled, _ = core(*args, final_round=True)
+            scaled, _ = core(*args, final_round=final_round)
             return scaled, None
         _, pt = core(*args, final_round=False)
         dcs = self._dc_crt(pt[..., [base_at, 0, 1], 0], level, base_at)
@@ -893,9 +1063,10 @@ class CkksEngine:
         pt_z[..., base_at, 0] = 0
         pt_z[..., 0, 0] = 0
         return _final_scale(pt_z, base_lp, fs, rh, base_at,
-                            final_round=True), dcs
+                            final_round=final_round), dcs
 
-    def decryptcode(self, ct, sk: SecretKey = None, *, is_real=False):
+    def decryptcode(self, ct, sk: SecretKey = None, *, is_real=False,
+                    final_round=True):
         """Decrypt and decode one ciphertext or triplet; with bias_guard
         (and >= 3 channels left) the DC slot is recovered exactly by a
         3-prime CRT."""
@@ -911,12 +1082,12 @@ class CkksEngine:
             core = functools.partial(_decrypt_double_core,
                                      ct.data[0][..., :C, :],
                                      ct.data[1][..., :C, :])
-        scaled, dcs = self._decrypt_scaled(core, sk, level)
+        scaled, dcs = self._decrypt_scaled(core, sk, level, final_round)
 
         correction = self.params.corrections[level]
         decoded = codec.decode(
             np.asarray(scaled.cpu()).reshape(-1),
-            scale=self.ckksCfg.scale, correction=correction,
+            scale=self.ckksCfg.scale, correction=correction, norm=self.norm,
             return_without_scaling=True,
         )[: self.num_slots]
         decoded = decoded / self.ckksCfg.scale * correction
@@ -925,7 +1096,7 @@ class CkksEngine:
         return decoded.real if is_real else decoded
 
     def decryptcode_batch(self, cts, sk: SecretKey = None, *,
-                          is_real=False):
+                          is_real=False, final_round=True):
         """Decrypt and decode same-level ciphertexts with one decrypt core
         on [B, C, N] and one vectorized decode; per message the result is
         :meth:`decryptcode`'s up to the decode's float summation order.
@@ -944,12 +1115,12 @@ class CkksEngine:
             torch.stack([ct.data[0][:C] for ct in cts]),
             torch.stack([ct.data[1][:C] for ct in cts]),
         )
-        scaled, dcs = self._decrypt_scaled(core, sk, level)
+        scaled, dcs = self._decrypt_scaled(core, sk, level, final_round)
 
         correction = self.params.corrections[level]
         decoded = codec.decode_batch(
             np.asarray(scaled.cpu()).reshape(len(cts), -1),
-            scale=self.ckksCfg.scale, correction=correction,
+            scale=self.ckksCfg.scale, correction=correction, norm=self.norm,
         )[:, : self.num_slots]
         if dcs is not None:
             decoded = decoded + (
@@ -962,8 +1133,9 @@ class CkksEngine:
     # Rescale / multiply.
     # ------------------------------------------------------------------
 
-    def rescale(self, ct: Ciphertext) -> Ciphertext:
-        """Drop the top RNS channel of both polynomials, rounding exactly."""
+    def rescale(self, ct: Ciphertext, exact_rounding=True) -> Ciphertext:
+        """Drop the top RNS channel of both polynomials (rounding exactly
+        unless ``exact_rounding`` is False)."""
         level = ct.level
         if level + 1 >= self.num_levels:
             raise errors.MaximumLevelError(level=level,
@@ -972,7 +1144,7 @@ class CkksEngine:
         round_at = self.params.q[level] // 2
         data = tuple(
             _rescale_core(d, self.params.rescale_scales[level], lp_next,
-                          round_at)
+                          round_at, exact_rounding)
             for d in ct.data
         )
         return Ciphertext(data=data, level=level + 1, **self._meta())
@@ -986,25 +1158,67 @@ class CkksEngine:
         return self._steps[level]
 
     def cc_mult(self, a: Ciphertext, b: Ciphertext,
-                evk: EvaluationKey = None) -> Ciphertext:
-        """rescale -> tensor product -> relinearize, through the fused step
-        (``parallel/sharded.make_mult_step``).  Both operands must share a
-        level; leading batch dimensions of their data are carried."""
-        if a.level != b.level:
-            raise errors.NotMatchType(origin=f"levels {a.level}/{b.level}",
-                                      to="cc_mult (align levels first)")
-        if a.level + 1 >= self.num_levels:
-            raise errors.MaximumLevelError(level=a.level,
-                                           level_max=self.num_levels)
-        from tiberate_tpu_torch.parallel import sharded
+                evk: EvaluationKey = None, *, pre_rescale=True,
+                post_relin=True):
+        """The operands are first brought to one level (:meth:`align_level`).
+        With both flags and the engine's evk: rescale -> tensor product ->
+        relinearize through the fused step
+        (``parallel/sharded.make_mult_step``).  Otherwise (optionally)
+        :meth:`rescale`, the tensor product (K5) into a
+        :class:`CiphertextTriplet`, and (optionally) :meth:`relinearize`.
+        Leading batch dimensions of the data are carried."""
+        a, b = self.align_level(a, b)
+        if pre_rescale and post_relin and (evk is None or evk is self.evk):
+            if a.level + 1 >= self.num_levels:
+                raise errors.MaximumLevelError(level=a.level,
+                                               level_max=self.num_levels)
+            from tiberate_tpu_torch.parallel import sharded
 
+            evk = self.evk
+            step = self._fused_mult_step(a.level)
+            ct0, ct1 = step(a.data[0], a.data[1], b.data[0], b.data[1],
+                            sharded.prepare_step_ksk(self, a.level, evk),
+                            sharded.mult_step_params(self, a.level, evk))
+            return Ciphertext(data=(ct0, ct1), level=a.level + 1,
+                              **self._meta())
+        x, y = (self.rescale(a), self.rescale(b)) if pre_rescale else (a, b)
+        level = x.level
+        d = _ccmult_tensor_core(x.data[0], x.data[1], y.data[0], y.data[1],
+                                self._lp(level, False))
+        ct_mult = CiphertextTriplet(
+            data=d,
+            flags=FLAGS.NTT_STATE | FLAGS.MONTGOMERY_STATE
+            | FLAGS.NEED_RELINERIZE,
+            level=level,
+            **self._meta(),
+        )
+        if post_relin:
+            ct_mult = self.relinearize(ct_mult, evk or self.evk)
+        return ct_mult
+
+    def square(self, ct: Ciphertext, evk: EvaluationKey = None, *,
+               pre_rescale=True, post_relin=True):
+        """ct^2 (:meth:`cc_mult` of ``ct`` with itself)."""
+        return self.cc_mult(ct, ct, evk, pre_rescale=pre_rescale,
+                            post_relin=post_relin)
+
+    def relinearize(self, ct_triplet: CiphertextTriplet,
+                    evk: EvaluationKey = None) -> Ciphertext:
+        """Triplet (NTT and Montgomery state) -> ciphertext: the keyswitch
+        of d2, all parts in one kernel at logN <= 16, the per-part chain
+        with the in-part shortcut at logN 17."""
         evk = evk or self.evk
-        step = self._fused_mult_step(a.level)
-        ct0, ct1 = step(a.data[0], a.data[1], b.data[0], b.data[1],
-                        sharded.prepare_step_ksk(self, a.level, evk),
-                        sharded.mult_step_params(self, a.level, evk))
-        return Ciphertext(data=(ct0, ct1), level=a.level + 1,
-                          **self._meta())
+        _check_ntt_mont_state(ct_triplet)
+        level = ct_triplet.level
+        ksk_parts, parts = self._ksk_args(evk, level)
+        ct0, ct1 = _relin_core(
+            *ct_triplet.data, ksk_parts, parts, self._lp(level, True),
+            self._lp(level, False), tuple(self.params.PiRs[level]), level,
+            self.ckksCfg.num_special_primes,
+            inpart=self._ksk_inpart(evk, level),
+            parts_fused=self._ksk_parts_fused(evk, level),
+        )
+        return Ciphertext(data=(ct0, ct1), level=level, **self._meta())
 
     # ------------------------------------------------------------------
     # Key switching.
@@ -1036,6 +1250,412 @@ class CkksEngine:
         )
         return Ciphertext(data=(new0, new1), flags=ct._flags, level=level,
                           **self._meta())
+
+    # ------------------------------------------------------------------
+    # Rotations / conjugation.
+    # ------------------------------------------------------------------
+
+    def _perm_tables(self, leap: int):
+        """(src, sign) of a Galois permutation on the engine's device:
+        int64 gather indices and the signs in the storage dtype; built once
+        per leap."""
+        if leap not in self._perms:
+            src, sign = codec.rotation_perm_tables(self.params.N, leap)
+            self._perms[leap] = (
+                torch.from_numpy(src.astype(np.int64)).to(self.device),
+                self._to_dev(sign),
+            )
+        return self._perms[leap]
+
+    def _galois_secret_key(self, sk: SecretKey, leap: int) -> SecretKey:
+        """The secret key under a Galois permutation: its ordinary rows
+        leave the NTT domain keeping R (K2 "mont"), are permuted with their
+        signs, and return by K1 without entry on the signed words; the
+        special rows stay (key-switching keys read only the ordinary
+        ones)."""
+        P = self.params.P
+        lp = self._lp(0, False)
+        sk_ord = _intt_exit_to_mont(sk.data[:P], lp)
+        perm = _perm_core(sk_ord, *self._perm_tables(leap))
+        full = sk.data.clone()
+        full[:P] = _ntt_plain(perm, lp)
+        return SecretKey(
+            data=full,
+            flags=FLAGS.MONTGOMERY_STATE | FLAGS.NTT_STATE
+            | FLAGS.INCLUDE_SPECIAL,
+            level=0,
+            **self._meta(),
+        )
+
+    def _create_rotation_key(self, delta: int, a=None, sk: SecretKey = None
+                             ) -> RotationKey:
+        sk = sk or self.sk
+        sk_rot = self._galois_secret_key(
+            sk, codec.rotate_leap(delta, self.params.N))
+        return RotationKey.wrap(
+            self.create_key_switching_key(sk_rot, sk, a=a), delta=delta
+        )
+
+    def _create_galois_key(self, sk: SecretKey = None) -> GaloisKey:
+        """Rotation keys for the deltas 1, 2, ..., 2^(logN-2)."""
+        sk = sk or self.sk
+        deltas = [2**i for i in range(self.ckksCfg.logN - 1)]
+        return GaloisKey(
+            data=[self._create_rotation_key(d, sk=sk) for d in deltas],
+            flags=FLAGS.MONTGOMERY_STATE | FLAGS.NTT_STATE
+            | FLAGS.INCLUDE_SPECIAL,
+            level=0,
+            **self._meta(),
+        )
+
+    def create_conjugation_key(self, sk: SecretKey = None
+                               ) -> ConjugationKey:
+        sk = sk or self.sk
+        if not sk.has_flag(FLAGS.NTT_STATE):
+            raise errors.NTTStateError(expected=True)
+        sk_conj = self._galois_secret_key(
+            sk, codec.conjugate_leap(self.params.N))
+        return ConjugationKey.wrap(
+            self.create_key_switching_key(sk_conj, sk))
+
+    def _permute(self, ct: Ciphertext, leap: int) -> Ciphertext:
+        src, sign = self._perm_tables(leap)
+        lp = self._lp_for(ct)
+        return Ciphertext(
+            data=tuple(_rotate_data_core(d, src, sign, lp) for d in ct.data),
+            flags=ct._flags, level=ct.level, **self._meta(),
+        )
+
+    def rotate_single(self, ct: Ciphertext, rotk: RotationKey,
+                      post_key_switching=True) -> Ciphertext:
+        """Rotate the slots by ``rotk.delta``: the Galois permutation of
+        both polynomials, then (by default) the keyswitch back to the
+        engine's key."""
+        rotated = self._permute(
+            ct, codec.rotate_leap(rotk.delta, self.params.N))
+        if post_key_switching:
+            rotated = self.switch_key(rotated, rotk)
+        return rotated
+
+    def rotate_offset(self, ct: Ciphertext, offset: int,
+                      return_decomposed_offsets=False) -> Ciphertext:
+        """Rotate by ``offset`` slots: one key where the engine holds it,
+        else a composition of keys (:func:`decompose_rot_offsets`), each
+        made on first use."""
+        if offset == 0:
+            return ct
+        if offset in self.rotk:
+            return self.rotate_single(ct, self.get_rotation_key(offset))
+        offsets = decompose_rot_offsets(offset, self.num_slots,
+                                        rotks=self.rotk)
+        for delta in offsets:
+            ct = self.rotate_single(ct, self.get_rotation_key(delta))
+        if return_decomposed_offsets:
+            return ct, offsets
+        return ct
+
+    def rotate_galois(self, ct: Ciphertext, gk: GaloisKey = None, *,
+                      delta: int, return_circuit=False):
+        """Deprecated; :meth:`rotate_offset` by ``delta``."""
+        return self.rotate_offset(
+            ct, delta, return_decomposed_offsets=return_circuit
+        )
+
+    def conjugate(self, ct: Ciphertext, conjk: ConjugationKey = None
+                  ) -> Ciphertext:
+        conjk = conjk or self.conjk
+        conj = self._permute(ct, codec.conjugate_leap(self.params.N))
+        return self.switch_key(conj, conjk)
+
+    def negate(self, ct: Ciphertext) -> Ciphertext:
+        lp = self._lp_for(ct)
+        return Ciphertext(
+            data=tuple(_negate_core(d, lp) for d in ct.data),
+            flags=ct._flags, level=ct.level, **self._meta(),
+        )
+
+    # ------------------------------------------------------------------
+    # Add / sub.
+    # ------------------------------------------------------------------
+
+    def _cc_double(self, core, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        if a.has_flag(FLAGS.NTT_STATE) or b.has_flag(FLAGS.NTT_STATE):
+            raise errors.NTTStateError(expected=False)
+        a, b = self.align_level(a, b)
+        lp = self._lp(a.level, False)
+        return Ciphertext(
+            data=tuple(core(x, y, lp) for x, y in zip(a.data, b.data)),
+            level=a.level, **self._meta(),
+        )
+
+    def _cc_triplet(self, core, a: CiphertextTriplet, b: CiphertextTriplet
+                    ) -> CiphertextTriplet:
+        if not (a.has_flag(FLAGS.NTT_STATE) and b.has_flag(FLAGS.NTT_STATE)):
+            raise errors.NTTStateError(expected=True)
+        lp = self._lp(a.level, False)
+        return CiphertextTriplet(
+            data=tuple(core(x, y, lp) for x, y in zip(a.data, b.data)),
+            flags=FLAGS.MONTGOMERY_STATE | FLAGS.NTT_STATE
+            | FLAGS.NEED_RELINERIZE,
+            level=a.level,
+            **self._meta(),
+        )
+
+    def _cc_by_kind(self, double, triplet, a, b):
+        if isinstance(a, Ciphertext) and isinstance(b, Ciphertext):
+            return double(a, b)
+        if isinstance(a, CiphertextTriplet) and isinstance(
+            b, CiphertextTriplet
+        ):
+            return triplet(a, b)
+        raise errors.DifferentTypeError(a=type(a), b=type(b))
+
+    def cc_add_double(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        return self._cc_double(_cc_add_core, a, b)
+
+    def cc_add_triplet(self, a: CiphertextTriplet, b: CiphertextTriplet
+                       ) -> CiphertextTriplet:
+        return self._cc_triplet(_cc_add_core, a, b)
+
+    def cc_add(self, a, b):
+        return self._cc_by_kind(self.cc_add_double, self.cc_add_triplet,
+                                a, b)
+
+    def cc_sub_double(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        return self._cc_double(_cc_sub_core, a, b)
+
+    def cc_sub_triplet(self, a: CiphertextTriplet, b: CiphertextTriplet
+                       ) -> CiphertextTriplet:
+        return self._cc_triplet(_cc_sub_core, a, b)
+
+    def cc_sub(self, a, b):
+        return self._cc_by_kind(self.cc_sub_double, self.cc_sub_triplet,
+                                a, b)
+
+    # ------------------------------------------------------------------
+    # Level management.
+    # ------------------------------------------------------------------
+
+    def level_up(self, ct: Ciphertext, dst_level: int) -> Ciphertext:
+        """Bring ``ct`` down to ``dst_level``: one rescale, the channels
+        between dropped, and the scale corrected by one multiply."""
+        if ct.level == dst_level:
+            return ct
+        new_ct = self.rescale(ct)
+        src_level = ct.level + 1
+        dev = self.params.deviations
+        diff_deviation = dev[dst_level] / np.sqrt(dev[src_level])
+        deviated_delta = round(self.ckksCfg.scale * diff_deviation)
+        drop = dst_level - src_level
+        R = self.montCtx.R
+        multiplier = self._scalar_col(
+            [(deviated_delta * R) % qi for qi in self.params.q], dst_level)
+        lp = self._lp(dst_level, False)
+        data = tuple(
+            _mont_scalar_core(d[..., drop:, :] if drop > 0 else d,
+                              multiplier, lp)
+            for d in new_ct.data
+        )
+        return Ciphertext(data=data, level=dst_level, **self._meta())
+
+    def align_level(self, ct0, ct1):
+        diff = ct0.level - ct1.level
+        if diff < 0:
+            return self.level_up(ct0, ct1.level), ct1
+        if diff > 0:
+            return ct0, self.level_up(ct1, ct0.level)
+        return ct0, ct1
+
+    # ------------------------------------------------------------------
+    # Plaintext / scalar ops.
+    # ------------------------------------------------------------------
+
+    def _pt_cached(self, pt: Plaintext, level: int, op: str):
+        """``pt``'s row for ``op`` at ``level``, encoded (a CSPRNG draw)
+        and prepared on first use: "pc_add" the pt * scale * R residues,
+        "pc_mult" the enter-NTT row that K3 takes as its key."""
+        if op not in pt.cache[level]:
+            m = pt.src * math.sqrt(self.params.deviations[level + 1])
+            encoded = self.encode(m, level, scale=pt.scale)
+            prepare = (_prepare_pc_add_cache if op == "pc_add"
+                       else _prepare_pc_mult_cache)
+            pt.cache[level][op] = prepare(encoded, self._lp(level, False))
+        return pt.cache[level][op]
+
+    def pc_add(self, pt: Plaintext, ct: Ciphertext) -> Ciphertext:
+        level = ct.level
+        new0 = _pc_add_core(self._pt_cached(pt, level, "pc_add"), ct.data[0],
+                            self._lp(level, False))
+        return Ciphertext(data=(new0, ct.data[1]), flags=ct._flags,
+                          level=level, **self._meta())
+
+    def pc_mult(self, pt: Plaintext, ct: Ciphertext, post_rescale=True
+                ) -> Ciphertext:
+        level = ct.level
+        d = _pc_mult_core(self._pt_cached(pt, level, "pc_mult"), *ct.data,
+                          self._lp(level, False))
+        new_ct = Ciphertext(data=d, level=level, **self._meta())
+        if post_rescale:
+            new_ct = self.rescale(new_ct)
+        return new_ct
+
+    def mc_mult(self, m, ct: Ciphertext, post_rescale=True) -> Ciphertext:
+        return self.pc_mult(Plaintext(m), ct, post_rescale=post_rescale)
+
+    def mc_add(self, m, ct: Ciphertext) -> Ciphertext:
+        return self.pc_add(Plaintext(m), ct)
+
+    def _scalar_col(self, values_per_prime, level):
+        """One value per ordinary channel from ``level`` on: [C, 1] on the
+        device."""
+        return self._to_dev(np.array(
+            [values_per_prime[i] for i in range(level, self.params.P)],
+            dtype=self.ckksCfg.numpy_dtype,
+        ).reshape(-1, 1))
+
+    def _mult_mont_scalar(self, ct: Ciphertext, mont_scalar) -> Ciphertext:
+        col = self._scalar_col(mont_scalar, ct.level)
+        lp = self._lp(ct.level, False)
+        return Ciphertext(
+            data=tuple(_mont_scalar_core(d, col, lp) for d in ct.data),
+            level=ct.level, **self._meta(),
+        )
+
+    def mult_int_scalar(self, ct: Ciphertext, scalar) -> Ciphertext:
+        R = self.montCtx.R
+        return self._mult_mont_scalar(
+            ct, [(int(scalar) * R) % qi for qi in self.params.q])
+
+    def mult_scalar(self, ct: Ciphertext, scalar) -> Ciphertext:
+        """ct * scalar at the scale, then :meth:`rescale`."""
+        R = self.montCtx.R
+        scaled_scalar = int(
+            scalar * self.ckksCfg.scale
+            * np.sqrt(self.params.deviations[ct.level + 1]) + 0.5
+        )
+        new_ct = self._mult_mont_scalar(
+            ct, [(scaled_scalar * R) % qi for qi in self.params.q])
+        return self.rescale(new_ct)
+
+    def add_scalar(self, ct: Ciphertext, scalar) -> Ciphertext:
+        scaled_scalar = int(
+            scalar * self.ckksCfg.scale * self.params.deviations[ct.level]
+            + 0.5
+        )
+        if self.norm == "backward":
+            scaled_scalar *= self.ckksCfg.N
+        scaled_scalar *= self.ckksCfg.int_scale
+        col = self._scalar_col([scaled_scalar % qi for qi in self.params.q],
+                               ct.level)
+        new0 = _add_scalar_core(ct.data[0], col, self._lp(ct.level, False))
+        return Ciphertext(data=(new0, ct.data[1]), flags=ct._flags,
+                          level=ct.level, **self._meta())
+
+    def refresh(self):
+        self.rng.refresh()
+
+    def reduce_error(self, ct):
+        return self.mult_scalar(ct, 1.0)
+
+    # ------------------------------------------------------------------
+    # Statistics.
+    # ------------------------------------------------------------------
+
+    def _fold_slots(self, ct: Ciphertext) -> Ciphertext:
+        """Every slot the sum of all: logN - 1 rotations by 2^i, each added
+        to the running sum."""
+        for roti in range(self.ckksCfg.logN - 1):
+            rot_ct = self.rotate_single(ct, self.get_rotation_key(2**roti))
+            ct = self.cc_add(rot_ct, ct)
+        return ct
+
+    def sum(self, ct: Ciphertext) -> Ciphertext:
+        return self._fold_slots(ct)
+
+    def mean(self, ct: Ciphertext, *, alpha=1) -> Ciphertext:
+        return self._fold_slots(self.mc_mult(
+            m=np.full(self.num_slots, 1 / self.num_slots / alpha), ct=ct))
+
+    def cov(self, ct_a: Ciphertext, ct_b: Ciphertext,
+            evk: EvaluationKey = None) -> Ciphertext:
+        evk = evk or self.evk
+        cta_dev = self.cc_sub(ct_a, self.mean(ct_a))
+        ctb_dev = self.cc_sub(ct_b, self.mean(ct_b))
+        return self.mc_mult(
+            m=np.full(self.num_slots, 1 / (self.num_slots - 1)),
+            ct=self.cc_mult(cta_dev, ctb_dev, evk),
+        )
+
+    def pow(self, ct: Ciphertext, power: int, evk: EvaluationKey = None
+            ) -> Ciphertext:
+        evk = evk or self.evk
+        current_exponent = 2
+        pow_list = [ct]
+        while current_exponent <= power:
+            pow_list.append(self.cc_mult(pow_list[-1], pow_list[-1], evk))
+            current_exponent *= 2
+        remaining = power - current_exponent // 2
+        new_ct = pow_list[-1]
+        while remaining > 0:
+            pow_ind = math.floor(math.log2(remaining))
+            new_ct, pow_term = self.align_level(new_ct, pow_list[pow_ind])
+            new_ct = self.cc_mult(new_ct, pow_term, evk)
+            remaining -= 2**pow_ind
+        return new_ct
+
+    def sqrt(self, ct: Ciphertext, evk: EvaluationKey = None, e=0.0001,
+             alpha=0.0001) -> Ciphertext:
+        """Wilkes square-root iteration."""
+        a = ct
+        b = ct
+        evk = evk or self.evk
+        while e <= 1 - alpha:
+            k = float(np.roots([1 - e**3, -6 + 6 * e**2, 9 - 9 * e])[1])
+            t = self.mult_scalar(a, k)
+            b0 = self.add_scalar(t, -3)
+            b1 = self.mult_scalar(b, (k**0.5) / 2)
+            b0, b1 = self.align_level(b0, b1)
+            b = self.cc_mult(b0, b1, evk)
+
+            a0 = self.mult_scalar(a, (k**3) / 4)
+            t = self.add_scalar(a, -3 / k)
+            a1 = self.cc_mult(t, t, evk)
+            a0, a1 = self.align_level(a0, a1)
+            a = self.cc_mult(a0, a1, evk)
+            e = k * (3 - k) ** 2 / 4
+        return b
+
+    def randn(self, amin=-1, amax=1, decimal_places: int = 10, level=0,
+              return_src=False):
+        """Encrypt a random complex message (numpy's global generator)."""
+        def integral_bits_available():
+            max_bits = math.floor(math.log2(self.params.base_prime))
+            return max_bits - self.ckksCfg.scale_bits
+
+        if amin is None:
+            amin = -(2 ** integral_bits_available())
+        if amax is None:
+            amax = 2 ** integral_bits_available()
+        base = 10**decimal_places
+        a = np.random.randint(amin * base, amax * base, self.num_slots) / base
+        b = np.random.randint(amin * base, amax * base, self.num_slots) / base
+        sample = a + b * 1j
+        encrypted = self.encodecrypt(sample, level=level)
+        return (encrypted, sample) if return_src else encrypted
+
+    def var(self, ct: Ciphertext, evk: EvaluationKey = None, *,
+            post_relin=False) -> Ciphertext:
+        evk = evk or self.evk
+        dev = self.cc_sub(ct, self.mean(ct))
+        dev = self.square(dev, evk, post_relin=post_relin)
+        if not post_relin:
+            dev = self.relinearize(dev, evk)
+        return self.mean(dev)
+
+    def std(self, ct: Ciphertext, evk: EvaluationKey = None,
+            post_relin=False) -> Ciphertext:
+        ct_var = self.var(ct, evk or self.evk, post_relin=post_relin)
+        return self.sqrt(ct_var, evk or self.evk)
 
 
 def stack_ciphertexts(cts) -> Ciphertext:

@@ -3,10 +3,12 @@ the port.
 
 The JAX package's objects are read duck-typed — class name, ``data``
 leaves through ``np.array``, ``level``, the flag names and the scalar
-``misc`` entries (``a_seed``, ``compressed``); a ``Csprng``'s channel
-model, key, nonce and states — so this module imports neither jax nor
-``tiberate_tpu``.  With it, tests hand identical keys, ciphertexts and
-random streams to both packages.
+``misc`` entries (``a_seed``, ``compressed``, a rotation key's ``delta``);
+a ``GaloisKey``'s rotation keys one by one; a ``Plaintext``'s source,
+scale, padding and cached rows; a ``Csprng``'s channel model, key, nonce
+and states — so this module imports neither jax nor ``tiberate_tpu``.
+With it, tests hand identical keys, ciphertexts and random streams to
+both packages.
 """
 
 import numpy as np
@@ -17,7 +19,8 @@ from tiberate_tpu_torch import typing as tt
 _CLASSES = {
     name: getattr(tt, name)
     for name in ("Ciphertext", "CiphertextTriplet", "SecretKey", "PublicKey",
-                 "KeySwitchKey", "EvaluationKey")
+                 "KeySwitchKey", "EvaluationKey", "RotationKey",
+                 "ConjugationKey", "GaloisKey", "Plaintext")
 }
 
 
@@ -37,8 +40,8 @@ def _leaves(data, device):
 
 
 def from_jax(obj, device="cuda"):
-    """A JAX-package ``Ciphertext`` / key -> the port's class of the same
-    name, with its data on ``device``."""
+    """A JAX-package ``Ciphertext`` / key / ``Plaintext`` -> the port's
+    class of the same name, with its data on ``device``."""
     name = type(obj).__name__
     if name not in _CLASSES:
         raise TypeError(f"no port counterpart for {name}")
@@ -46,8 +49,18 @@ def from_jax(obj, device="cuda"):
         k: v for k, v in dict(obj.misc).items()
         if isinstance(v, (str, int, float, bool, type(None)))
     }
+    if name == "Plaintext":
+        pt = tt.Plaintext(np.array(obj.src), **misc)
+        for level, ops in obj.cache.items():
+            for op, row in ops.items():
+                pt.cache[level][op] = _leaves(row, device)
+        return pt
+    if name == "GaloisKey":
+        data = [from_jax(k, device) for k in obj.data]
+    else:
+        data = _leaves(obj.data, device)
     return _CLASSES[name](
-        data=_leaves(obj.data, device),
+        data=data,
         flags=tt.FLAGS.loads(obj._flags.dumps()),
         level=obj.level,
         **misc,

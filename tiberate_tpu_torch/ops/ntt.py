@@ -107,6 +107,11 @@ def intt_exit_reduce(x, ipsi, Ninv, pack: ModPack):
     return mont.reduce_2q(intt_exit(x, ipsi, Ninv, pack), pack)
 
 
+def intt_exit_reduce_signed(x, ipsi, Ninv, pack: ModPack):
+    """iNTT, exit, reduce, then the centred representative (-q/2, q/2]."""
+    return mont.make_signed(intt_exit_reduce(x, ipsi, Ninv, pack), pack)
+
+
 # ----------------------------------------------------------------------
 # Host-side table construction (python ints).
 # ----------------------------------------------------------------------

@@ -1,9 +1,8 @@
 """CKKS codec: canonical-embedding encode/decode and slot permutations.
 
-A numpy copy of the encode/decode half of ``tiberate_tpu/utils/encoding.py``,
-batch forms included
-(the port cannot import the JAX package; the rotation and conjugation
-tables come with the port's rotations).  The codec is host-side, low-rate
+A numpy copy of ``tiberate_tpu/utils/encoding.py``: encode/decode with
+their batch forms, and the rotation and conjugation (Galois) tables (the
+port cannot import the JAX package).  The codec is host-side, low-rate
 work where fp64 precision matters more than throughput, so it runs in numpy
 (complex128).
 
@@ -121,6 +120,50 @@ def post_permute(m, post_perm):
     permed = np.zeros_like(m)
     permed[post_perm] = m
     return permed
+
+
+# ---------------------------------------------------------------
+# Rotation / conjugation coefficient permutations (Galois tables).
+# ---------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def rotation_perm_tables(N: int, leap: int):
+    """Gather tables of the Galois coefficient permutation with the given
+    leap: (src [N] int32, sign [N] int64) such that
+    ``out[j] = sign[j] * x[src[j]]`` (the inverse of the scatter
+    ``out[perm % N] = (-1)^(perm // N) * x``, ``perm = canon_permutation``)."""
+    perm = canon_permutation(N, leap)[:N]
+    perm_folded = perm % N
+    perm_sign = 1 - 2 * ((perm // N) % 2)  # (-1)^(perm//N)
+    src = np.empty(N, dtype=np.int64)
+    src[perm_folded] = np.arange(N)
+    sign = np.empty(N, dtype=np.int64)
+    sign[perm_folded] = perm_sign
+    return src.astype(np.int32), sign
+
+
+def rotate_leap(delta: int, N: int) -> int:
+    """Leap k such that rotation by delta uses p = 2k+1 = 3^(delta mod N)."""
+    shift = delta % N
+    return (pow(3, shift, 2 * N) - 1) // 2 % (2 * N)
+
+
+def conjugate_leap(N: int) -> int:
+    return N - 1
+
+
+def rotate_np(m, delta):
+    """Numpy rotation of coefficients m [..., N] (host paths, tests)."""
+    N = m.shape[-1]
+    src, sign = rotation_perm_tables(N, rotate_leap(delta, N))
+    return sign * m[..., src]
+
+
+def conjugate_np(m):
+    N = m.shape[-1]
+    src, sign = rotation_perm_tables(N, conjugate_leap(N))
+    return sign * m[..., src]
 
 
 # ---------------------------------------------------------------

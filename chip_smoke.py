@@ -115,7 +115,26 @@ Phases (any failure exits non-zero):
     main path through the per-part chain (8 ``ntt_keymul_accum_30``
     launches, no all-parts launch; error below 1e-2); the evaluation as in
     8b, within 5e-3; the step equal to the plain-version step; the route
-    A/B with peak memory; one profiled step.
+    A/B with peak memory; one profiled step;
+12. the extension path at Preset.logN15, its launch counts set to 0
+    before it and read after: the operator sugar (``ct1 * ct2 + ct1``,
+    ``>> 3``, ``<< 1``, ``** 2``, ``.plain``; the Galois keys made first)
+    byte for byte against the explicit engine calls and within 1e-5 of
+    numpy; ``save`` / ``load`` of a ciphertext, a triplet, the secret key
+    and the evk through files, back onto the card and the CPU with the
+    same bytes (the loaded ciphertext decrypts within 1e-6);
+    ``batched_inference`` through the benchmark registry (features 8,
+    batches 4, iters 3; ``max_err`` below 1e-4) and the launches of one
+    ``score_batch`` (two K5, two K6, four K4, no chain);
+    ``HELinearFeatureWise`` at dim 16 (79 K6 a forward, exactly; within
+    5e-4), its forward times and its rotation keys' memory;
+    ``HELayerNormFeatureWise`` (F 4, two Newton steps; within 5e-3); two
+    MPC parties (collective encrypt and threshold decrypt, a collective
+    rotation; within 5e-4; one share alone garbage; card == CPU); a
+    ``trace.profile`` of one rotation holding its ``annotate`` names and
+    K6's kernels; the CLI's ``list-benchmarks`` and ``benchmark --name
+    single_pmult``.  Each cell ends by clearing the port's default-engine
+    registry, which otherwise keeps every engine alive.
 
 Each kernel has two bounds (``tiberate_tpu_torch/ops/roofline.py``): the
 time its bytes take at the H100's datasheet HBM rate (every input read
@@ -125,19 +144,22 @@ phase 2b measured on this card.  ``bound_ms`` is the larger; ``bound_by``
 says which ("bytes" or "operations": the REDCs).  Before the JSON lines,
 the kernels of each driven path are ranked by launches x (time - bound),
 once with the launches of the whole path, once with the step's and once
-with the evaluation path's.  The
+with the evaluation path's (and the extension path's at logN15).  The
 second-to-last line is a JSON object with one entry per kernel and lane,
 the probe's three kernels included; the last line is the device record.
 """
 
 import contextlib
+import gc
 import hashlib
 import json
+import math
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -194,6 +216,10 @@ STEP_17 = ("intt", "ntt_keymul_accum", "intt_pdiv", "ntt_tensor")
 # pc_mult (K3 and its K1 cache), keyswitches (K6, K4), square (K5)
 EVAL_15 = ("ntt", "intt", "ntt_keymul", "intt_pdiv", "ntt_tensor",
            "ntt_keymul_parts")
+# the kernels the logN15 extension path launches (phase 12): rotation and
+# MPC keys (K1, K2), pc_mult and decrypts (K3), keyswitches (K6, K4),
+# cc_mult (K5)
+EXT_15 = EVAL_15
 
 
 def lane(names, sfx):
@@ -1408,6 +1434,430 @@ def evaluate_light(eng, kern, stack, unstack, A, tol, sfx, tag, chain):
     return launches, res, keys
 
 
+# ----------------------------------------------------------------------
+# Phase 12: the extension path at logN15.
+# ----------------------------------------------------------------------
+
+EXT_TOL_BI = 1e-4     # batched_inference: tests/test_extensions.py:172
+EXT_TOL_LINEAR = 5e-4  # HE linear, MPC: tests/test_extensions.py:18
+EXT_TOL_LN = 5e-3     # LayerNorm: tests/test_extensions.py:325
+
+
+def release_engines(typing):
+    """End of a cell: drop the port's default-engine registry (it holds
+    every engine made so far, as the JAX package's does), collect, and
+    return the freed blocks to the card."""
+    typing._default_engines.clear()
+    typing._engines_by_hash.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def diff(kern, before):
+    return {k: kern.LAUNCHES[k] - before[k] for k in kern.LAUNCHES
+            if kern.LAUNCHES[k] - before[k]}
+
+
+def flat(data):
+    if isinstance(data, (tuple, list)):
+        return [t for d in data for t in flat(d)]
+    return [data]
+
+
+def check(ok, msg):
+    if not ok:
+        raise AssertionError(msg)
+
+
+def ext_sugar(eng, kern, typing, tag):
+    """12.1: ``ct1 * ct2 + ct1``, ``ct >> 3``, ``ct << 1`` and ``ct ** 2``
+    through the operators (the registry finds the engine), each equal byte
+    for byte to the explicit engine calls on the same operands, and its
+    ``.plain`` to their decrypt; within DECRYPT_TOL_OP of numpy.  The
+    Galois keys are made first, so neither path draws."""
+    rng = np.random.default_rng(SEED)
+    m1, m2 = rng.uniform(-1, 1, (2, eng.num_slots))
+    ct1, ct2 = eng.encodecrypt_batch([m1, m2])
+    check(ct1._default_engine is eng, f"{tag}: the registry does not "
+          f"find the engine that made the ciphertext")
+    t0 = time.perf_counter()
+    eng.rotk = {k.delta: k for k in eng.gk.data}
+    torch.cuda.synchronize()
+    log(f"{tag} sugar: {len(eng.rotk)} rotation keys made first "
+        f"({time.perf_counter() - t0:.3f} s)")
+    exprs = {
+        "ct1 * ct2 + ct1": (lambda: ct1 * ct2 + ct1,
+                            lambda: eng.cc_add_double(eng.cc_mult(ct1, ct2),
+                                                      ct1),
+                            m1 * m2 + m1),
+        "ct >> 3": (lambda: ct1 >> 3, lambda: eng.rotate_offset(ct1, 3),
+                    np.roll(m1, 3)),
+        "ct << 1": (lambda: ct1 << 1, lambda: eng.rotate_offset(ct1, -1),
+                    np.roll(m1, -1)),
+        "ct ** 2": (lambda: ct1 ** 2, lambda: eng.cc_mult(ct1, ct1),
+                    m1 ** 2),
+    }
+    res = {}
+    for name, (sugar, explicit, want) in exprs.items():
+        before = dict(kern.LAUNCHES)
+        out = sugar()
+        torch.cuda.synchronize()
+        counts = diff(kern, before)
+        ref = explicit()
+        same = all(torch.equal(a, b) for a, b in zip(out.data, ref.data))
+        plain = out.plain
+        same_plain = np.array_equal(plain, eng.decryptcode(ref, is_real=True))
+        err = float(np.abs(plain - want).max())
+        log(f"{tag} sugar {name}: launches {counts}; == the explicit "
+            f"engine calls byte for byte: {same}, .plain == their decrypt: "
+            f"{same_plain}; max error {err:.3e} (limit {DECRYPT_TOL_OP})")
+        check(same and same_plain, f"{tag} sugar {name} differs from the "
+              f"explicit engine calls")
+        check(err < DECRYPT_TOL_OP, f"{tag} sugar {name}: error above the "
+              f"limit")
+        res[name] = dict(max_abs_err=err, limit=DECRYPT_TOL_OP,
+                         launches=counts)
+    return ct1, ct2, m1, res
+
+
+def ext_save_load(eng, typing, ct1, ct2, m1, tag):
+    """12.2: a ciphertext, a triplet, the secret key and the evk saved from
+    the card; loaded onto the card and onto the CPU with the same bytes,
+    dtype, flags, level and scalar misc; the loaded ciphertext decrypts
+    within DECRYPT_TOL."""
+    tri = eng.cc_mult(ct1, ct2, post_relin=False)
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, obj in (("ciphertext", ct1), ("triplet", tri),
+                          ("secret_key", eng.sk), ("evk", eng.evk)):
+            path = os.path.join(d, name)
+            t0 = time.perf_counter()
+            obj.save(path)
+            t_save = time.perf_counter() - t0
+            want = [t.cpu() for t in flat(obj.data)]
+            for dev in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                back = typing.DataStruct.load(path, device=dev)
+                t_load = time.perf_counter() - t0
+                got = flat(back.data)
+                same = (len(got) == len(want) and all(
+                    g.device.type == dev and g.dtype == w.dtype
+                    and torch.equal(g.cpu(), w) for g, w in zip(got, want)))
+                meta = (type(back) is type(obj) and back.level == obj.level
+                        and back._flags == obj._flags and all(
+                            back.misc[k] == v for k, v in obj.misc.items()
+                            if isinstance(v, (str, int, float, bool))))
+                log(f"{tag} save/load {name} -> {dev}: {len(got)} leaves "
+                    f"({nbytes(*want) / 2**20:.1f} MiB), same bytes and "
+                    f"dtype: {same}, same class, level, flags and misc: "
+                    f"{meta} (save {t_save:.3f} s, load {t_load:.3f} s)")
+                check(same and meta, f"{tag}: {name} loaded onto {dev} "
+                      f"differs from the saved one")
+            res[name] = dict(leaves=len(want), bytes=nbytes(*want),
+                             save_s=t_save)
+        back = typing.Ciphertext.load(os.path.join(d, "ciphertext"),
+                                      device="cuda")
+    err = float(np.abs(back.plain - m1).max())
+    log(f"{tag} loaded ciphertext decrypts: max error {err:.3e} (limit "
+        f"{DECRYPT_TOL})")
+    check(err < DECRYPT_TOL, f"{tag}: loaded ciphertext decrypt error")
+    res["loaded_decrypt_max_abs_err"] = err
+    return res
+
+
+def ext_batched_inference(eng, kern, benchreg, score_batch, tag):
+    """12.3: ``batched_inference`` through the registry at logN15 (features
+    8, batches 4, iters 3), within EXT_TOL_BI; then the launches of one
+    ``score_batch`` on this engine: two cc_mult, so two K5, two K6, four
+    K4 and no chain."""
+    t0 = time.perf_counter()
+    bi = benchreg["batched_inference"]().run(
+        preset="logN15", features=8, batches=4, iters=3, device="cuda")
+    t_bi = time.perf_counter() - t0
+    vals = {m.name: m.value for m in bi.metrics}
+    log(f"{tag} batched_inference (features 8, batches 4, iters 3; "
+        f"{t_bi:.1f} s in all): " + ", ".join(
+            f"{k} {v:.6g}" for k, v in vals.items()))
+    check(vals["max_err"] < EXT_TOL_BI, f"{tag} batched_inference max_err "
+          f"{vals['max_err']:.3e} above {EXT_TOL_BI}")
+    log(f"{tag} batched_inference max_err {vals['max_err']:.3e} (limit "
+        f"{EXT_TOL_BI})")
+    rng = np.random.default_rng(SEED)
+    fcts = eng.encodecrypt_batch(list(rng.uniform(-1, 1,
+                                                  (8, eng.num_slots))))
+    w = rng.uniform(-1, 1, 8)
+    before = dict(kern.LAUNCHES)
+    score_batch(eng, fcts, w, 0.25)
+    torch.cuda.synchronize()
+    counts = diff(kern, before)
+    log(f"{tag} one score_batch launches {counts}")
+    want = dict(ntt_tensor=2, ntt_keymul_parts=2, intt_pdiv=4)
+    got = {k: counts.get(k, 0) for k in want}
+    check(got == want and not counts.get("ntt_keymul_accum"),
+          f"{tag} score_batch: launches {got}, want {want} and no chain")
+    return dict(vals, seconds=t_bi, score_batch_launches=counts)
+
+
+def ext_linear(CkksEngine, Preset, kern, tag, smi):
+    """12.4: ``HELinearFeatureWise`` at dim 16 on a fresh logN15 engine:
+    16 x 4 rotate-and-sum rotations and 15 placements, so 79 K6 in a
+    forward, exactly; the first forward (which makes the rotation keys)
+    and a warm one timed, the keys' device memory; within EXT_TOL_LINEAR
+    of ``x @ W.T + b``."""
+    from tiberate_tpu_torch.extension import (
+        FeatureWiseCTEncoding,
+        HELinearFeatureWise,
+    )
+    from tiberate_tpu_torch.utils.massive import datastruct_size_bytes
+
+    eng = CkksEngine(Preset.logN15, device="cuda", seed=SEED + 1)
+    eng.sk, eng.pk, eng.evk  # noqa: B018 — keygen
+    dim = 16
+    rng = np.random.default_rng(SEED)
+    W = rng.uniform(-1, 1, (dim, dim))
+    b = rng.uniform(-1, 1, dim)
+    x = rng.uniform(-1, 1, (1, dim))
+    layer = HELinearFeatureWise(W, b, eng)
+    ct_in = FeatureWiseCTEncoding.encodecrypt(x, eng)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    before = dict(kern.LAUNCHES)
+    t0 = time.perf_counter()
+    layer(ct_in)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    first = diff(kern, before)
+    mem = torch.cuda.memory_allocated() - mem0
+    keys = [eng.get_rotation_key(d) for d in eng.rotk]
+    key_bytes = nbytes(*(t for k in keys for t in leaves(k)))
+    # what else the first forward keeps: each key's stacked K6 form per
+    # level it ran at (cached on the key) and the plaintext rows' caches
+    form_bytes = sum(nbytes(*form[:2]) for k in keys
+                     for form in (k.misc["_parts_fused"] or {}).values())
+    rows = [pt for row in layer.weight_rows for pt in row]
+    rows += [layer.mask, *(layer.bias_rows or [])]
+    pt_bytes = sum(datastruct_size_bytes(pt) for pt in rows)
+    before = dict(kern.LAUNCHES)
+    t0 = time.perf_counter()
+    out = layer(ct_in)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    warm = diff(kern, before)
+    rotations = dim * int(math.log2(layer.period)) + (dim - 1)
+    for name, counts in (("first", first), ("warm", warm)):
+        check(counts.get("ntt_keymul_parts", 0) == rotations
+              and not counts.get("ntt_keymul_accum"),
+              f"{tag} linear {name} forward: {counts} K6 launches, want "
+              f"{rotations} (the rotations)")
+    got = FeatureWiseCTEncoding.decryptcode(out, eng)
+    err = float(np.abs(got - (x @ W.T + b)).max())
+    log(f"{tag} HELinearFeatureWise dim {dim}: {rotations} rotations, K6 "
+        f"launches first / warm {first['ntt_keymul_parts']} / "
+        f"{warm['ntt_keymul_parts']}; first forward (makes {len(keys)} "
+        f"rotation keys) {t_first:.3f} s, warm forward {t_warm:.3f} s "
+        f"(host clock, synchronised; {smi}); the keys' tensors "
+        f"{key_bytes / 2**30:.3f} GiB, their stacked K6 forms "
+        f"{form_bytes / 2**30:.3f} GiB, the plaintext rows' caches "
+        f"{pt_bytes / 2**30:.3f} GiB; device memory +{mem / 2**30:.3f} "
+        f"GiB over the first forward; warm launches {warm}; max error "
+        f"{err:.3e} (limit {EXT_TOL_LINEAR})")
+    check(err < EXT_TOL_LINEAR, f"{tag} linear error above the limit")
+    return dict(dim=dim, rotations=rotations, first_forward_s=t_first,
+                warm_forward_s=t_warm, rotation_keys=len(keys),
+                key_bytes=key_bytes, key_form_bytes=form_bytes,
+                plaintext_cache_bytes=pt_bytes, memory_added=mem,
+                max_abs_err=err,
+                limit=EXT_TOL_LINEAR, launches_warm=warm)
+
+
+def ext_layernorm(eng, kern, tag, smi):
+    """12.5: ``HELayerNormFeatureWise`` on the data of
+    ``tests/test_extensions.py:280-325`` at the full slot width: F = 4,
+    eps 1e-2, two Newton steps; within EXT_TOL_LN of numpy."""
+    from tiberate_tpu_torch.extension.nn import HELayerNormFeatureWise
+
+    F, eps = 4, 1e-2
+    rng = np.random.default_rng(0)
+    pattern = np.array([-1.5, -0.5, 0.5, 1.5])
+    c = rng.uniform(-0.3, 0.3, eng.num_slots)
+    r = rng.uniform(0.5, 0.9, eng.num_slots)
+    x = c[None, :] + r[None, :] * pattern[:, None]
+    gamma = rng.uniform(0.5, 1.5, F)
+    beta = rng.uniform(-0.5, 0.5, F)
+    ln = HELayerNormFeatureWise(
+        gamma, beta, eng, eps=eps,
+        var_range=(1.25 * 0.25 + eps, 1.25 * 0.81 + eps), iters=2)
+    cts = eng.encodecrypt_batch(list(x))
+    before = dict(kern.LAUNCHES)
+    t0 = time.perf_counter()
+    out = ln(cts)
+    torch.cuda.synchronize()
+    t_ln = time.perf_counter() - t0
+    counts = diff(kern, before)
+    got = eng.decryptcode_batch(out, is_real=True)
+    want = (gamma[:, None] * (x - x.mean(0)) / np.sqrt(x.var(0) + eps)
+            + beta[:, None])
+    err = float(np.abs(got - want).max())
+    log(f"{tag} HELayerNormFeatureWise F {F}, iters 2: output level "
+        f"{out[0].level}, {t_ln:.3f} s (host clock, synchronised; {smi}), "
+        f"launches {counts}; max error {err:.3e} (limit {EXT_TOL_LN})")
+    check(err < EXT_TOL_LN, f"{tag} LayerNorm error above the limit")
+    return dict(seconds=t_ln, level=out[0].level, max_abs_err=err,
+                limit=EXT_TOL_LN, launches=counts)
+
+
+def mpc_run(mpc, m, rotate):
+    """Two parties: keys, the collective key, encrypt, threshold decrypt
+    (and with ``rotate`` a collective rotation key and one rotation)."""
+    sk1 = mpc._create_secret_key()
+    sk2 = mpc._create_secret_key()
+    pk1 = mpc.multiparty_create_public_key(sk1)
+    crs = mpc.multiparty_public_crs(pk1)
+    pk2 = mpc.multiparty_create_public_key(sk2, a=crs)
+    cpk = mpc.multiparty_create_collective_public_key([pk1, pk2])
+    ct = mpc.encodecrypt(m, pk=cpk)
+
+    def fuse(c, parties=(sk1, sk2)):
+        shares = [mpc.multiparty_decrypt_head(c, parties[0])]
+        shares += [mpc.multiparty_decrypt_partial(c, sk)
+                   for sk in parties[1:]]
+        return mpc.multiparty_decrypt_fusion(shares, level=c.level,
+                                             is_real=True)
+
+    out = dict(cpk=cpk, ct=ct, fused=fuse(ct), single=fuse(ct, (sk1,)))
+    if rotate:
+        rotk1 = mpc.multiparty_create_rotation_key(sk1, 1)
+        rotk2 = mpc.multiparty_create_rotation_key(
+            sk2, 1, a=mpc.generate_rotation_crs(rotk1))
+        crotk = mpc.multiparty_generate_rotation_key([rotk1, rotk2])
+        out["rotated"] = fuse(mpc.rotate_single(ct, crotk))
+    return out
+
+
+def ext_mpc(Preset, kern, tag):
+    """12.6: two parties at logN15, bias guard off: collective encrypt,
+    head + partial + fusion within EXT_TOL_LINEAR, one share alone
+    garbage (error above 1.0), a collective rotation key and one rotation
+    within EXT_TOL_LINEAR; a CPU engine from the same seed runs the same
+    steps up to the fusion: the same collective key and ciphertext bytes,
+    the same fused floats."""
+    from tiberate_tpu_torch.extension import CkksEngineMPCExtension
+
+    mpc = CkksEngineMPCExtension(Preset.logN15, device="cuda", seed=SEED,
+                                 bias_guard=False)
+    m = np.linspace(-1, 1, mpc.num_slots)
+    before = dict(kern.LAUNCHES)
+    t0 = time.perf_counter()
+    got = mpc_run(mpc, m, rotate=True)
+    torch.cuda.synchronize()
+    t_mpc = time.perf_counter() - t0
+    counts = diff(kern, before)
+    errs = {k: float(np.abs(got[k] - w).max()) for k, w in (
+        ("fused", m), ("single", m), ("rotated", np.roll(m, 1)))}
+    log(f"{tag} MPC two parties: {t_mpc:.3f} s (keys, encrypt, two "
+        f"threshold decrypts, a collective rotation key and one rotation); "
+        f"launches {counts}; fused max error {errs['fused']:.3e}, rotated "
+        f"{errs['rotated']:.3e} (limit {EXT_TOL_LINEAR}); one share alone "
+        f"{errs['single']:.3e} (must exceed 1.0)")
+    check(errs["fused"] < EXT_TOL_LINEAR and errs["rotated"]
+          < EXT_TOL_LINEAR, f"{tag} MPC decrypt error above the limit")
+    check(errs["single"] > 1.0, f"{tag} MPC: one share decrypts")
+    t0 = time.perf_counter()
+    cpu = mpc_run(CkksEngineMPCExtension(Preset.logN15, device="cpu",
+                                         seed=SEED, bias_guard=False),
+                  m, rotate=False)
+    same = (all(torch.equal(a.cpu(), b) for a, b in zip(
+        flat(got["cpk"].data) + flat(got["ct"].data),
+        flat(cpu["cpk"].data) + flat(cpu["ct"].data)))
+        and np.array_equal(got["fused"], cpu["fused"])
+        and np.array_equal(got["single"], cpu["single"]))
+    log(f"{tag} MPC card == CPU (collective key, ciphertext bytes, fused "
+        f"floats): {same} ({time.perf_counter() - t0:.1f} s on the CPU)")
+    check(same, f"{tag} MPC on the card differs from the CPU")
+    return dict(seconds=t_mpc, launches=counts, limit=EXT_TOL_LINEAR,
+                **{f"{k}_max_abs_err": v for k, v in errs.items()})
+
+
+def ext_trace(eng, trace, ct, tag):
+    """12.7: ``trace.profile`` around one ``rotate_single`` with ``annotate``
+    ranges: the written trace holds the range names and K6's two kernel
+    names."""
+    want = ("ext_rotate_single", "ext_decrypt", "parts_strided_k",
+            "parts_contig_k")
+    with tempfile.TemporaryDirectory() as d:
+        with trace.profile(d) as path:
+            with trace.annotate("ext_rotate_single"):
+                rot = eng.rotate_single(ct, eng.rotk[1])
+            with trace.annotate("ext_decrypt"):
+                eng.decryptcode(rot)
+        with open(path) as f:
+            text = f.read()
+    found = {w: w in text for w in want}
+    log(f"{tag} trace.profile of one rotate_single: {len(text)} bytes of "
+        f"chrome trace; holds {found}")
+    check(all(found.values()), f"{tag}: the trace lacks {found}")
+    return found
+
+
+def ext_cli(tag):
+    """12.8: the CLI in process: ``list-benchmarks``, then ``benchmark
+    --name single_pmult --preset logN15 --iters 3 --file F`` on the card;
+    F parses and holds the metrics."""
+    from tiberate_tpu_torch._cli import main as cli_main
+
+    check(cli_main(["list-benchmarks"]) == 0, f"{tag}: list-benchmarks")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "single_pmult.json")
+        t0 = time.perf_counter()
+        rc = cli_main(["benchmark", "--name", "single_pmult", "--preset",
+                       "logN15", "--iters", "3", "--file", path])
+        t_cli = time.perf_counter() - t0
+        check(rc == 0, f"{tag}: benchmark exited {rc}")
+        with open(path) as f:
+            results = json.load(f)
+    vals = {m["name"]: m["value"] for m in results[0]["metrics"]}
+    log(f"{tag} CLI benchmark single_pmult (logN15, 3 iters, {t_cli:.1f} "
+        f"s): {vals}")
+    check(set(vals) == {"pc_mult", "decrypt_max_err", "pt_cache_size_mb"}
+          and vals["decrypt_max_err"] < DECRYPT_TOL_OP,
+          f"{tag}: the CLI's result file {vals}")
+    return dict(vals, seconds=t_cli)
+
+
+def extension_phase(CkksEngine, Preset, kern, typing, smi):
+    """Phase 12: the extension path at logN15 (16 levels, 2 special primes,
+    9 keyswitch parts), its launch counts set to 0 before it and read
+    after.  Returns (launches, results)."""
+    from tiberate_tpu_torch.extension.benchmarks import benchreg
+    from tiberate_tpu_torch.extension.benchmarks.bench_ops import (
+        score_batch,
+    )
+    from tiberate_tpu_torch.utils import trace
+
+    tag = "logN15 extensions"
+    t_phase = time.perf_counter()
+    kern.reset_launch_counts()
+    eng = CkksEngine(Preset.logN15, device="cuda", seed=SEED)
+    eng.sk, eng.pk, eng.evk  # noqa: B018 — keygen
+    res = {}
+    ct1, ct2, m1, res["sugar"] = ext_sugar(eng, kern, typing, tag)
+    res["save_load"] = ext_save_load(eng, typing, ct1, ct2, m1, tag)
+    res["batched_inference"] = ext_batched_inference(
+        eng, kern, benchreg, score_batch, tag)
+    res["linear_feature_wise"] = ext_linear(CkksEngine, Preset, kern, tag,
+                                            smi)
+    res["layernorm"] = ext_layernorm(eng, kern, tag, smi)
+    res["mpc"] = ext_mpc(Preset, kern, tag)
+    res["trace"] = ext_trace(eng, trace, ct1, tag)
+    res["cli"] = ext_cli(tag)
+    launches = dict(kern.LAUNCHES)
+    require(launches, EXT_15, "the logN15 extension path")
+    log(f"{tag} path launches {launches}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"{tag}: phase 12 took {res['seconds']:.1f} s")
+    return launches, res
+
+
 def profile_step(fn, tag, top=12):
     """Device time by kernel over one step (CUDA kernel events only), and
     the busy share of its wall time (kernel times summed; kernels on one
@@ -1508,12 +1958,14 @@ def main():
     csprng = csprng_phase(Csprng, CkksConfig, (Preset.logN15, Preset.logN17),
                           smi)
     err14 = digest_phase(CkksEngine)
+    release_engines(ttyping)
 
     # 3. logN15 kernels against their plain versions
     eng_k = CkksEngine(Preset.logN15, device="cuda", seed=SEED)
     results15 = check_kernels(eng_k, kern, mod, roofline, "logN15", (3, 3),
                               rate)
     del eng_k
+    release_engines(ttyping)
 
     # 4. the logN15 main path
     eng = CkksEngine(Preset.logN15, device="cuda", seed=SEED)
@@ -1540,7 +1992,7 @@ def main():
     del eng_cpu
     share15 = draw_share(eng, msgs(eng)[0], "logN15")
     del eng, A, B, out
-    torch.cuda.empty_cache()
+    release_engines(ttyping)
 
     # 6. logN17 kernels (one engine for phases 6-9: its CkksParams build
     # alone takes about 20 s of host time)
@@ -1582,7 +2034,7 @@ def main():
     share17 = draw_share(eng17, msgs(eng17)[0], "logN17")
 
     del eng17, A, B, out
-    torch.cuda.empty_cache()
+    release_engines(ttyping)
 
     # 10. the 30-bit mode at logN15_30: kernels, the main path (all parts in
     # one kernel), the CPU comparison, timing, route A/B, profile
@@ -1590,6 +2042,7 @@ def main():
     results15_30 = check_kernels(eng_k, kern, mod, roofline, "logN15_30",
                                  (3, 3), rate30)
     del eng_k
+    release_engines(ttyping)
     eng = CkksEngine("logN15_30", device="cuda", seed=SEED)
     A, B, out, launches15_30, step15_30, err15_30, info15_30 = drive(
         eng, kern, stack_ciphertexts, unstack_ciphertext, DECRYPT_TOL_30,
@@ -1609,7 +2062,7 @@ def main():
     ab15_30 = route_ab(eng, kern, sharded, A, B, "logN15_30", (3, 3))
     profile_step(lambda: eng.cc_mult(A, B), "logN15_30")
     del eng, A, B, out
-    torch.cuda.empty_cache()
+    release_engines(ttyping)
 
     # 11. logN17_30: kernels, the main path through the per-part chain,
     # the plain-version step, route A/B with peak memory, profile
@@ -1639,10 +2092,19 @@ def main():
         eng, kern, A, B, "logN17_30", smi, (3, 1), 1)
     ab17_30 = route_ab(eng, kern, sharded, A, B, "logN17_30", (3, 1))
     profile_step(lambda: eng.cc_mult(A, B), "logN17_30", top=16)
+    del eng, A, B, out
+    release_engines(ttyping)
+
+    # 12. the extension path at logN15: the operator sugar, save/load,
+    # batched_inference, the HE linear layer and LayerNorm, two-party
+    # MPC, a trace and the CLI
+    ext15, extres15 = extension_phase(CkksEngine, Preset, kern, ttyping,
+                                      smi)
+    release_engines(ttyping)
 
     counts = {k: launches15[k] + launches17[k] + sw_counts[k]
               + launches15_30[k] + launches17_30[k] + eval15[k] + eval17[k]
-              + eval15_30[k] + eval17_30[k] for k in KERNELS}
+              + eval15_30[k] + eval17_30[k] + ext15[k] for k in KERNELS}
     counts.update(probe_counts)
     require(counts, [*KERNELS, *PROBE], "the driven paths")
     for res, launches, step, sfx, tag in (
@@ -1658,6 +2120,7 @@ def main():
             (results15_30, eval15_30, "_30", "logN15_30"),
             (results17_30, eval17_30, "_30", "logN17_30")):
         rank(res, launches, sfx, f"{tag} evaluation path:")
+    rank(results15, ext15, "", "logN15 extension path:")
     measured = {"": (results17, results15, "logN17", "logN15"),
                 "_30": (results17_30, results15_30, "logN17_30",
                         "logN15_30")}
@@ -1706,6 +2169,8 @@ def main():
                       "evaluation": {"ops": evalres17_30,
                                      "keys": evalkeys17_30},
                       **info17_30},
+        "logN15_extensions": {"launches": {k: n for k, n in ext15.items()
+                                           if n}, **extres15},
         "seconds": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": kernels}))

@@ -246,6 +246,26 @@ for bits, scale_bits, tol in ((62, 30, {tol}), (30, 21, {tol30})):
     assert np.abs(rot - np.roll(m1, 1)).max() < tol, bits
     pc = eng.decryptcode(eng.pc_mult(Plaintext(m2), ct1), is_real=True)
     assert np.abs(pc - m1 * m2).max() < tol, bits
+
+# the typed front door and the extensions, with jax blocked too
+import tempfile
+from tiberate_tpu_torch import extension
+from tiberate_tpu_torch.extension.benchmarks import benchreg
+from tiberate_tpu_torch.typing import DataStruct
+from tiberate_tpu_torch.utils import trace
+assert "batched_inference" in benchreg and extension.PackedCT
+ct2 = eng.encodecrypt(m2)
+out = ct1 * ct2 + ct1                  # the sugar, through the registry
+assert np.abs(out.plain - (m1 * m2 + m1)).max() < {tol30}
+with tempfile.TemporaryDirectory() as d:
+    out.save(d + "/ct")
+    back = DataStruct.load(d + "/ct", device="cpu")
+    with trace.profile(d):
+        with trace.annotate("no_jax"):
+            (back >> 1).plain
+assert type(back).__name__ == "Ciphertext" and back.level == out.level
+assert back.data[0].dtype == eng.params.dtype
+assert np.abs(back.plain - out.plain).max() == 0
 assert "tiberate_tpu" not in sys.modules
 print("ok")
 """

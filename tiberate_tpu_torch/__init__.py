@@ -13,6 +13,12 @@ This package never imports jax.  Its keys and noise come from the JAX
 package's counter-mode ChaCha20 CSPRNG, ported as torch ops
 (``rng/csprng.py``): the same seed and nonce give the JAX package's keys
 and ciphertexts byte for byte.
+
+The typed structures (``Ciphertext`` and the keys, lazily importable from
+here) carry the JAX package's operator sugar and its ``.npz`` save/load
+format; ``tiberate_tpu_torch.extension`` holds packing, the HE-NN layers,
+threshold MPC and the benchmark registry, which
+``python -m tiberate_tpu_torch`` runs.
 """
 
 from tiberate_tpu_torch import errors
@@ -23,11 +29,21 @@ __version__ = "0.1.0"
 __all__ = ["CkksConfig", "CkksEngine", "Preset", "errors", "__version__"]
 
 
+_TYPED = ("Ciphertext", "CiphertextTriplet", "Plaintext", "SecretKey",
+          "PublicKey", "EvaluationKey", "KeySwitchKey", "RotationKey",
+          "GaloisKey", "ConjugationKey", "DataStruct", "FLAGS")
+
+
 def __getattr__(name):
+    # Lazy imports so `import tiberate_tpu_torch` stays light.
     if name == "CkksEngine":
         from tiberate_tpu_torch.engine import CkksEngine
 
         return CkksEngine
+    if name in _TYPED:
+        import tiberate_tpu_torch.typing as _t
+
+        return getattr(_t, name)
     raise AttributeError(
         f"module 'tiberate_tpu_torch' has no attribute {name!r}"
     )

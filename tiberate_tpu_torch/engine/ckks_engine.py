@@ -47,6 +47,7 @@ from tiberate_tpu_torch.typing import (
     PublicKey,
     RotationKey,
     SecretKey,
+    register_default_engine,
 )
 from tiberate_tpu_torch.utils import encoding as codec
 from tiberate_tpu_torch.utils.massive import decompose_rot_offsets
@@ -479,7 +480,10 @@ class CkksEngine:
     ``nonce`` key the CSPRNG as in the JAX package: an int seed without a
     nonce is fully deterministic; None draws from ``os.urandom``.
     ``allow_sk_gen=False`` refuses to make a secret key (or a rotation key
-    that is missing); ``norm`` is the codec's FFT normalization.
+    that is missing); ``norm`` is the codec's FFT normalization.  Every
+    engine registers itself (``typing.register_default_engine``): as the
+    default of its logN if it is the first, and under its ``hash``, so the
+    typed structures' operators find it.
     """
 
     def __init__(self, ckks_config=None, device="cuda", *,
@@ -516,6 +520,8 @@ class CkksEngine:
         self._steps = {}    # level -> fused step
         self._consts = {}   # level -> all-parts keyswitch constants
         self._perms = {}    # Galois leap -> (src, sign) on the device
+        # the typed structures' operators dispatch through the registry
+        register_default_engine(self.ckksCfg.logN, self)
 
     # ------------------------------------------------------------------
 
@@ -531,6 +537,18 @@ class CkksEngine:
     def hash(self) -> str:
         q_str = ",".join(map(str, self.montCtx.q))
         return sha256(f"{self.ckksCfg!r}_{q_str}".encode()).hexdigest()
+
+    @property
+    def deviations(self):
+        return self.params.deviations
+
+    @property
+    def corrections(self):
+        return self.params.corrections
+
+    @property
+    def base_prime(self):
+        return self.params.base_prime
 
     def _meta(self):
         return dict(logN=self.ckksCfg.logN, creator_hash=self.hash)

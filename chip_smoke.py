@@ -30,10 +30,15 @@ Phases (any failure exits non-zero):
    (repeats=2)``, ``randround_batch`` and ``encrypt_noise_batch`` of 8,
    three successive calls each, byte for byte, then the states; ms per
    draw on the card (CUDA events);
-2e. the pinned digest: ``CkksEngine("logN14", seed=1234, nonce=1)
+2e. the pinned digests: ``CkksEngine(preset, seed=1234, nonce=1)
    .encodecrypt(linspace(-1, 1))`` on the card hashes to
    ``ct_sha256_seed1234_nonce1`` of ``tests/golden/presets.json`` and
-   decrypts below 1e-6;
+   decrypts below 1e-6, at logN14, logN15 and logN16;
+2f. (run with phase 9's logN17 engine) the native host oracle
+   (``utils/native.py``, exact ``__int128`` arithmetic): K1 -> mont_mult
+   -> K2 on the card equals its negacyclic product for every prime of the
+   logN17 chain, and the CSPRNG's ChaCha20 block function on the card its
+   blocks;
 3. at the logN15 step shapes (batch 8, 16/17/18 channels, N = 32768) hold
    each kernel against its plain torch version on the same card tensors —
    byte for byte, lazy outputs included — and time both (the plain
@@ -134,7 +139,27 @@ Phases (any failure exits non-zero):
     ``trace.profile`` of one rotation holding its ``annotate`` names and
     K6's kernels; the CLI's ``list-benchmarks`` and ``benchmark --name
     single_pmult``.  Each cell ends by clearing the port's default-engine
-    registry, which otherwise keeps every engine alive.
+    registry, which otherwise keeps every engine alive;
+13. the mesh at Preset.logN15, batch 8, every shard on this one card
+    (``make_mesh(devices=["cuda:0"] * D)``): rns 2, rns 4, rns 2 x coef 2
+    and batch 2 x rns 2, keys laid out from the single-device engine's.
+    The step at level 0 (its work level's 16 channels divide 2 and 4) runs
+    per shard and equals the single-device step byte for byte; its kernel
+    launches are counted and required (K5, K2, K3 and its chain form, K4
+    where no coef axis), its collectives counted, its time (CUDA events,
+    median of 3 loops of 3) and peak memory printed, labelled as shards
+    sharing one card, not a scaling figure.  switch_key, relinearize and
+    rotate_single at level 1 equal the single-device ops with the special
+    rows replicated and scattered (``TIBERATE_SCATTER_SPECIAL``);
+    switch_key at level 0 (17 channels) takes the gathered route, counted.
+    Then the coefficient-sharded NTT and iNTT at logN15 over coef 2 and 4
+    (K1 and K2 on the local stages) against K1 and K2 unsharded;
+14. two processes (this script with ``--multihost-child``) share cuda:0
+    over gloo: ``init_multihost``, same-seed keys equal across them,
+    ``broadcast_key`` of an evk only rank 0 holds, ``scatter_batch`` of
+    four pairs each, one mesh step (batch 2 x rns 2) with the broadcast
+    key; rank 0 holds every process's step bytes to a single-process
+    engine.  A failing child fails the phase.
 
 Each kernel has two bounds (``tiberate_tpu_torch/ops/roofline.py``): the
 time its bytes take at the H100's datasheet HBM rate (every input read
@@ -144,7 +169,8 @@ phase 2b measured on this card.  ``bound_ms`` is the larger; ``bound_by``
 says which ("bytes" or "operations": the REDCs).  Before the JSON lines,
 the kernels of each driven path are ranked by launches x (time - bound),
 once with the launches of the whole path, once with the step's and once
-with the evaluation path's (and the extension path's at logN15).  The
+with the evaluation path's (and the extension path's and the mesh
+paths' at logN15).  The
 second-to-last line is a JSON object with one entry per kernel and lane,
 the probe's three kernels included; the last line is the device record.
 """
@@ -990,27 +1016,79 @@ def csprng_phase(Csprng, CkksConfig, presets, smi):
     return results
 
 
-def digest_phase(CkksEngine):
-    """Phase 2e.  The JAX package's pinned logN14 ciphertext digest from
-    the port's keygen, CSPRNG, codec and encrypt on the card."""
+def digest_phase(CkksEngine, typing):
+    """Phase 2e.  The JAX package's pinned ciphertext digests (logN14,
+    logN15, logN16) from the port's keygen, CSPRNG, codec and encrypt on
+    the card.  Returns {preset: decrypt max error}."""
     with open(GOLDEN) as f:
-        want = json.load(f)["logN14"]["ct_sha256_seed1234_nonce1"]
-    eng = CkksEngine("logN14", device="cuda", seed=1234, nonce=1)
-    m = np.linspace(-1, 1, eng.num_slots)
-    ct = eng.encodecrypt(m)
-    h = hashlib.sha256()
-    for d in ct.data:
-        h.update(np.ascontiguousarray(d.cpu().numpy()).tobytes())
-    err = float(np.abs(eng.decryptcode(ct, is_real=True) - m).max())
-    log(f"logN14 seed 1234 nonce 1: ciphertext sha256 {h.hexdigest()} == "
-        f"the pinned digest: {h.hexdigest() == want}; decrypt max error "
-        f"{err:.3e} (limit {DECRYPT_TOL})")
-    if h.hexdigest() != want:
-        raise AssertionError("the logN14 ciphertext digest differs from "
-                             "tests/golden/presets.json")
-    if not err < DECRYPT_TOL:
-        raise AssertionError("logN14 decrypt error above the limit")
-    return err
+        golden = json.load(f)
+    errs = {}
+    for preset in ("logN14", "logN15", "logN16"):
+        want = golden[preset]["ct_sha256_seed1234_nonce1"]
+        t0 = time.perf_counter()
+        eng = CkksEngine(preset, device="cuda", seed=1234, nonce=1)
+        m = np.linspace(-1, 1, eng.num_slots)
+        ct = eng.encodecrypt(m)
+        h = hashlib.sha256()
+        for d in ct.data:
+            h.update(np.ascontiguousarray(d.cpu().numpy()).tobytes())
+        err = float(np.abs(eng.decryptcode(ct, is_real=True) - m).max())
+        log(f"{preset} seed 1234 nonce 1: ciphertext sha256 "
+            f"{h.hexdigest()} == the pinned digest: {h.hexdigest() == want}; "
+            f"decrypt max error {err:.3e} (limit {DECRYPT_TOL}); "
+            f"{time.perf_counter() - t0:.1f} s with the engine's build")
+        if h.hexdigest() != want:
+            raise AssertionError(f"the {preset} ciphertext digest differs "
+                                 f"from tests/golden/presets.json")
+        if not err < DECRYPT_TOL:
+            raise AssertionError(f"{preset} decrypt error above the limit")
+        errs[preset] = err
+        del eng, ct
+        release_engines(typing)
+    return errs
+
+
+def oracle_phase(eng, kern, mont, native, chacha20):
+    """Phase 2f.  The native host oracle (exact ``__int128`` arithmetic,
+    no code shared with the kernels or their plain versions) against the
+    card at the logN17 chain: for every prime, K1 (enter) of a and b,
+    ``mont_mult``, K2 (exit_reduce) equals the oracle's negacyclic
+    product; and the CSPRNG's block function on the card equals the
+    oracle's ChaCha20 blocks."""
+    t0 = time.perf_counter()
+    lp = eng._lp(0, True)
+    rng = np.random.default_rng(SEED)
+    a, b = (np.stack([rng.integers(0, q, eng.params.N) for q in eng.params.q])
+            .astype(np.int64) for _ in range(2))
+    ta, tb = (torch.from_numpy(x).cuda() for x in (a, b))
+    got = kern.intt(mont.mont_mult(kern.ntt(ta, lp, enter=True),
+                                   kern.ntt(tb, lp, enter=True), lp.pack),
+                    lp, "exit_reduce").cpu().numpy()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bad = [c for c, q in enumerate(eng.params.q)
+           if not np.array_equal(got[c], native.negacyclic_mul(a[c], b[c], q))]
+    t_oracle = time.perf_counter() - t0
+    log(f"logN17 chain ({len(eng.params.q)} primes, N = {eng.params.N}): "
+        f"K1 -> mont_mult -> K2 on the card == the native oracle's "
+        f"negacyclic product for every prime: {not bad} (card path with "
+        f"transfers {t_card:.1f} s, oracle {t_oracle:.1f} s on the host)")
+    if bad:
+        raise AssertionError(f"the card's NTT product differs from the "
+                             f"oracle at primes {bad}")
+    states = rng.integers(0, 2**32, (1 << 16, 16), dtype=np.uint32)
+    states[::7, 12] = 0xFFFFFFFF
+    card = chacha20.chacha20_block(
+        torch.from_numpy(states.astype(np.int64)).cuda()).cpu().numpy()
+    same = np.array_equal(card, native.chacha20_blocks(states)
+                          .astype(np.int64))
+    log(f"ChaCha20 block function on the card == the native oracle's on "
+        f"{states.shape[0]} states: {same}")
+    if not same:
+        raise AssertionError("the card's ChaCha20 blocks differ from the "
+                             "oracle's")
+    return dict(primes=len(eng.params.q), card_s=t_card, oracle_s=t_oracle,
+                chacha_states=states.shape[0])
 
 
 def compressed_keys(eng, typing, mont):
@@ -1858,6 +1936,305 @@ def extension_phase(CkksEngine, Preset, kern, typing, smi):
     return launches, res
 
 
+# ----------------------------------------------------------------------
+# Phase 13: the mesh at logN15 on the one card; phase 14: two processes.
+# ----------------------------------------------------------------------
+
+MESHES = (("rns2", dict(rns=2)), ("rns4", dict(rns=4)),
+          ("rns2_coef2", dict(rns=2, coef=2)),
+          ("batch2_rns2", dict(batch=2, rns=2)))
+# the kernels the mesh step launches on each shard's rows: K5, K2, K3 (the
+# first part two-key, the chain's accumulate form after it) and K4 (its
+# ordinary rows); with a coef axis the local stages run on K5, K3 and K2
+# and the P-division as torch ops (no K4)
+MESH_STEP = ("ntt_tensor", "intt", "ntt_keymul", "ntt_keymul_accum",
+             "intt_pdiv")
+MESH_STEP_COEF = ("ntt_tensor", "intt", "ntt_keymul", "ntt_keymul_accum")
+SHARED = "shards sharing one card, not a scaling figure"
+
+
+def same_bytes(got, want):
+    from tiberate_tpu_torch.parallel.mesh import ShardedArray
+
+    return all(torch.equal(g.gather() if isinstance(g, ShardedArray) else g,
+                           w) for g, w in zip(got.data, want.data))
+
+
+def mesh_config(CkksEngine, Preset, kern, meshlib, ref, refs, name, axes,
+                smi):
+    """One mesh of phase 13: the step at level 0 (launches and collectives
+    counted, bytes against the single-device engine, ms per step, peak
+    memory), then switch_key, relinearize and a rotation at level 1 with
+    the special rows replicated and scattered, and switch_key at level 0
+    (17 channels: the gathered route)."""
+    A, B, want, trip, rotk = (refs[k] for k in ("A", "B", "out", "trip",
+                                                "rotk"))
+    D = math.prod(axes.values())
+    tag = f"logN15 mesh {name} ({D} {SHARED})"
+    mesh = meshlib.make_mesh(devices=["cuda:0"] * D, **axes)
+    eng = CkksEngine(Preset.logN15, seed=SEED, mesh=mesh)
+    eng.sk = eng.to_mesh(ref.sk)
+    eng.evk = eng.to_mesh(ref.evk)
+    eng.rotk = {1: eng.to_mesh(rotk)}
+    Am, Bm = eng.to_mesh(A), eng.to_mesh(B)
+
+    mesh.reset_counts()
+    out, counts = count_launches(kern, lambda: eng.cc_mult(Am, Bm))
+    coll = dict(mesh.counts)
+    require(counts, MESH_STEP_COEF if "coef" in axes else MESH_STEP,
+            f"the {name} mesh step")
+    check("cc_mult" not in eng.gathered_ops and out.data[0].spec[-2] ==
+          "rns", f"{tag}: the step did not run per shard")
+    check(same_bytes(out, want), f"{tag}: step differs from one device")
+    ms = cuda_ms(lambda: eng.cc_mult(Am, Bm), reps=3, inner=3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng.cc_mult(Am, Bm)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{tag}: step at level 0 == the single-device step byte for byte; "
+        f"launches {({k: n for k, n in counts.items() if n})}; collectives "
+        f"{coll}; {ms:.3f} ms/step (CUDA events, median of 3 loops of 3), "
+        f"peak device memory {peak / 2**30:.3f} GiB (resident before "
+        f"{base / 2**30:.3f} GiB) ({smi})")
+    profile_step(lambda: eng.cc_mult(Am, Bm), tag, top=8)
+
+    ops = {}
+    for scatter in ("0", "1"):
+        os.environ["TIBERATE_SCATTER_SPECIAL"] = scatter
+        try:
+            mesh.reset_counts()
+            got, op_counts = count_launches(kern, lambda: (
+                eng.switch_key(out, eng.evk),
+                eng.relinearize(eng.to_mesh(trip)),
+                eng.rotate_single(out, eng.rotk[1])))
+        finally:
+            del os.environ["TIBERATE_SCATTER_SPECIAL"]
+        for g, k in zip(got, ("switch_key", "relinearize", "rotate")):
+            check(same_bytes(g, refs[k]), f"{tag} scatter={scatter}: {k} "
+                  f"differs from one device")
+        check(not {"switch_key", "relinearize"} & set(eng.gathered_ops),
+              f"{tag}: a level-1 keyswitch took the gathered route")
+        ops["scatter" if scatter == "1" else "replicated"] = dict(
+            collectives=dict(mesh.counts),
+            launches={k: n for k, n in op_counts.items() if n})
+        log(f"{tag} level 1, special rows "
+            f"{'scattered' if scatter == '1' and 'coef' not in axes else 'replicated'}"
+            f": switch_key, relinearize, rotate_single byte-identical; "
+            f"collectives {dict(mesh.counts)}; launches "
+            f"{({k: n for k, n in op_counts.items() if n})}")
+    got0 = eng.switch_key(Am, eng.evk)
+    check(same_bytes(got0, refs["switch_key0"])
+          and eng.gathered_ops.get("switch_key") == 1,
+          f"{tag}: level-0 switch_key (17 channels) did not take the "
+          f"gathered route or differs")
+    log(f"{tag} level 0 (17 channels): switch_key took the gathered route "
+        f"({eng.gathered_ops}), byte-identical")
+    return counts, dict(step_ms=ms, step_ms_per_ct=ms / BATCH,
+                        peak_bytes=peak, resident_bytes=base,
+                        collectives=coll,
+                        launches={k: n for k, n in counts.items() if n},
+                        level1=ops, gathered=dict(eng.gathered_ops),
+                        shards=D, note=f"{D} {SHARED}")
+
+
+def mesh_phase(CkksEngine, Preset, kern, typing, stack, smi):
+    """Phase 13: the mesh at Preset.logN15, batch 8, every shard on
+    cuda:0 (rns 2, rns 4, rns 2 x coef 2, batch 2 x rns 2), each held byte
+    for byte to the single-device engine; then the coefficient-sharded
+    NTT (K1 on the local stages) at logN15 against K1 unsharded.  Returns
+    (launches of the mesh paths, results)."""
+    from tiberate_tpu_torch.parallel import coef_sharded
+    from tiberate_tpu_torch.parallel import mesh as meshlib
+
+    t_phase = time.perf_counter()
+    ref = CkksEngine(Preset.logN15, device="cuda", seed=SEED)
+    ref.sk, ref.pk, ref.evk  # noqa: B018 — keygen
+    m1, m2 = msgs(ref)
+    refs = dict(A=stack(ref.encodecrypt_batch(m1)),
+                B=stack(ref.encodecrypt_batch(m2)), rotk=ref.rotk[1])
+    refs["out"] = ref.cc_mult(refs["A"], refs["B"])
+    refs["trip"] = ref.cc_mult(refs["out"], refs["out"], pre_rescale=False,
+                               post_relin=False)
+    refs["switch_key"] = ref.switch_key(refs["out"], ref.evk)
+    refs["relinearize"] = ref.relinearize(refs["trip"])
+    refs["rotate"] = ref.rotate_single(refs["out"], refs["rotk"])
+    refs["switch_key0"] = ref.switch_key(refs["A"], ref.evk)
+    ref_ms = cuda_ms(lambda: ref.cc_mult(refs["A"], refs["B"]), reps=3,
+                     inner=3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ref.cc_mult(refs["A"], refs["B"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"logN15 single-device step for the mesh comparison: {ref_ms:.3f} "
+        f"ms/step, peak device memory {peak / 2**30:.3f} GiB (resident "
+        f"before {base / 2**30:.3f} GiB) ({smi})")
+    profile_step(lambda: ref.cc_mult(refs["A"], refs["B"]),
+                 "logN15 single-device step (mesh comparison)", top=8)
+    launches = dict.fromkeys(kern.LAUNCHES, 0)
+    res = dict(single_device_step_ms=ref_ms, single_device_peak_bytes=peak,
+               single_device_resident_bytes=base)
+    for name, axes in MESHES:
+        counts, res[name] = mesh_config(CkksEngine, Preset, kern, meshlib,
+                                        ref, refs, name, axes, smi)
+        for k in launches:
+            launches[k] += counts[k]
+        release_engines(typing)
+        gc.collect()
+
+    lp = ref._lp(0, True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = uniform(gen, lp.pack.q, (BATCH, lp.num_channels, ref.params.N))
+    want_f = kern.ntt(x, lp, enter=False)
+    want_rt = kern.intt(want_f, lp, "mont")
+    for D in (2, 4):
+        mesh = meshlib.make_mesh(devices=["cuda:0"] * D, rns=1, coef=D)
+        ntt_fn, intt_fn = coef_sharded.make_coef_sharded_ntt(lp, 15, mesh)
+        xs = meshlib.ShardedArray.from_tensor(x, mesh, (None, None, "coef"))
+        (got, rt), counts = count_launches(
+            kern, lambda: (lambda f: (f, intt_fn(f)))(ntt_fn(xs)))
+        require(counts, ("ntt", "intt"), f"the coef-sharded NTT at D={D}")
+        check(torch.equal(got.gather(), want_f)
+              and torch.equal(rt.gather(), want_rt),
+              f"coef-sharded NTT at D={D} differs from K1 / K2 unsharded")
+        for k in launches:
+            launches[k] += counts[k]
+        log(f"logN15 coef-sharded NTT and iNTT, [{BATCH}, "
+            f"{lp.num_channels}, 2^15] over coef {D} ({D} {SHARED}): "
+            f"byte-identical to K1 / K2 unsharded, local stages on K1 x"
+            f"{counts['ntt']} and K2 x{counts['intt']}, "
+            f"collectives {mesh.counts}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"logN15 mesh: phase 13 took {res['seconds']:.1f} s")
+    del ref, refs
+    return launches, res
+
+
+def multihost_child(rank, world, port, outdir):
+    """One process of phase 14 (``chip_smoke.py --multihost-child``)."""
+    import torch.distributed as dist
+
+    from tiberate_tpu_torch import Preset
+    from tiberate_tpu_torch.engine import CkksEngine
+    from tiberate_tpu_torch.ops import ntt_kernels as kern
+    from tiberate_tpu_torch.parallel import multihost as mh
+    from tiberate_tpu_torch.parallel import sharded
+    from tiberate_tpu_torch.typing import EvaluationKey
+
+    tag = f"multihost rank {rank}/{world}"
+    check(mh.init_multihost(f"localhost:{port}", world, rank,
+                            backend="gloo") == (rank, world), tag)
+    mesh = mh.global_mesh(rns=2, devices=["cuda:0"] * 2)
+    eng = CkksEngine(Preset.logN15, seed=SEED, mesh=mesh)
+    sk, pk, evk = eng.sk, eng.pk, eng.evk
+    pk0 = pk.data[0].gather().cpu()
+    every = [torch.empty_like(pk0) for _ in range(world)]
+    dist.all_gather(every, pk0)
+    check(all(torch.equal(p, pk0) for p in every),
+          f"{tag}: same-seed keys differ across processes")
+    real = [tuple(k.gather() for k in part) for part in evk.data]
+    held = real if rank == 0 else [tuple(torch.zeros_like(k) for k in part)
+                                   for part in real]
+    t0 = time.perf_counter()
+    bcast = mh.broadcast_key(held, from_process=0, device="cuda:0")
+    t_bcast = time.perf_counter() - t0
+    check(all(torch.equal(x, y) for p, r in zip(bcast, real)
+              for x, y in zip(p, r)), f"{tag}: broadcast_key")
+    bkey = EvaluationKey(data=tuple(bcast), flags=evk._flags, level=0,
+                         **evk.misc)
+    rng = np.random.default_rng(SEED + rank)
+    cts = eng.encodecrypt_batch(list(rng.uniform(-1, 1, (BATCH,
+                                                         eng.num_slots))))
+    rows = [tuple(d.gather() for d in ct.data) for ct in cts]
+    half = BATCH // 2
+    a0, a1 = mh.scatter_batch(rows[:half], mesh)
+    b0, b1 = mh.scatter_batch(rows[half:], mesh)
+    step = sharded.make_mult_step(eng, 0)
+    ksk = sharded.prepare_step_ksk(eng, 0, ksk=bkey)
+    prm = sharded.mult_step_params(eng, 0, ksk=bkey)
+    mesh.reset_counts()
+    (o0, o1), counts = count_launches(
+        kern, lambda: step(a0, a1, b0, b1, ksk, prm))
+    coll = dict(mesh.counts)
+    require(counts, MESH_STEP, f"{tag} mesh step")
+    ms = cuda_ms(lambda: step(a0, a1, b0, b1, ksk, prm), reps=3, inner=1)
+    mine = [torch.stack([r[i] for r in rows[:half]]).cpu() for i in (0, 1)]
+    mine += [torch.stack([r[i] for r in rows[half:]]).cpu() for i in (0, 1)]
+    mine += [mh.local_batch(o).cpu() for o in (o0, o1)]
+    # rank 0 holds every process's step against a single-process engine
+    gathered = [[torch.empty_like(t) for _ in range(world)] if rank == 0
+                else None for t in mine]
+    for t, g in zip(mine, gathered):
+        dist.gather(t, g, dst=0)
+    if rank == 0:
+        ref = CkksEngine(Preset.logN15, device="cuda:0", seed=SEED)
+        ref.sk, ref.pk, ref.evk  # noqa: B018 — the same draws
+        step_u = sharded.make_mult_step(ref, 0, rns_shard=False)
+        ksk_u = sharded.prepare_step_ksk(ref, 0, rns_shard=False)
+        prm_u = sharded.mult_step_params(ref, 0, rns_shard=False)
+        for r in range(world):
+            ins = [g[r].cuda() for g in gathered[:4]]
+            want = step_u(*ins, ksk_u, prm_u)
+            check(all(torch.equal(w.cpu(), g[r])
+                      for w, g in zip(want, gathered[4:])),
+                  f"{tag}: rank {r}'s mesh step differs from the "
+                  f"single-process step")
+    dist.barrier()
+    log(f"{tag}: same-seed keys equal, broadcast_key of an evk "
+        f"({sum(nbytes(*p) for p in real) / 2**20:.1f} MiB) in "
+        f"{t_bcast:.3f} s, scatter_batch of {half} pairs, mesh step "
+        f"(batch {world} x rns 2, both processes' shards sharing cuda:0) "
+        f"{ms:.3f} ms, launches {({k: n for k, n in counts.items() if n})},"
+        f" collectives {coll}" + ("; every process's step bytes == "
+                                        "the single-process step"
+                                        if rank == 0 else ""))
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(dict(step_ms=ms, broadcast_s=t_bcast,
+                       launches={k: n for k, n in counts.items() if n},
+                       collectives=coll), f)
+    dist.destroy_process_group()
+    return 0
+
+
+def multihost_phase():
+    """Phase 14: two processes on cuda:0 over gloo, each running
+    :func:`multihost_child`; a failing child fails the phase."""
+    import socket
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as outdir:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multihost-child",
+             str(rank), "2", str(port), outdir],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(2)]
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for rank, (p, out) in enumerate(zip(procs, outs)):
+            log("\n".join(f"  [rank {rank}] {line}"
+                          for line in out.strip().splitlines()[-6:]))
+            if p.returncode != 0:
+                raise AssertionError(f"multihost rank {rank} exited "
+                                     f"{p.returncode}")
+        res = {}
+        for rank in range(2):
+            with open(os.path.join(outdir, f"rank{rank}.json")) as f:
+                res[f"rank{rank}"] = json.load(f)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"multihost: phase 14 took {res['seconds']:.1f} s")
+    return res
+
+
 def profile_step(fn, tag, top=12):
     """Device time by kernel over one step (CUDA kernel events only), and
     the busy share of its wall time (kernel times summed; kernels on one
@@ -1954,11 +2331,10 @@ def main():
             f"{imad} IMAD-class, for {bfly} butterflies a thread: "
             f"{total / bfly:.1f} ({imad / bfly:.1f} IMAD-class) a butterfly")
 
-    # 2d. the CSPRNG on the card against the CPU; 2e. the pinned digest
+    # 2d. the CSPRNG on the card against the CPU; 2e. the pinned digests
     csprng = csprng_phase(Csprng, CkksConfig, (Preset.logN15, Preset.logN17),
                           smi)
-    err14 = digest_phase(CkksEngine)
-    release_engines(ttyping)
+    digest_errs = digest_phase(CkksEngine, ttyping)
 
     # 3. logN15 kernels against their plain versions
     eng_k = CkksEngine(Preset.logN15, device="cuda", seed=SEED)
@@ -2033,6 +2409,12 @@ def main():
     profile_step(lambda: eng17.cc_mult(A, B), "logN17", top=16)
     share17 = draw_share(eng17, msgs(eng17)[0], "logN17")
 
+    # 2f. the native oracle at the logN17 chain (phase 9's engine)
+    from tiberate_tpu_torch.rng import chacha20
+    from tiberate_tpu_torch.utils import native
+
+    oracle = oracle_phase(eng17, kern, mont, native, chacha20)
+
     del eng17, A, B, out
     release_engines(ttyping)
 
@@ -2102,9 +2484,16 @@ def main():
                                       smi)
     release_engines(ttyping)
 
+    # 13. the mesh at logN15 on this one card; 14. two processes over gloo
+    mesh15, meshres15 = mesh_phase(CkksEngine, Preset, kern, ttyping,
+                                   stack_ciphertexts, smi)
+    release_engines(ttyping)
+    multihost = multihost_phase()
+
     counts = {k: launches15[k] + launches17[k] + sw_counts[k]
               + launches15_30[k] + launches17_30[k] + eval15[k] + eval17[k]
-              + eval15_30[k] + eval17_30[k] + ext15[k] for k in KERNELS}
+              + eval15_30[k] + eval17_30[k] + ext15[k] + mesh15[k]
+              for k in KERNELS}
     counts.update(probe_counts)
     require(counts, [*KERNELS, *PROBE], "the driven paths")
     for res, launches, step, sfx, tag in (
@@ -2121,6 +2510,8 @@ def main():
             (results17_30, eval17_30, "_30", "logN17_30")):
         rank(res, launches, sfx, f"{tag} evaluation path:")
     rank(results15, ext15, "", "logN15 extension path:")
+    rank(results15, mesh15, "", "logN15 mesh paths (every shard on one "
+         "card):")
     measured = {"": (results17, results15, "logN17", "logN15"),
                 "_30": (results17_30, results15_30, "logN17_30",
                         "logN15_30")}
@@ -2142,7 +2533,8 @@ def main():
                 for key, (src, rep) in PROBE.items()]
     log(json.dumps({
         "card": smi, "batch": BATCH,
-        "csprng": csprng, "logN14_digest_decrypt_max_err": err14,
+        "csprng": csprng, "digest_decrypt_max_err": digest_errs,
+        "native_oracle": oracle,
         "logN15": {"step_ms": step_ms, "step_ms_per_ct": step_ms / BATCH,
                    "plain_step_ms": plain_step_ms,
                    "decrypt_max_err": err15, "route_ab": ab15,
@@ -2171,6 +2563,9 @@ def main():
                       **info17_30},
         "logN15_extensions": {"launches": {k: n for k, n in ext15.items()
                                            if n}, **extres15},
+        "logN15_mesh": {"launches": {k: n for k, n in mesh15.items() if n},
+                        **meshres15},
+        "multihost": multihost,
         "seconds": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": kernels}))
@@ -2181,4 +2576,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-child"]:
+        rank, world, port = (int(v) for v in sys.argv[2:5])
+        sys.exit(multihost_child(rank, world, port, sys.argv[5]))
     sys.exit(main())

@@ -8,7 +8,8 @@ the CPU's, the fold-rate probe's three kernels against their plain
 versions, K1 without entry on the signed rows of a rotated or conjugated
 secret key, and the CSPRNG, keygen, the batch encrypt and decrypt forms,
 the rotation and conjugation keys, rotations and ``pc_mult`` on the card
-against the CPU's.  The file imports no jax, so it also
+against the CPU's, and the mesh engine with every shard on the card
+against the single-device engine on the CPU.  The file imports no jax, so it also
 runs on a machine that has only torch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -388,3 +389,42 @@ def test_rotations_and_pc_mult_on_card_equal_cpu(card, lane):
     tol = 5e-5 if lane == 62 else 1e-2
     dec = eng.decryptcode_batch(teng.unstack_ciphertext(rot), is_real=True)
     assert np.abs(dec - np.roll(ms, 1, axis=-1)).max() < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", sorted(LANES))
+@pytest.mark.parametrize("axes", [dict(rns=2), dict(rns=2, coef=2)],
+                         ids=["rns2", "rns2_coef2"])
+def test_mesh_engine_on_card_equals_cpu(card, lane, axes):
+    """``CkksEngine(mesh=)`` with every shard on the card against the
+    single-device engine on the CPU, same seed: the fused step (per shard:
+    the work level's 4 channels divide 2), a rotation of the product
+    (the sharded keyswitch) and a level-0 rotation (the gathered route),
+    byte for byte; the sharded step launches K5, K3 (and its chain form)
+    and K2 on the shards' rows, and K4 without a coef axis."""
+    from tiberate_tpu_torch.parallel.mesh import ShardedArray, make_mesh
+
+    sfx = LANES[lane][1]
+    ms = np.random.default_rng(3).uniform(-1, 1, (2, 1 << 9))
+    mesh = make_mesh(devices=["cuda:0"] * int(np.prod(list(axes.values()))),
+                     **axes)
+
+    def run(e):
+        x, y = e.encodecrypt(ms[0]), e.encodecrypt(ms[1])
+        K.reset_launch_counts()
+        prod = e.cc_mult(x, y)
+        counts = dict(K.LAUNCHES)
+        outs = [prod, e.rotate_offset(prod, 1), e.rotate_offset(x, 1)]
+        return [t.gather() if isinstance(t, ShardedArray) else t
+                for ct in outs for t in ct.data], counts
+
+    got, counts = run(teng.CkksEngine(_cfg(10, lane), seed=6, mesh=mesh))
+    torch.cuda.synchronize()
+    want, _ = run(teng.CkksEngine(_cfg(10, lane), device="cpu", seed=6))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    need = ["ntt_tensor", "ntt_keymul", "ntt_keymul_accum", "intt"]
+    if "coef" not in axes:
+        need.append("intt_pdiv")
+    assert all(counts[k + sfx] > 0 for k in need), counts
+    assert counts["ntt_keymul_parts" + sfx] == 0

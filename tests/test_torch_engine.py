@@ -266,6 +266,23 @@ with tempfile.TemporaryDirectory() as d:
 assert type(back).__name__ == "Ciphertext" and back.level == out.level
 assert back.data[0].dtype == eng.params.dtype
 assert np.abs(back.plain - out.plain).max() == 0
+
+# the mesh layer, the native oracle and multihost, with jax blocked too
+from tiberate_tpu_torch.parallel import mesh as meshlib, multihost
+from tiberate_tpu_torch.utils import native
+mesh = meshlib.make_mesh(devices=["cpu"] * 4, rns=2, coef=2)
+meng = CkksEngine(toy_config(logN=7, num_scales=4, num_special_primes=2,
+                             scale_bits=30), seed=3, mesh=mesh)
+prod = meng.cc_mult(meng.encodecrypt(m1), meng.encodecrypt(m2))
+assert prod.data[0].spec == (None, "rns", "coef")[1:]
+assert np.abs(meng.decryptcode(meng.rotate_offset(prod, 1), is_real=True)
+              - np.roll(m1 * m2, 1)).max() < {tol}
+assert mesh.counts["all_gather"] >= 2 and mesh.counts["ppermute"] > 0
+assert multihost.init_multihost() == (0, 1)
+q = 1152921504606584833
+a = np.arange(64, dtype=np.int64)
+assert native.negacyclic_mul(a, np.eye(1, 64, 1, dtype=np.int64)[0], q)[
+    1:].tolist() == a[:-1].tolist()
 assert "tiberate_tpu" not in sys.modules
 print("ok")
 """
@@ -331,6 +348,39 @@ def test_keys_match_jax(case):
     assert len(t.evk.data) == len(j.evk.data)
     assert _same(_ksk_leaves(j.evk), _ksk_leaves(t.evk))
     assert t.pk._flags == interop.from_jax(j.pk, device="cpu")._flags
+
+
+@pytest.mark.parametrize("preset", ["logN15", "logN16"])
+def test_port_large_preset_ciphertext_digest_pinned(preset):
+    """The pinned digests of tests/golden/presets.json at logN15 and
+    logN16 from the port alone (the JAX package gates its own,
+    tests/test_golden.py, for its CPU compile times); decrypt below 1e-6."""
+    with open(REPO_GOLDEN) as f:
+        golden = json.load(f)[preset]["ct_sha256_seed1234_nonce1"]
+    eng = teng.CkksEngine(preset, device="cpu", seed=1234, nonce=1)
+    m = np.linspace(-1, 1, eng.num_slots)
+    ct = eng.encodecrypt(m)
+    h = hashlib.sha256()
+    for d in ct.data:
+        h.update(np.ascontiguousarray(d.numpy()).tobytes())
+    assert h.hexdigest() == golden
+    assert np.abs(eng.decryptcode(ct, is_real=True) - m).max() < 1e-6
+
+
+def test_engine_id_rnspart_and_str_match_jax():
+    """Both engines from one toy configuration: ``str`` equal with the id
+    masked, the same ``rnsPart`` partitions, distinct ids per engine."""
+    cfg = _cfg()
+    j = jeng.CkksEngine(cfg, seed=1)
+    t1 = teng.CkksEngine(cfg, device="cpu", seed=1)
+    t2 = teng.CkksEngine(cfg, device="cpu", seed=1)
+    assert str(t1).replace(t1.id, "<id>") == str(j).replace(j.id, "<id>")
+    assert str(t1).startswith(f"CkksEngine ({t1.id}) ")
+    assert t1.id != t2.id and len({t1.id, t2.id, j.id}) == 3
+    for name in ("partitions", "part_allocations", "prime_allocations",
+                 "destination_arrays", "destination_arrays_with_special",
+                 "parts", "p", "p_special", "rescaler_loc"):
+        assert getattr(t1.rnsPart, name) == getattr(j.rnsPart, name), name
 
 
 def test_port_logN14_ciphertext_digest_pinned():

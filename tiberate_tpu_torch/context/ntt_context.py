@@ -22,6 +22,7 @@ is a butterfly NTT over one 64-bit (or, in the 30-bit mode, 32-bit) word
 with a native wide product.
 """
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -63,6 +64,8 @@ class LevelPack:
         return self.psi.shape[0]
 
     def __getitem__(self, sl):
+        """The channels ``sl`` selects: a slice (a view, contiguous rows)
+        or a list of channel indices (a copy: a shard's rows)."""
         return LevelPack(
             pack=self.pack[sl],
             psi=self.psi[sl],
@@ -72,6 +75,12 @@ class LevelPack:
             Rs_scale=self.Rs_scale[sl],
             pdc=self.pdc[sl],
         )
+
+    def to(self, device):
+        return dataclasses.replace(
+            self, pack=self.pack.to(device),
+            **{f: getattr(self, f).to(device)
+               for f in ("psi", "ipsi", "Ninv", "Rs", "Rs_scale", "pdc")})
 
 
 @dataclass(frozen=True)
@@ -92,6 +101,16 @@ class PartPack:
     @property
     def alpha(self):
         return self.hi - self.lo
+
+    def to(self, device):
+        return dataclasses.replace(
+            self,
+            Y_scalar=None if self.Y_scalar is None
+            else self.Y_scalar.to(device),
+            L_scalar=tuple(t.to(device) for t in self.L_scalar),
+            L_enter=None if self.L_enter is None
+            else self.L_enter.to(device),
+        )
 
 
 class CkksParams:

@@ -23,7 +23,10 @@ package's jnp path on the same inputs.
 """
 
 import functools
+import logging
 import math
+import types
+import uuid
 from hashlib import sha256
 
 import numpy as np
@@ -34,12 +37,19 @@ from tiberate_tpu_torch.config import CkksConfig, Preset
 from tiberate_tpu_torch.context.ntt_context import CkksParams, PartPack
 from tiberate_tpu_torch.ops import mont
 from tiberate_tpu_torch.ops import ntt_kernels as kern
+from tiberate_tpu_torch.parallel.mesh import (
+    ShardedArray,
+    all_gather,
+    fitting_spec,
+    reshard,
+)
 from tiberate_tpu_torch.rng.csprng import Csprng
 from tiberate_tpu_torch.typing import (
     FLAGS,
     Ciphertext,
     CiphertextTriplet,
     ConjugationKey,
+    DataStruct,
     EvaluationKey,
     GaloisKey,
     KeySwitchKey,
@@ -52,9 +62,17 @@ from tiberate_tpu_torch.typing import (
 from tiberate_tpu_torch.utils import encoding as codec
 from tiberate_tpu_torch.utils.massive import decompose_rot_offsets
 
+logger = logging.getLogger("tiberate_tpu_torch")
+
 # ======================================================================
 # Cores.
 # ======================================================================
+
+
+def _t(x):
+    """A key's data as one tensor: a mesh-laid key gathered (cached on its
+    ShardedArray), a tensor as it is."""
+    return x.gather() if isinstance(x, ShardedArray) else x
 
 
 def _keygen_sk_core(ternary, lp):
@@ -176,8 +194,16 @@ def _check_ntt_mont_state(ds):
 def _rescale_core(d, rescale_scale, lp_next, round_at, exact_rounding=True):
     """Drop the top RNS channel, rounding exactly unless told not to.
     d: [..., C, N] in [0, q) -> [..., C-1, N]."""
-    rescaler = d[..., 0:1, :]
-    data = d[..., 1:, :] - rescaler
+    return _rescale_rows(d[..., 0:1, :], d[..., 1:, :], rescale_scale,
+                         lp_next, round_at, exact_rounding)
+
+
+def _rescale_rows(rescaler, rows, rescale_scale, lp_next, round_at,
+                  exact_rounding=True):
+    """:func:`_rescale_core` of any of the kept rows: ``rescaler`` [..., 1,
+    N] the dropped channel, ``rows`` [..., c, N] the kept rows, with their
+    ``rescale_scale`` and ``lp_next`` rows (a shard's rows of the result)."""
+    data = rows - rescaler
     data = mont.mont_mult(data, rescale_scale, lp_next.pack)
     if exact_rounding:
         data = data + (rescaler > round_at).to(data.dtype)
@@ -319,6 +345,15 @@ def _pdiv_fused(acc, lp_sp, lp_ord, PiRs, S):
     C = lp_ord.num_channels
     lp_spec = lp_sp[C:]
     cur = kern.intt(acc[..., C:, :].contiguous(), lp_spec, "exit_reduce")
+    return kern.intt_pdiv(acc, _pdiv_p0(cur, lp_spec, PiRs, C, S), lp_ord,
+                          PiRs)
+
+
+def _pdiv_p0(cur, lp_spec, PiRs, C, S):
+    """The plain rows the successive P-division subtracts, in division
+    order [..., S, N], from the canonical coefficient-domain special rows
+    ``cur`` [..., S, N]: the rescale replayed on the special block alone
+    (``PiRs`` rows from ``C`` on are the special rows')."""
     rows = []
     for i in range(S):
         r = cur[..., S - 1 - i, :]
@@ -326,7 +361,7 @@ def _pdiv_fused(acc, lp_sp, lp_ord, PiRs, S):
         if i < S - 1:
             upd = mont.mont_sub(cur, r[..., None, :], lp_spec.pack)
             cur = mont.mont_mult(upd, PiRs[i][C:], lp_spec.pack)
-    return kern.intt_pdiv(acc, torch.stack(rows, dim=-2), lp_ord, PiRs)
+    return torch.stack(rows, dim=-2)
 
 
 def _parts_digits(a, parts, lp_ord, amax):
@@ -445,6 +480,73 @@ def _relin_core(d0, d1, d2, ksk_parts, parts, lp_sp, lp_ord, PiRs, lvl, S,
 
 
 # ======================================================================
+# The engine mesh.
+# ======================================================================
+
+_CTS = (Ciphertext, CiphertextTriplet)
+
+
+def _same_device(a, b) -> bool:
+    a, b = torch.device(a), torch.device(b)
+    return (a.type, a.index or 0) == (b.type, b.index or 0)
+
+
+def _holds_sharded(obj) -> bool:
+    """A ShardedArray, or a ciphertext (triplet) whose data is one, in
+    ``obj`` (args and kwargs); keys do not count: their readers gather
+    them (:func:`_t`)."""
+    if isinstance(obj, ShardedArray):
+        return True
+    if isinstance(obj, _CTS):
+        return any(isinstance(d, ShardedArray) for d in obj.data)
+    if isinstance(obj, (list, tuple)):
+        return any(_holds_sharded(o) for o in obj)
+    if isinstance(obj, dict):
+        return any(_holds_sharded(o) for o in obj.values())
+    return False
+
+
+def _local(obj):
+    """``obj`` with every ShardedArray and mesh-laid ciphertext gathered
+    onto the mesh's first device."""
+    if isinstance(obj, ShardedArray):
+        return obj.gather()
+    if isinstance(obj, _CTS) and _holds_sharded(obj):
+        return type(obj)(data=tuple(_t(d) for d in obj.data),
+                         flags=obj._flags, level=obj.level, **obj.misc)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_local(o) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _local(v) for k, v in obj.items()}
+    return obj
+
+
+def _mesh_op(sharded=None, local_out=False):
+    """An engine op on the mesh form.  Without an engine mesh, or with no
+    mesh-laid ciphertext among the arguments, the op runs as it is.
+    Otherwise the method named ``sharded`` runs it per shard; where that
+    returns NotImplemented (its gates failed), or there is none, the op
+    takes the gathered route: its ciphertexts gathered onto the mesh's
+    first device, the single-device op, the result laid back out (not with
+    ``local_out``: decrypts), counted in ``engine.gathered_ops``."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def op(self, *args, **kwargs):
+            if self.mesh is None or not _holds_sharded((args, kwargs)):
+                return fn(self, *args, **kwargs)
+            if sharded is not None:
+                out = getattr(self, sharded)(*args, **kwargs)
+                if out is not NotImplemented:
+                    return out
+            name = fn.__name__
+            self.gathered_ops[name] = self.gathered_ops.get(name, 0) + 1
+            out = fn(self, *_local(args), **_local(kwargs))
+            return out if local_out else self.to_mesh(out)
+        return op
+    return deco
+
+
+# ======================================================================
 # The engine.
 # ======================================================================
 
@@ -473,10 +575,19 @@ class _RotkCache:
 
 
 class CkksEngine:
-    """CKKS engine on one device.
+    """CKKS engine on one device, or on a mesh of them.
 
     ``device`` is explicit: "cuda" (the default) raises when no GPU is
-    present; pass "cpu" to run the plain torch versions.  ``seed`` and
+    present; pass "cpu" to run the plain torch versions.  ``mesh``
+    (:func:`parallel.mesh.make_mesh`): keys and fresh ciphertexts are laid
+    out over it (:meth:`to_mesh`), every op takes and returns that form and
+    gives the single-device engine's bytes; the engine's device is the
+    mesh's first.  ``cc_mult``, ``relinearize``, ``create_switcher`` /
+    ``switch_key``, the rotations and ``conjugate`` run per shard where the
+    rns axis divides the level's channels, ``rescale``, add/sub,
+    ``negate``, ``pc_add``, ``pc_mult`` (coefficients whole) and the scalar
+    ops per block; every other op on mesh-laid ciphertexts takes the
+    gathered route (:func:`_mesh_op`, counted in ``gathered_ops``).  ``seed`` and
     ``nonce`` key the CSPRNG as in the JAX package: an int seed without a
     nonce is fully deterministic; None draws from ``os.urandom``.
     ``allow_sk_gen=False`` refuses to make a secret key (or a rotation key
@@ -486,10 +597,16 @@ class CkksEngine:
     typed structures' operators find it.
     """
 
-    def __init__(self, ckks_config=None, device="cuda", *,
+    def __init__(self, ckks_config=None, device=None, *,
                  allow_sk_gen: bool = True, bias_guard: bool = True,
-                 norm: str = "forward", seed=None, nonce=None):
-        self.device = torch.device(device)
+                 norm: str = "forward", seed=None, nonce=None, mesh=None):
+        if mesh is not None:
+            if device is not None and not _same_device(device,
+                                                       mesh.first_device):
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {mesh.first_device}")
+            device = mesh.first_device
+        self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "device='cuda' requested but torch.cuda.is_available() is "
@@ -507,9 +624,11 @@ class CkksEngine:
 
         self.params = CkksParams(self.ckksCfg, self.device)
         self.montCtx = self.params.montCtx
+        self.rnsPart = self.params.rnsPart
         self.rng = self._csprng(seed, nonce)
         self.bias_guard = bias_guard
         self.norm = norm
+        self.id = str(uuid.uuid4())
         self.allow_sk_gen = allow_sk_gen
         self.__sk = None
         self.__pk = None
@@ -520,8 +639,19 @@ class CkksEngine:
         self._steps = {}    # level -> fused step
         self._consts = {}   # level -> all-parts keyswitch constants
         self._perms = {}    # Galois leap -> (src, sign) on the device
+        # the engine mesh: keys and fresh ciphertexts are laid out over it
+        # (``_shard``), and the ops take and return that form
+        self.mesh = mesh
+        self._mesh_cache = {}
+        # engine op -> calls that took the gathered route (``_mesh_op``)
+        self.gathered_ops = {}
         # the typed structures' operators dispatch through the registry
         register_default_engine(self.ckksCfg.logN, self)
+        logger.info(
+            "CkksEngine %s ready: logN=%d levels=%d special=%d device=%s "
+            "mesh=%s", self.id[:8], self.ckksCfg.logN, self.num_levels,
+            self.ckksCfg.num_special_primes, self.device, self.mesh,
+        )
 
     # ------------------------------------------------------------------
 
@@ -537,6 +667,9 @@ class CkksEngine:
     def hash(self) -> str:
         q_str = ",".join(map(str, self.montCtx.q))
         return sha256(f"{self.ckksCfg!r}_{q_str}".encode()).hexdigest()
+
+    def __str__(self):
+        return f"{type(self).__name__} ({self.id}) {self.ckksCfg}"
 
     @property
     def deviations(self):
@@ -558,6 +691,262 @@ class CkksEngine:
 
     def _lp_for(self, ds):
         return self._lp(ds.level, ds.has_flag(FLAGS.INCLUDE_SPECIAL))
+
+    # ------------------------------------------------------------------
+    # The engine mesh.
+    # ------------------------------------------------------------------
+
+    def _shard(self, x):
+        """Lay a [..., C, N] tensor onto the engine mesh (no-op without
+        one): channels over 'rns' and coefficients over 'coef' where the
+        axis' extent divides the dimension, every other dimension whole."""
+        if self.mesh is None or not isinstance(x, torch.Tensor) or x.ndim < 2:
+            return x
+        return ShardedArray.from_tensor(x, self.mesh,
+                                        fitting_spec(x.shape, self.mesh))
+
+    def _as_sharded(self, x):
+        return x if isinstance(x, ShardedArray) else self._shard(x)
+
+    def to_mesh(self, obj):
+        """A ciphertext's, triplet's or key's tensors (or a tensor, or a
+        tuple or list of these) laid out over the engine mesh."""
+        if self.mesh is None:
+            return obj
+        if isinstance(obj, torch.Tensor):
+            return self._shard(obj)
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(self.to_mesh(o) for o in obj)
+        if isinstance(obj, DataStruct) and not isinstance(obj, Plaintext):
+            return type(obj)(data=self.to_mesh(obj.data), flags=obj._flags,
+                             level=obj.level, **obj.misc)
+        return obj
+
+    def _block_lp(self, level, special, r0, r1, device):
+        """Rows [r0, r1) of a level view on ``device``, cached."""
+        key = ("lp", level, special, r0, r1, device)
+        if key not in self._mesh_cache:
+            self._mesh_cache[key] = self._lp(level, special)[r0:r1].to(device)
+        return self._mesh_cache[key]
+
+    def _blockwise(self, fn, arrays, level, special=False):
+        """``fn(blk, *blocks)`` per coordinate over ShardedArrays laid out
+        as the first; ``blk`` carries the coordinate ``c``, the block's
+        ``rows`` and ``cols`` slices, its rows' LevelPack ``lp`` and its
+        ``device``."""
+        arrays = [self._as_sharded(a) for a in arrays]
+        spec = arrays[0].spec
+        arrays = [reshard(a, spec) for a in arrays]
+        first = arrays[0]
+        out = {}
+        for c in first.blocks:
+            sl = first.slices(c)
+            dev = self.mesh.device(c)
+            blk = types.SimpleNamespace(
+                c=c, rows=sl[-2], cols=sl[-1], device=dev,
+                lp=self._block_lp(level, special, sl[-2].start, sl[-2].stop,
+                                  dev))
+            out[c] = fn(blk, *(a.blocks[c] for a in arrays))
+        return ShardedArray(out, self.mesh, spec, first.shape, first.dtype)
+
+    def _mesh_gate(self, level):
+        """(rns axis, coef axis) of the sharded keyswitch at ``level``: the
+        rns axis None where it does not divide the channels."""
+        from tiberate_tpu_torch.parallel import sharded
+
+        return sharded._rns_axis(self, level), sharded._coef_axis(self)
+
+    def _cc_double_mesh(self, core, a, b):
+        if a.has_flag(FLAGS.NTT_STATE) or b.has_flag(FLAGS.NTT_STATE):
+            raise errors.NTTStateError(expected=False)
+        a, b = (self.to_mesh(x) for x in self.align_level(a, b))
+        return Ciphertext(
+            data=tuple(self._blockwise(lambda k, x, y: core(x, y, k.lp),
+                                       (x, y), a.level)
+                       for x, y in zip(a.data, b.data)),
+            level=a.level, **self._meta())
+
+    def _cc_triplet_mesh(self, core, a, b):
+        if not (a.has_flag(FLAGS.NTT_STATE) and b.has_flag(FLAGS.NTT_STATE)):
+            raise errors.NTTStateError(expected=True)
+        a, b = self.to_mesh(a), self.to_mesh(b)
+        return CiphertextTriplet(
+            data=tuple(self._blockwise(lambda k, x, y: core(x, y, k.lp),
+                                       (x, y), a.level)
+                       for x, y in zip(a.data, b.data)),
+            flags=FLAGS.MONTGOMERY_STATE | FLAGS.NTT_STATE
+            | FLAGS.NEED_RELINERIZE, level=a.level, **self._meta())
+
+    def _negate_mesh(self, ct):
+        special = ct.has_flag(FLAGS.INCLUDE_SPECIAL)
+        return Ciphertext(
+            data=tuple(self._blockwise(lambda k, x: _negate_core(x, k.lp),
+                                       (d,), ct.level, special)
+                       for d in ct.data),
+            flags=ct._flags, level=ct.level, **self._meta())
+
+    def _mult_mont_scalar_mesh(self, ct, mont_scalar):
+        col = self._scalar_col(mont_scalar, ct.level)
+        return Ciphertext(
+            data=tuple(self._blockwise(
+                lambda k, x: _mont_scalar_core(x, col[k.rows].to(k.device),
+                                               k.lp), (d,), ct.level)
+                for d in ct.data),
+            level=ct.level, **self._meta())
+
+    def _add_scalar_mesh(self, ct, scalar):
+        col = self._scalar_col(self._add_scalar_values(ct, scalar), ct.level)
+
+        def add(k, x):   # coefficient 0 lies in the first coef block
+            if k.cols.start:
+                return x
+            return _add_scalar_core(x, col[k.rows].to(k.device), k.lp)
+        new0 = self._blockwise(add, (ct.data[0],), ct.level)
+        return Ciphertext(data=(new0, ct.data[1]), flags=ct._flags,
+                          level=ct.level, **self._meta())
+
+    def _pc_add_mesh(self, pt, ct):
+        pt_m = self._pt_cached(pt, ct.level, "pc_add")
+        new0 = self._blockwise(
+            lambda k, x: _pc_add_core(pt_m[k.rows, k.cols].contiguous()
+                                      .to(k.device), x, k.lp),
+            (ct.data[0],), ct.level)
+        return Ciphertext(data=(new0, ct.data[1]), flags=ct._flags,
+                          level=ct.level, **self._meta())
+
+    def _pc_mult_mesh(self, pt, ct, post_rescale=True):
+        """Per block where the coefficients are whole (the transforms are
+        row-local); NotImplemented on a coef-sharded ciphertext."""
+        d0, d1 = (self._as_sharded(d) for d in ct.data)
+        if d0.spec[-1] is not None:
+            return NotImplemented
+        pt_ntt = self._pt_cached(pt, ct.level, "pc_mult")
+        both = self._blockwise(
+            lambda k, x, y: torch.stack(_pc_mult_core(
+                pt_ntt[k.rows].to(k.device), x, y, k.lp)),
+            (d0, d1), ct.level)
+        data = tuple(
+            ShardedArray({c: v[i] for c, v in both.blocks.items()},
+                         self.mesh, both.spec, both.shape, both.dtype)
+            for i in range(2))
+        new_ct = Ciphertext(data=data, level=ct.level, **self._meta())
+        return self.rescale(new_ct) if post_rescale else new_ct
+
+    def _rescale_mesh(self, ct, exact_rounding=True):
+        from tiberate_tpu_torch.parallel import sharded
+
+        level = ct.level
+        if level + 1 >= self.num_levels:
+            raise errors.MaximumLevelError(level=level,
+                                           level_max=self.num_levels)
+        data = []
+        for d in ct.data:
+            d = self._as_sharded(d)
+            shape = d.shape[:-2] + (d.shape[-2] - 1, d.shape[-1])
+            spec = d.spec[:-2] + fitting_spec(shape, self.mesh)[-2:]
+            data.append(sharded.rescale_sharded(self, d, level, spec,
+                                                exact_rounding))
+        return Ciphertext(data=tuple(data), level=level + 1, **self._meta())
+
+    def _cc_mult_mesh(self, a, b, evk=None, *, pre_rescale=True,
+                      post_relin=True):
+        """The fused step per shard, where its gate allows."""
+        from tiberate_tpu_torch.parallel import sharded
+
+        if not (pre_rescale and post_relin
+                and (evk is None or evk is self.evk)):
+            return NotImplemented
+        a, b = self.align_level(a, b)
+        if a.level + 1 >= self.num_levels:
+            raise errors.MaximumLevelError(level=a.level,
+                                           level_max=self.num_levels)
+        if self._mesh_gate(a.level + 1)[0] is None:
+            return NotImplemented
+        step = self._fused_mult_step(a.level, True)
+        ct0, ct1 = step(a.data[0], a.data[1], b.data[0], b.data[1],
+                        sharded.prepare_step_ksk(self, a.level),
+                        sharded.mult_step_params(self, a.level))
+        return Ciphertext(data=(ct0, ct1), level=a.level + 1, **self._meta())
+
+    def _relinearize_mesh(self, ct_triplet, evk=None):
+        from tiberate_tpu_torch.parallel import sharded
+
+        evk = evk or self.evk
+        _check_ntt_mont_state(ct_triplet)
+        level = ct_triplet.level
+        axis, caxis = self._mesh_gate(level)
+        if axis is None:
+            return NotImplemented
+        ct0, ct1 = sharded.relin_sharded(
+            self, *(self._as_sharded(d) for d in ct_triplet.data), level,
+            sharded.rns_ksk(self, evk, level), axis, caxis)
+        return Ciphertext(data=(ct0, ct1), level=level, **self._meta())
+
+    def _create_switcher_mesh(self, a, ksk, level, exit_ntt=False):
+        from tiberate_tpu_torch.parallel import sharded
+
+        axis, caxis = self._mesh_gate(level)
+        if axis is None:
+            return NotImplemented
+        a = self._as_sharded(a)
+        a = reshard(a, a.spec[:-2] + (axis, caxis))
+        if exit_ntt:
+            a = ShardedArray(
+                sharded.intt_sharded(self, [a], level, axis, caxis)[0],
+                self.mesh, a.spec, a.shape, a.dtype)
+        sw = sharded._rns_switcher(self, level, axis, caxis)
+        return sw(a, sharded.rns_ksk(self, ksk, level))
+
+    def _switch_key_mesh(self, ct, ksk):
+        level = ct.level
+        d1 = self._as_sharded(ct.data[1])
+        out = self._create_switcher_mesh(d1, ksk, level,
+                                         ct.has_flag(FLAGS.NTT_STATE))
+        if out is NotImplemented:
+            return NotImplemented
+        c0, c1 = out
+        new0 = self._blockwise(
+            lambda k, x, y: mont.reduce_2q(mont.mont_add(x, y, k.lp.pack),
+                                           k.lp.pack),
+            (c0, ct.data[0]), level)
+        return Ciphertext(data=(new0, c1), flags=ct._flags, level=level,
+                          **self._meta())
+
+    def _permute_mesh(self, ct, leap):
+        """The Galois permutation per block: row-local where the
+        coefficients are whole, else after one all_gather over 'coef'."""
+        special = ct.has_flag(FLAGS.INCLUDE_SPECIAL)
+        data = []
+        for d in ct.data:
+            d = self._as_sharded(d)
+            full = (d.blocks if d.spec[-1] is None else
+                    all_gather(d.blocks, self.mesh, d.spec[-1], dim=-1))
+
+            def perm(k, x, full=full):
+                src, sign = self._perm_tables_on(leap, k.device)
+                return _rotate_data_core(full[k.c], src[k.cols],
+                                         sign[k.cols], k.lp)
+            data.append(self._blockwise(perm, (d,), ct.level, special))
+        return Ciphertext(data=tuple(data), flags=ct._flags, level=ct.level,
+                          **self._meta())
+
+    def _perm_tables_on(self, leap, device):
+        key = ("perm", leap, device)
+        if key not in self._mesh_cache:
+            self._mesh_cache[key] = tuple(
+                t.to(device) for t in self._perm_tables(leap))
+        return self._mesh_cache[key]
+
+    def _rotate_single_mesh(self, ct, rotk, post_key_switching=True):
+        rotated = self._permute_mesh(
+            ct, codec.rotate_leap(rotk.delta, self.params.N))
+        if post_key_switching:
+            rotated = self.switch_key(rotated, rotk)
+        return rotated
+
+    def _conjugate_mesh(self, ct, conjk=None):
+        conj = self._permute_mesh(ct, codec.conjugate_leap(self.params.N))
+        return self.switch_key(conj, conjk or self.conjk)
 
     def _to_dev(self, x):
         """Host draws and codec output -> the device, in the storage dtype
@@ -668,7 +1057,7 @@ class CkksEngine:
         lp = self._lp(0, True)
         ternary = self.rng.randint(amax=3, shift=-1, repeats=1)[0]
         return SecretKey(
-            data=_keygen_sk_core(self._to_dev(ternary), lp),
+            data=self._shard(_keygen_sk_core(self._to_dev(ternary), lp)),
             flags=FLAGS.INCLUDE_SPECIAL | FLAGS.MONTGOMERY_STATE
             | FLAGS.NTT_STATE,
             level=0,
@@ -698,9 +1087,9 @@ class CkksEngine:
                        if sk.has_flag(FLAGS.INCLUDE_SPECIAL) else 0)
             a = self.rng.randint(amax=amax, repeats=repeats)
         a = self._to_dev(a)
-        pk0 = _keygen_pk_core(self._to_dev(e), a, sk.data[:C], lp)
+        pk0 = _keygen_pk_core(self._to_dev(e), a, _t(sk.data)[:C], lp)
         return PublicKey(
-            data=(pk0, a),
+            data=(self._shard(pk0), self._shard(a)),
             flags=(FLAGS.INCLUDE_SPECIAL if include_special else FLAGS(0))
             | FLAGS.MONTGOMERY_STATE | FLAGS.NTT_STATE,
             level=0,
@@ -725,7 +1114,7 @@ class CkksEngine:
             a = self._expand_ksk_a(a_seed)
         P = self.params.P
         lp_ord = self._lp(0, False)
-        Psk = mont.mont_mult(sk_from.data[:P], self.params.mont_PR,
+        Psk = mont.mont_mult(_t(sk_from.data)[:P], self.params.mont_PR,
                              lp_ord.pack)
         ksk_parts = []
         for part_id, part in enumerate(self.params.parts[0]):
@@ -733,9 +1122,9 @@ class CkksEngine:
             pk = self._create_public_key(sk_to, include_special=True, a=crs)
             pk0, pk1 = pk.data
             part_pack = self.params.pack[part.g0 : part.g0 + part.alpha]
-            pk0 = _ksk_shard_core(pk0, Psk[part.lo : part.hi], part.g0,
+            pk0 = _ksk_shard_core(_t(pk0), Psk[part.lo : part.hi], part.g0,
                                   part.alpha, part_pack)
-            ksk_parts.append((pk0, pk1))
+            ksk_parts.append((self._shard(pk0), pk1))
         return KeySwitchKey(
             data=tuple(ksk_parts),
             flags=FLAGS.INCLUDE_SPECIAL | FLAGS.MONTGOMERY_STATE
@@ -800,7 +1189,7 @@ class CkksEngine:
         amax, repeats = self._a_moduli(bool(cpk.misc.get("include_special")))
         a = self._seed_rng(cpk.misc["a_seed"]).randint(amax=amax,
                                                        repeats=repeats)
-        return PublicKey(data=(cpk.data[0], self._to_dev(a)),
+        return PublicKey(data=(cpk.data[0], self._shard(self._to_dev(a))),
                          flags=cpk._flags, level=cpk.level,
                          **self._expanded_misc(cpk))
 
@@ -817,7 +1206,7 @@ class CkksEngine:
             return cksk
         a_list = self._expand_ksk_a(cksk.misc["a_seed"])
         return KeySwitchKey(
-            data=tuple((k0, self._to_dev(a))
+            data=tuple((k0, self._shard(self._to_dev(a)))
                        for k0, a in zip(cksk.data, a_list)),
             flags=cksk._flags, level=cksk.level,
             **self._expanded_misc(cksk))
@@ -826,7 +1215,7 @@ class CkksEngine:
         sk = sk or self.sk
         lp = self._lp(0, True)
         sk2 = SecretKey(
-            data=mont.mont_mult(sk.data, sk.data, lp.pack),
+            data=mont.mont_mult(_t(sk.data), _t(sk.data), lp.pack),
             flags=FLAGS.MONTGOMERY_STATE | FLAGS.NTT_STATE
             | FLAGS.INCLUDE_SPECIAL,
             level=0,
@@ -843,7 +1232,7 @@ class CkksEngine:
         """(ksk_parts, parts) at ``level``: each live part's (k0, k1) evk
         rows ``[level:]`` ([C_sp, N] views), in ``parts_alloc`` order."""
         ksk_parts = tuple(
-            tuple(k[level:] for k in ksk.data[g])
+            tuple(_t(k)[level:] for k in ksk.data[g])
             for g in self.params.parts_alloc[level]
         )
         return ksk_parts, tuple(self.params.parts[level])
@@ -928,7 +1317,8 @@ class CkksEngine:
         C = lp.num_channels
         ct0, ct1 = _encrypt_core(
             *map(self._to_dev, (pt, dc_rns, e0, e1, v)),
-            pk.data[0][level : level + C], pk.data[1][level : level + C], lp,
+            _t(pk.data[0])[level : level + C],
+            _t(pk.data[1])[level : level + C], lp,
         )
         return Ciphertext(
             data=(ct0, ct1),
@@ -948,7 +1338,8 @@ class CkksEngine:
         dc_rns = np.zeros(self._channels(pk, level),
                           dtype=self.ckksCfg.numpy_dtype)
         e, v = self.rng.encrypt_noise_batch(1)
-        return self._encrypt(pt, dc_rns, e[0, 0], e[0, 1], v[0], pk, level)
+        return self.to_mesh(
+            self._encrypt(pt, dc_rns, e[0, 0], e[0, 1], v[0], pk, level))
 
     def _dc_residues(self, dc_integral, level, C):
         """Bias guard: the DC integral parts [...] times the scale, as
@@ -997,8 +1388,8 @@ class CkksEngine:
                                      rng=self.rng, norm=self.norm)
         e, v = self.rng.encrypt_noise_batch(B)
         ct = self._encrypt(pts, dc_rns, e[:, 0], e[:, 1], v, pk, level)
-        return [Ciphertext(data=(d0, d1), flags=ct._flags, level=level,
-                           **self._meta())
+        return [Ciphertext(data=(self._shard(d0), self._shard(d1)),
+                           flags=ct._flags, level=level, **self._meta())
                 for d0, d1 in zip(*ct.data)]
 
     def _decrypt_args(self, level):
@@ -1006,6 +1397,7 @@ class CkksEngine:
         return (self._lp(level, False), self.params.base_lp(),
                 self.params.final_scalar[level], self._rounding_half, C - 1)
 
+    @_mesh_op(local_out=True)
     def decrypt_double(self, ct: Ciphertext, sk: SecretKey = None, *,
                        final_round=True):
         """-> signed scaled coefficients [1, N]."""
@@ -1017,11 +1409,12 @@ class CkksEngine:
         C = base_at + 1
         scaled, _ = _decrypt_double_core(
             ct.data[0][..., :C, :], ct.data[1][..., :C, :],
-            sk.data[ct.level : ct.level + C], lp, base_lp, fs, rh,
+            _t(sk.data)[ct.level : ct.level + C], lp, base_lp, fs, rh,
             base_at, final_round=final_round,
         )
         return scaled
 
+    @_mesh_op(local_out=True)
     def decrypt_triplet(self, ct_mult: CiphertextTriplet,
                         sk: SecretKey = None, *, final_round=True):
         """-> signed scaled coefficients [1, N] of d0 + d1 s + d2 s^2."""
@@ -1033,7 +1426,8 @@ class CkksEngine:
         lp, base_lp, fs, rh, base_at = self._decrypt_args(level)
         C = base_at + 1
         scaled, _ = _decrypt_triplet_core(
-            *ct_mult.data, sk.data[level : level + C], lp, base_lp, fs, rh,
+            *ct_mult.data, _t(sk.data)[level : level + C], lp, base_lp, fs,
+            rh,
             base_at, final_round=final_round,
         )
         return scaled
@@ -1071,7 +1465,7 @@ class CkksEngine:
         residues leave the device."""
         lp, base_lp, fs, rh, base_at = self._decrypt_args(level)
         C = base_at + 1
-        args = (sk.data[level : level + C], lp, base_lp, fs, rh, base_at)
+        args = (_t(sk.data)[level : level + C], lp, base_lp, fs, rh, base_at)
         if not (C >= 3 and self.bias_guard):
             scaled, _ = core(*args, final_round=final_round)
             return scaled, None
@@ -1083,6 +1477,7 @@ class CkksEngine:
         return _final_scale(pt_z, base_lp, fs, rh, base_at,
                             final_round=final_round), dcs
 
+    @_mesh_op(local_out=True)
     def decryptcode(self, ct, sk: SecretKey = None, *, is_real=False,
                     final_round=True):
         """Decrypt and decode one ciphertext or triplet; with bias_guard
@@ -1113,6 +1508,7 @@ class CkksEngine:
             decoded = decoded + dcs[0] / self.ckksCfg.scale * correction
         return decoded.real if is_real else decoded
 
+    @_mesh_op(local_out=True)
     def decryptcode_batch(self, cts, sk: SecretKey = None, *,
                           is_real=False, final_round=True):
         """Decrypt and decode same-level ciphertexts with one decrypt core
@@ -1151,6 +1547,7 @@ class CkksEngine:
     # Rescale / multiply.
     # ------------------------------------------------------------------
 
+    @_mesh_op("_rescale_mesh")
     def rescale(self, ct: Ciphertext, exact_rounding=True) -> Ciphertext:
         """Drop the top RNS channel of both polynomials (rounding exactly
         unless ``exact_rounding`` is False)."""
@@ -1167,14 +1564,17 @@ class CkksEngine:
         )
         return Ciphertext(data=data, level=level + 1, **self._meta())
 
-    def _fused_mult_step(self, level: int):
-        """The fused step function at ``level``, built once."""
-        if level not in self._steps:
+    def _fused_mult_step(self, level: int, rns_shard: bool = False):
+        """The fused step function at ``level``, built once per route
+        (``rns_shard``: the engine mesh's sharded step)."""
+        if (level, rns_shard) not in self._steps:
             from tiberate_tpu_torch.parallel import sharded
 
-            self._steps[level] = sharded.make_mult_step(self, level)
-        return self._steps[level]
+            self._steps[level, rns_shard] = sharded.make_mult_step(
+                self, level, rns_shard=rns_shard)
+        return self._steps[level, rns_shard]
 
+    @_mesh_op("_cc_mult_mesh")
     def cc_mult(self, a: Ciphertext, b: Ciphertext,
                 evk: EvaluationKey = None, *, pre_rescale=True,
                 post_relin=True):
@@ -1195,8 +1595,10 @@ class CkksEngine:
             evk = self.evk
             step = self._fused_mult_step(a.level)
             ct0, ct1 = step(a.data[0], a.data[1], b.data[0], b.data[1],
-                            sharded.prepare_step_ksk(self, a.level, evk),
-                            sharded.mult_step_params(self, a.level, evk))
+                            sharded.prepare_step_ksk(self, a.level, ksk=evk,
+                                                     rns_shard=False),
+                            sharded.mult_step_params(self, a.level, ksk=evk,
+                                                     rns_shard=False))
             return Ciphertext(data=(ct0, ct1), level=a.level + 1,
                               **self._meta())
         x, y = (self.rescale(a), self.rescale(b)) if pre_rescale else (a, b)
@@ -1220,6 +1622,7 @@ class CkksEngine:
         return self.cc_mult(ct, ct, evk, pre_rescale=pre_rescale,
                             post_relin=post_relin)
 
+    @_mesh_op("_relinearize_mesh")
     def relinearize(self, ct_triplet: CiphertextTriplet,
                     evk: EvaluationKey = None) -> Ciphertext:
         """Triplet (NTT and Montgomery state) -> ciphertext: the keyswitch
@@ -1242,6 +1645,7 @@ class CkksEngine:
     # Key switching.
     # ------------------------------------------------------------------
 
+    @_mesh_op("_create_switcher_mesh")
     def create_switcher(self, a, ksk: KeySwitchKey, level: int,
                         exit_ntt: bool = False):
         """Key-switch ``a`` [..., C, N] at ``level``: (c0, c1) with
@@ -1254,6 +1658,7 @@ class CkksEngine:
             parts_fused=self._ksk_parts_fused(ksk, level),
         )
 
+    @_mesh_op("_switch_key_mesh")
     def switch_key(self, ct: Ciphertext, ksk: KeySwitchKey) -> Ciphertext:
         """Re-encrypt ``ct`` from ``ksk``'s source key to its target key
         (``create_key_switching_key(sk_from, sk_to)``)."""
@@ -1293,9 +1698,9 @@ class CkksEngine:
         ones)."""
         P = self.params.P
         lp = self._lp(0, False)
-        sk_ord = _intt_exit_to_mont(sk.data[:P], lp)
+        sk_ord = _intt_exit_to_mont(_t(sk.data)[:P], lp)
         perm = _perm_core(sk_ord, *self._perm_tables(leap))
-        full = sk.data.clone()
+        full = _t(sk.data).clone()
         full[:P] = _ntt_plain(perm, lp)
         return SecretKey(
             data=full,
@@ -1344,6 +1749,7 @@ class CkksEngine:
             flags=ct._flags, level=ct.level, **self._meta(),
         )
 
+    @_mesh_op("_rotate_single_mesh")
     def rotate_single(self, ct: Ciphertext, rotk: RotationKey,
                       post_key_switching=True) -> Ciphertext:
         """Rotate the slots by ``rotk.delta``: the Galois permutation of
@@ -1379,12 +1785,14 @@ class CkksEngine:
             ct, delta, return_decomposed_offsets=return_circuit
         )
 
+    @_mesh_op("_conjugate_mesh")
     def conjugate(self, ct: Ciphertext, conjk: ConjugationKey = None
                   ) -> Ciphertext:
         conjk = conjk or self.conjk
         conj = self._permute(ct, codec.conjugate_leap(self.params.N))
         return self.switch_key(conj, conjk)
 
+    @_mesh_op("_negate_mesh")
     def negate(self, ct: Ciphertext) -> Ciphertext:
         lp = self._lp_for(ct)
         return Ciphertext(
@@ -1396,6 +1804,7 @@ class CkksEngine:
     # Add / sub.
     # ------------------------------------------------------------------
 
+    @_mesh_op("_cc_double_mesh")
     def _cc_double(self, core, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         if a.has_flag(FLAGS.NTT_STATE) or b.has_flag(FLAGS.NTT_STATE):
             raise errors.NTTStateError(expected=False)
@@ -1406,6 +1815,7 @@ class CkksEngine:
             level=a.level, **self._meta(),
         )
 
+    @_mesh_op("_cc_triplet_mesh")
     def _cc_triplet(self, core, a: CiphertextTriplet, b: CiphertextTriplet
                     ) -> CiphertextTriplet:
         if not (a.has_flag(FLAGS.NTT_STATE) and b.has_flag(FLAGS.NTT_STATE)):
@@ -1454,6 +1864,7 @@ class CkksEngine:
     # Level management.
     # ------------------------------------------------------------------
 
+    @_mesh_op()
     def level_up(self, ct: Ciphertext, dst_level: int) -> Ciphertext:
         """Bring ``ct`` down to ``dst_level``: one rescale, the channels
         between dropped, and the scale corrected by one multiply."""
@@ -1500,6 +1911,7 @@ class CkksEngine:
             pt.cache[level][op] = prepare(encoded, self._lp(level, False))
         return pt.cache[level][op]
 
+    @_mesh_op("_pc_add_mesh")
     def pc_add(self, pt: Plaintext, ct: Ciphertext) -> Ciphertext:
         level = ct.level
         new0 = _pc_add_core(self._pt_cached(pt, level, "pc_add"), ct.data[0],
@@ -1507,6 +1919,7 @@ class CkksEngine:
         return Ciphertext(data=(new0, ct.data[1]), flags=ct._flags,
                           level=level, **self._meta())
 
+    @_mesh_op("_pc_mult_mesh")
     def pc_mult(self, pt: Plaintext, ct: Ciphertext, post_rescale=True
                 ) -> Ciphertext:
         level = ct.level
@@ -1531,6 +1944,7 @@ class CkksEngine:
             dtype=self.ckksCfg.numpy_dtype,
         ).reshape(-1, 1))
 
+    @_mesh_op("_mult_mont_scalar_mesh")
     def _mult_mont_scalar(self, ct: Ciphertext, mont_scalar) -> Ciphertext:
         col = self._scalar_col(mont_scalar, ct.level)
         lp = self._lp(ct.level, False)
@@ -1555,7 +1969,15 @@ class CkksEngine:
             ct, [(scaled_scalar * R) % qi for qi in self.params.q])
         return self.rescale(new_ct)
 
+    @_mesh_op("_add_scalar_mesh")
     def add_scalar(self, ct: Ciphertext, scalar) -> Ciphertext:
+        col = self._scalar_col(self._add_scalar_values(ct, scalar), ct.level)
+        new0 = _add_scalar_core(ct.data[0], col, self._lp(ct.level, False))
+        return Ciphertext(data=(new0, ct.data[1]), flags=ct._flags,
+                          level=ct.level, **self._meta())
+
+    def _add_scalar_values(self, ct, scalar):
+        """``scalar`` at the ciphertext's scale, per prime."""
         scaled_scalar = int(
             scalar * self.ckksCfg.scale * self.params.deviations[ct.level]
             + 0.5
@@ -1563,11 +1985,7 @@ class CkksEngine:
         if self.norm == "backward":
             scaled_scalar *= self.ckksCfg.N
         scaled_scalar *= self.ckksCfg.int_scale
-        col = self._scalar_col([scaled_scalar % qi for qi in self.params.q],
-                               ct.level)
-        new0 = _add_scalar_core(ct.data[0], col, self._lp(ct.level, False))
-        return Ciphertext(data=(new0, ct.data[1]), flags=ct._flags,
-                          level=ct.level, **self._meta())
+        return [scaled_scalar % qi for qi in self.params.q]
 
     def refresh(self):
         self.rng.refresh()

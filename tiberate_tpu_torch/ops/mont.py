@@ -75,8 +75,11 @@ class ModPack:
         return self.ql.dtype
 
     def __getitem__(self, sl):
-        """Slice the channel axis."""
+        """Select channels: a slice or a list of channel indices."""
         return ModPack(*(getattr(self, f)[sl] for f in _PACK_FIELDS))
+
+    def to(self, device):
+        return ModPack(*(getattr(self, f).to(device) for f in _PACK_FIELDS))
 
     @classmethod
     def from_q(cls, q_list, R_bits=NBITS, device="cpu"):

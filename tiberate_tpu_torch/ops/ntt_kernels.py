@@ -312,13 +312,12 @@ def ntt_keymul_accum(x, lp, keys, acc, skip):
 # ----------------------------------------------------------------------
 
 
-def intt_pdiv_plain(acc, p0, lp_ord, PiRs):
-    """The successive rescale of ``_switcher_body`` restricted to the
-    ordinary rows: iNTT-exit, enter, S x (subtract P0, multiply P^-1),
-    exit, reduce."""
+def pdiv_plain(d, p0, lp_ord, PiRs):
+    """The successive rescale of ``_switcher_body`` on canonical
+    coefficient-domain ordinary rows ``d`` [..., C, N]: enter, S x
+    (subtract P0, multiply P^-1), exit, reduce."""
     C = lp_ord.num_channels
     pk = lp_ord.pack
-    d = intt_plain(acc[..., :C, :], lp_ord, "exit_reduce")
     d = mont.mont_enter(d, lp_ord.Rs, pk)
     for i in range(p0.shape[-2]):
         P0 = mont.mont_enter(p0[..., i : i + 1, :], lp_ord.Rs, pk)
@@ -327,9 +326,18 @@ def intt_pdiv_plain(acc, p0, lp_ord, PiRs):
     return mont.reduce_2q(mont.mont_reduce(d, pk), pk)
 
 
+def intt_pdiv_plain(acc, p0, lp_ord, PiRs):
+    """iNTT-exit of the ordinary rows, then :func:`pdiv_plain`."""
+    C = lp_ord.num_channels
+    d = intt_plain(acc[..., :C, :], lp_ord, "exit_reduce")
+    return pdiv_plain(d, p0, lp_ord, PiRs)
+
+
 def intt_pdiv(acc, p0, lp_ord, PiRs):
-    """Divide a keyswitch accumulator by P: ``acc`` [..., C+S, N] (NTT
-    domain; only its C ordinary rows are read), ``p0`` [..., S, N] the
+    """Divide a keyswitch accumulator by P: ``acc`` [..., C_in, N], C_in >=
+    C (NTT domain; only its first C rows, the ordinary ones, are read: the
+    rest are its special rows, all S of them or a shard's share), ``p0``
+    [..., S, N] the
     plain special rows of the successive division, in division order.
     Returns canonical [0, q) ordinary rows [..., C, N].
 
@@ -342,8 +350,9 @@ def intt_pdiv(acc, p0, lp_ord, PiRs):
     C = lp_ord.num_channels
     S = p0.shape[-2]
     C_in = acc.shape[-2]
-    if C_in != C + S or lp_ord.pdc.shape[-1] != 1 + S:
-        raise ValueError("acc must carry C + S rows and pdc 1 + S columns")
+    if C_in < C or lp_ord.pdc.shape[-1] != 1 + S:
+        raise ValueError("acc must carry at least C rows and pdc 1 + S "
+                         "columns")
     rows_in, logN = _geometry(acc, C_in)
     B = rows_in // C_in
     if tuple(p0.shape) != (*acc.shape[:-2], S, acc.shape[-1]):

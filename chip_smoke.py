@@ -90,21 +90,23 @@ Phases (any failure exits non-zero):
    range and with one part's range, and the all-parts kernel on digits
    [8, 13, 6, 2^17] (median of 3 single calls each);
 7. the logN17 main path as in 4 (batch forms, the single forms' bytes and
-   launches): the cc_mult step through the per-part chain (13
-   ``ntt_keymul_accum`` launches, no all-parts launch), decrypt error
-   below 1e-4 (the JAX package's logN17 bound); the step equals the
-   plain-version step byte for byte;
+   launches): the cc_mult step through the all-parts kernel (one
+   ``ntt_keymul_parts`` launch, no chain launch: the port keyswitches
+   through K6 at every logN, where the JAX package takes its per-part
+   chain from logN17 up), decrypt error below 1e-4 (the JAX package's
+   logN17 bound); the step equals the plain-version step byte for byte;
 8. logN17 ``switch_key``: a ciphertext under a second secret key switched
-   to the engine's key decrypts within 1e-6;
+   to the engine's key (one K6, no chain) decrypts within 1e-6;
 8b. logN17 evaluation: the rotation key for delta 1 and the conjugation
    key (a full Galois set, 16 keys of about 2 GiB, is left out), one
-   ``rotate_offset(., 1)`` and one ``conjugate`` of the batch, each through
-   the per-part chain (one K3 and n_parts - 1 chain launches, no K6),
-   within 1e-4;
+   ``rotate_offset(., 1)`` and one ``conjugate`` of the batch, each one K6
+   and two K4, within 1e-4; the device memory the keys hold before and
+   after their first use (the K6 key form adds only its pointer tables);
 9. logN17 timing: the step with the kernels and with the plain versions,
-   the route A/B (chain against the all-parts kernel, byte-identical, with
-   each run's peak device memory), one profiled step, and the CSPRNG's
-   share of keygen and of ``encodecrypt_batch``;
+   the route A/B (the per-part chain with its in-part shortcut against
+   the all-parts kernel, byte-identical, with each run's peak device
+   memory), one profiled step, and the CSPRNG's share of keygen and of
+   ``encodecrypt_batch``;
 10. the 30-bit mode (int32 residues, R = 2^30) at "logN15_30" (19 primes):
     every 30-bit kernel (the ``_30`` lane) against its plain version at the
     step's shapes; the main path as in 4 (the step through the all-parts
@@ -117,10 +119,14 @@ Phases (any failure exits non-zero):
     the plain versions, printed beside phase 5's 62-bit logN15 step; the
     route A/B; one profiled step;
 11. "logN17_30" (17 primes): the 30-bit kernels at the step's shapes; the
-    main path through the per-part chain (8 ``ntt_keymul_accum_30``
-    launches, no all-parts launch; error below 1e-2); the evaluation as in
-    8b, within 5e-3; the step equal to the plain-version step; the route
-    A/B with peak memory; one profiled step;
+    main path through the all-parts kernel (one ``ntt_keymul_parts_30``
+    launch, no chain launch; error below 1e-2); the evaluation as in 8b,
+    within 5e-3; the step equal to the plain-version step; the route A/B
+    with peak memory; one profiled step;
+11b. Preset.logN16 (4 special primes): keygen, ``encodecrypt_batch`` of
+    8 twice, the fused step through the all-parts kernel (launches
+    counted from 0), its decrypt error below 1e-6, its time and peak
+    device memory, and its bytes equal to the plain-version step's;
 12. the extension path at Preset.logN15, its launch counts set to 0
     before it and read after: the operator sugar (``ct1 * ct2 + ct1``,
     ``>> 3``, ``<< 1``, ``** 2``, ``.plain``; the Galois keys made first)
@@ -132,7 +138,8 @@ Phases (any failure exits non-zero):
     batches 4, iters 3; ``max_err`` below 1e-4) and the launches of one
     ``score_batch`` (two K5, two K6, four K4, no chain);
     ``HELinearFeatureWise`` at dim 16 (79 K6 a forward, exactly; within
-    5e-4), its forward times and its rotation keys' memory;
+    5e-4), its forward times, its rotation keys' memory, and what their
+    K6 key forms hold after first use (pointer tables only);
     ``HELayerNormFeatureWise`` (F 4, two Newton steps; within 5e-3); two
     MPC parties (collective encrypt and threshold decrypt, a collective
     rotation; within 5e-4; one share alone garbage; card == CPU); a
@@ -235,9 +242,10 @@ PROBE = {
 PATH_15 = ("ntt", "intt", "ntt_keymul", "intt_pdiv", "ntt_tensor",
            "ntt_keymul_parts")
 STEP_15 = ("intt", "intt_pdiv", "ntt_tensor", "ntt_keymul_parts")
-PATH_17 = ("ntt", "intt", "ntt_keymul", "ntt_keymul_accum", "intt_pdiv",
-           "ntt_tensor")
-STEP_17 = ("intt", "ntt_keymul_accum", "intt_pdiv", "ntt_tensor")
+# every preset keyswitches through K6; the per-part chain runs on the mesh
+# paths (phase 13) and on the route A/B's chain route
+PATH_17 = PATH_15
+STEP_17 = STEP_15
 # the kernels the logN15 evaluation path launches (phase 5b): keys (K1, K2),
 # pc_mult (K3 and its K1 cache), keyswitches (K6, K4), square (K5)
 EVAL_15 = ("ntt", "intt", "ntt_keymul", "intt_pdiv", "ntt_tensor",
@@ -300,6 +308,16 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def part_keys(kern, gen, q0, n_parts, N, level=1):
+    """K6's key operand as the engine hands it over: per part, (k0, k1)
+    views of the ``level``'s rows of a level-0 key [len(q0), N] (read in
+    place, not stacked), and their pointer tables."""
+    keys = tuple(tuple(uniform(gen, q0, (len(q0), N))[level:]
+                       for _ in range(2))
+                 for _ in range(n_parts))
+    return keys, kern.key_tables(keys)
+
+
 def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
     """Every kernel against its plain version at the step shapes of
     ``eng`` (batch 8, work level 1), in the lane of its storage dtype; the
@@ -337,8 +355,8 @@ def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
     keys_sp = (uniform(gen, q_sp, (C_sp, N)), uniform(gen, q_sp, (C_sp, N)))
     st = mod._parts_digits(uniform(gen, q_ord, (BATCH, C, N)), parts, lp_ord,
                            amax).contiguous()
-    pkeys = tuple(torch.stack([uniform(gen, q_sp, (C_sp, N))
-                               for _ in range(n_parts)]) for _ in range(2))
+    pkeys, tables = part_keys(kern, gen, eng._lp(0, True).pack.q, n_parts,
+                              N)
 
     def accum_case(skip):
         accs = [tuple(uniform(gen, 2 * q_sp, (BATCH, C_sp, N))
@@ -375,7 +393,8 @@ def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
         "ntt_tensor": (lambda: kern.ntt_tensor(*x4, lp_ord),
                        lambda: kern.ntt_tensor_plain(*x4, lp_ord)),
         "ntt_keymul_parts": (
-            lambda: kern.ntt_keymul_parts(st, ec, alphas, pkeys, lp_sp),
+            lambda: kern.ntt_keymul_parts(st, ec, alphas, pkeys, lp_sp,
+                                          tables),
             lambda: kern.ntt_keymul_parts_plain(st, ec, alphas, pkeys,
                                                 lp_sp)),
     }
@@ -392,7 +411,8 @@ def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
                             lp_ord.pdc, *consts, acc[..., :C, :]),
         "ntt_tensor": nbytes(*x4, lp_ord.psi, lp_ord.Rs, *consts,
                              *x4[:3]),
-        "ntt_keymul_parts": nbytes(st, ec, alphas, *pkeys, lp_sp.psi,
+        "ntt_keymul_parts": nbytes(st, ec, alphas, *sum(pkeys, ()),
+                                   tables.k0p, tables.k1p, lp_sp.psi,
                                    lp_sp.pack.q, lp_sp.pack.k, ext, ext),
     }
     # REDCs each call's kernel performs (ops/roofline.py)
@@ -519,9 +539,8 @@ def check_small(kern, mod, CkksParams, toy_config):
             ec, alphas = mod._parts_consts(tp, 1)
             st = mod._parts_digits(x, tp.parts[1], lp,
                                    ec.shape[-1]).contiguous()
-            pkeys = tuple(torch.stack([uniform(gen, q_sp, (C_sp, N))
-                                       for _ in range(ec.shape[0])])
-                          for _ in range(2))
+            pkeys, tables = part_keys(kern, gen, tp.lp(0, True).pack.q,
+                                      ec.shape[0], N)
 
             def accum(skip):
                 a = tuple(uniform(gen, 2 * q_sp, (2, C_sp, N))
@@ -553,7 +572,8 @@ def check_small(kern, mod, CkksParams, toy_config):
                 "ntt_tensor": (kern.ntt_tensor(*x4, lp),
                                kern.ntt_tensor_plain(*x4, lp)),
                 "ntt_keymul_parts": (
-                    kern.ntt_keymul_parts(st, ec, alphas, pkeys, lp_sp),
+                    kern.ntt_keymul_parts(st, ec, alphas, pkeys, lp_sp,
+                                          tables),
                     kern.ntt_keymul_parts_plain(st, ec, alphas, pkeys,
                                                 lp_sp)),
             }
@@ -1180,19 +1200,21 @@ def time_step(eng, kern, A, B, tag, smi, loops, plain_reps):
 
 
 def route_ab(eng, kern, sharded, A, B, tag, loops):
-    """The same step through the per-part chain and through the all-parts
-    kernel: byte-identical outputs, each route's time, launches and peak
-    device memory."""
+    """The same step through the per-part chain (its ``prm`` built here:
+    no all-parts key form, the in-part shortcut's cache) and through the
+    all-parts kernel (the engine's default ``prm``): byte-identical
+    outputs, each route's time, launches and peak device memory.  Returns
+    (results, the chain route's launches, counted from 0)."""
     sfx = kern.LANES[eng.params.dtype]
     step = eng._fused_mult_step(A.level)
     ksk = sharded.prepare_step_ksk(eng, A.level)
     prm = sharded.mult_step_params(eng, A.level)
     routes = {
-        "chain": dict(prm, parts_fused=None),
-        "parts_kernel": dict(
-            prm, parts_fused=eng._ksk_parts_stacked(eng.evk, A.level + 1)),
+        "chain": dict(prm, parts_fused=None,
+                      inpart=eng._ksk_inpart(eng.evk, A.level + 1)),
+        "parts_kernel": prm,
     }
-    outs, res = {}, {}
+    outs, res, chain_counts = {}, {}, None
     for name, p in routes.items():
         def run(p=p):
             return step(A.data[0], A.data[1], B.data[0], B.data[1], ksk, p)
@@ -1202,6 +1224,8 @@ def route_ab(eng, kern, sharded, A, B, tag, loops):
         torch.cuda.reset_peak_memory_stats()
         outs[name], counts = count_launches(kern, run)
         peak = torch.cuda.max_memory_allocated()
+        if name == "chain":
+            chain_counts = counts
         ms = cuda_ms(run, *loops)
         res[name] = dict(ms=ms, peak_bytes=peak, resident_bytes=base,
                          accum=counts["ntt_keymul_accum" + sfx],
@@ -1218,10 +1242,14 @@ def route_ab(eng, kern, sharded, A, B, tag, loops):
         raise AssertionError(f"{tag} route A/B took the wrong kernels")
     same = all(torch.equal(c, k)
                for c, k in zip(outs["chain"], outs["parts_kernel"]))
-    log(f"{tag} route A/B: chain == all-parts kernel byte for byte: {same}")
+    log(f"{tag} route A/B: chain == all-parts kernel byte for byte: {same}; "
+        f"all-parts kernel / chain: {res['parts_kernel']['ms']:.3f} / "
+        f"{res['chain']['ms']:.3f} ms/step, peak "
+        f"{res['parts_kernel']['peak_bytes'] / 2**30:.3f} / "
+        f"{res['chain']['peak_bytes'] / 2**30:.3f} GiB")
     if not same:
         raise AssertionError(f"{tag} the two keyswitch routes differ")
-    return res
+    return res, chain_counts
 
 
 def switch_key_17(eng, kern, stack, unstack):
@@ -1239,12 +1267,12 @@ def switch_key_17(eng, kern, stack, unstack):
     dec = np.stack([eng.decryptcode(c, is_real=True) for c in unstack(out)])
     err = float(np.abs(dec - m).max())
     n_parts = len(eng.params.parts[0])
-    log(f"logN17 switch_key of 2 ciphertexts: {t_sw:.3f} s (first call), "
-        f"launches {counts}; decrypt max error under the engine's key "
-        f"{err:.3e} (limit {DECRYPT_TOL})")
-    if counts["ntt_keymul"] != 1 or counts["ntt_keymul_accum"] != (
-            n_parts - 1) or counts["ntt_keymul_parts"] != 0:
-        raise AssertionError("switch_key did not run the per-part chain")
+    log(f"logN17 switch_key of 2 ciphertexts ({n_parts} parts): {t_sw:.3f} "
+        f"s (first call), launches {counts}; decrypt max error under the "
+        f"engine's key {err:.3e} (limit {DECRYPT_TOL})")
+    keyswitch_launches(counts, 1, "logN17", "switch_key")
+    if counts["ntt_keymul"]:
+        raise AssertionError("switch_key launched K3")
     if not np.all(np.isfinite(dec)) or not err < DECRYPT_TOL:
         raise AssertionError("switch_key decrypt error above the limit")
     return err, counts
@@ -1273,20 +1301,16 @@ def run_op(eng, kern, fn, unstack, want, tol, name, tag, is_real=True):
     return out, counts, err
 
 
-def keyswitch_launches(counts, n, tag, name, sfx="", chain_parts=None):
+def keyswitch_launches(counts, n, tag, name, sfx=""):
     """A keyswitched op's launches: ``n`` keyswitches through the all-parts
-    kernel (one K6 and two K4 each, no chain), or, with ``chain_parts``,
-    through the per-part chain (one K3 and chain_parts - 1 chain launches
-    each, no K6)."""
+    kernel (one K6 and two K4 each, no chain; K3 may run besides, as
+    mean's pc_mult)."""
     got = (counts["ntt_keymul_parts" + sfx], counts["intt_pdiv" + sfx],
-           counts["ntt_keymul_accum" + sfx], counts["ntt_keymul" + sfx])
-    if chain_parts is None:  # K3 may run besides (mean's pc_mult)
-        got, want = got[:3], (n, 2 * n, 0)
-    else:
-        want = (0, 2 * n, n * (chain_parts - 1), n)
+           counts["ntt_keymul_accum" + sfx])
+    want = (n, 2 * n, 0)
     if got != want:
         raise AssertionError(
-            f"{tag} {name}: (K6, K4, chain, K3) launches {got}, want {want}")
+            f"{tag} {name}: (K6, K4, chain) launches {got}, want {want}")
 
 
 def make_keys(eng, tag, galois):
@@ -1321,6 +1345,14 @@ def make_keys(eng, tag, galois):
     return states, dict(rotation_keys=n, rotation_keys_s=t_rot,
                         conjugation_key_s=t_conj, key_bytes=key_bytes,
                         memory_added=mem)
+
+
+def key_form_bytes(keys):
+    """The bytes the all-parts key forms cached on ``keys`` hold beyond
+    the keys themselves: their pointer tables (the forms' per-part views
+    are the keys' own rows)."""
+    return sum(nbytes(tables.k0p, tables.k1p) for k in keys
+               for _, tables in (k.misc.get("_parts_tables") or {}).values())
 
 
 def evaluate15(eng, eng_cpu, kern, stack, unstack, A, B, out, smi):
@@ -1458,22 +1490,22 @@ def evaluate15(eng, eng_cpu, kern, stack, unstack, A, B, out, smi):
     return launches, res, times, keys
 
 
-def evaluate_light(eng, kern, stack, unstack, A, tol, sfx, tag, chain):
+def evaluate_light(eng, kern, stack, unstack, A, tol, sfx, tag, large):
     """The evaluation path cut for the other presets, on the batch of 8
-    with the launch counts set to 0 before and read after.  ``chain``
+    with the launch counts set to 0 before and read after.  ``large``
     False (logN15_30): ``rotate_offset`` by 2, ``add_scalar`` and ``sum``
     (its 14 keys made on first use); True (logN17, logN17_30): the
     rotation key for delta 1 and the conjugation key, one
-    ``rotate_offset(., 1)`` and one ``conjugate``, each through the
-    per-part chain.  Returns (launches, per-op results, key info)."""
+    ``rotate_offset(., 1)`` and one ``conjugate``, each one K6 and two K4,
+    and the device memory the keys hold before and after that first use.
+    Returns (launches, per-op results, key info)."""
     m1, m2 = msgs(eng)
     mc = m1 + 1j * m2
-    C = stack(eng.encodecrypt_batch(mc)) if chain else None
-    n_parts = len(eng.params.parts[0])
+    C = stack(eng.encodecrypt_batch(mc)) if large else None
     kern.reset_launch_counts()
     keys = None
-    if chain:
-        _, keys = make_keys(eng, tag, galois=False)
+    if large:
+        keys = make_keys(eng, tag, galois=False)[1]
         log(f"{tag}: no full Galois set here: its {eng.ckksCfg.logN - 1} "
             f"keys would take {eng.ckksCfg.logN - 1} x "
             f"{keys['key_bytes'] / 2 / 2**30:.2f} GiB of key tensors")
@@ -1491,19 +1523,31 @@ def evaluate_light(eng, kern, stack, unstack, A, tol, sfx, tag, chain):
             "sum": (lambda: eng.sum(A), row, eng.ckksCfg.logN - 1),
         }
     res = {}
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_keys = torch.cuda.memory_allocated()
     for name, (fn, want, n_ks) in ops.items():
         limit = 200 * tol if name == "sum" else tol
-        _, counts, err = run_op(eng, kern, fn, unstack, want, limit, name,
-                                tag, is_real=name != "conjugate")
+        counts, err = run_op(eng, kern, fn, unstack, want, limit, name, tag,
+                             is_real=name != "conjugate")[1:]
         if n_ks:
-            keyswitch_launches(counts, n_ks, tag, name, sfx,
-                               n_parts if chain else None)
+            keyswitch_launches(counts, n_ks, tag, name, sfx)
         res[name] = dict(max_abs_err=err, limit=limit, launches={
             k: v for k, v in counts.items() if v})
+    if large:  # the ops' outputs are gone: what stays is what use kept
+        gc.collect()
+        torch.cuda.synchronize()
+        used = torch.cuda.memory_allocated() - mem_keys
+        kf = key_form_bytes([*map(eng.get_rotation_key, eng.rotk),
+                             eng.conjk])
+        keys.update(memory_after_first_use=used, key_form_bytes=kf)
+        log(f"{tag} key memory: the keys' tensors "
+            f"{keys['key_bytes'] / 2**30:.3f} GiB; device memory "
+            f"{mem_keys / 2**30:.3f} GiB before their first use, "
+            f"{(mem_keys + used) / 2**30:.3f} GiB after it ({used:+d} B; "
+            f"the K6 key forms' pointer tables {kf} B)")
     launches = dict(kern.LAUNCHES)
-    need = ("ntt", "intt", "intt_pdiv") + (
-        ("ntt_keymul", "ntt_keymul_accum") if chain
-        else ("ntt_keymul_parts",))
+    need = ("ntt", "intt", "intt_pdiv", "ntt_keymul_parts")
     require(launches, lane(need, sfx), f"the {tag} evaluation path")
     if sfx:
         only_30(launches, f"the {tag} evaluation path")
@@ -1708,10 +1752,23 @@ def ext_linear(CkksEngine, Preset, kern, tag, smi):
     mem = torch.cuda.memory_allocated() - mem0
     keys = [eng.get_rotation_key(d) for d in eng.rotk]
     key_bytes = nbytes(*(t for k in keys for t in leaves(k)))
-    # what else the first forward keeps: each key's stacked K6 form per
-    # level it ran at (cached on the key) and the plaintext rows' caches
-    form_bytes = sum(nbytes(*form[:2]) for k in keys
-                     for form in (k.misc["_parts_fused"] or {}).values())
+    # what else the first forward keeps: each key's K6 form per level it
+    # ran at (cached on the key: views of the key's rows and their pointer
+    # tables, which alone take memory) and the plaintext rows' caches.
+    # Dropping the forms measures what they hold; the warm forward makes
+    # them again.
+    form_bytes = key_form_bytes(keys)
+    torch.cuda.synchronize()
+    mem_used = torch.cuda.memory_allocated()
+    for k in keys:
+        k.misc.pop("_parts_tables")
+    torch.cuda.synchronize()
+    form_mem = mem_used - torch.cuda.memory_allocated()
+    log(f"{tag} key memory of the {len(keys)} rotation keys: "
+        f"{(mem_used - form_mem) / 2**30:.4f} GiB allocated without their "
+        f"K6 key forms, {mem_used / 2**30:.4f} GiB after their first use "
+        f"(the forms hold {form_mem} B on the card, their pointer tables "
+        f"{form_bytes} B)")
     rows = [pt for row in layer.weight_rows for pt in row]
     rows += [layer.mask, *(layer.bias_rows or [])]
     pt_bytes = sum(datastruct_size_bytes(pt) for pt in rows)
@@ -1734,8 +1791,8 @@ def ext_linear(CkksEngine, Preset, kern, tag, smi):
         f"{warm['ntt_keymul_parts']}; first forward (makes {len(keys)} "
         f"rotation keys) {t_first:.3f} s, warm forward {t_warm:.3f} s "
         f"(host clock, synchronised; {smi}); the keys' tensors "
-        f"{key_bytes / 2**30:.3f} GiB, their stacked K6 forms "
-        f"{form_bytes / 2**30:.3f} GiB, the plaintext rows' caches "
+        f"{key_bytes / 2**30:.3f} GiB, their K6 key forms "
+        f"{form_bytes} B (pointer tables), the plaintext rows' caches "
         f"{pt_bytes / 2**30:.3f} GiB; device memory +{mem / 2**30:.3f} "
         f"GiB over the first forward; warm launches {warm}; max error "
         f"{err:.3e} (limit {EXT_TOL_LINEAR})")
@@ -1743,6 +1800,7 @@ def ext_linear(CkksEngine, Preset, kern, tag, smi):
     return dict(dim=dim, rotations=rotations, first_forward_s=t_first,
                 warm_forward_s=t_warm, rotation_keys=len(keys),
                 key_bytes=key_bytes, key_form_bytes=form_bytes,
+                key_form_memory=form_mem,
                 plaintext_cache_bytes=pt_bytes, memory_added=mem,
                 max_abs_err=err,
                 limit=EXT_TOL_LINEAR, launches_warm=warm)
@@ -2235,6 +2293,52 @@ def multihost_phase():
     return res
 
 
+def step_phase16(CkksEngine, Preset, kern, stack, unstack, smi):
+    """Phase 11b: Preset.logN16 on the card.  keygen, ``encodecrypt_batch``
+    of 8 twice, the fused step through the all-parts kernel with the
+    launch counts set to 0 before it and read after, its peak device
+    memory, its decrypt error (below 1e-6), its time and its bytes against
+    the plain-version step.  Returns (the step's launches, results)."""
+    t0 = time.perf_counter()
+    eng = CkksEngine(Preset.logN16, device="cuda", seed=SEED)
+    eng.sk, eng.pk, eng.evk  # noqa: B018 — keygen
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    m1, m2 = msgs(eng)
+    A = stack(eng.encodecrypt_batch(m1))
+    B = stack(eng.encodecrypt_batch(m2))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, counts = count_launches(kern, lambda: eng.cc_mult(A, B))
+    peak = torch.cuda.max_memory_allocated()
+    require(counts, STEP_15, "the logN16 step")
+    keyswitch_launches(counts, 1, "logN16", "step")
+    C = eng._lp(1).num_channels
+    for d in out.data:
+        if tuple(d.shape) != (BATCH, C, eng.ckksCfg.N):
+            raise AssertionError(f"logN16 step output shape "
+                                 f"{tuple(d.shape)}")
+    dec = eng.decryptcode_batch(unstack(out), is_real=True)
+    if not np.all(np.isfinite(dec)):
+        raise AssertionError("logN16 non-finite decrypt")
+    err = float(np.abs(dec - m1 * m2).max())
+    log(f"logN16 ({len(eng.params.q)} primes, "
+        f"{len(eng.params.parts[1])} keyswitch parts at level 1; engine and "
+        f"keys {t_build:.1f} s): step launches "
+        f"{ {k: n for k, n in counts.items() if n} }; peak device memory "
+        f"{peak / 2**30:.3f} GiB (resident before the step "
+        f"{base / 2**30:.3f} GiB); decrypt max error vs m1*m2 over {BATCH} "
+        f"pairs {err:.3e} (limit {DECRYPT_TOL})")
+    if not err < DECRYPT_TOL:
+        raise AssertionError("logN16 decrypt error above the limit")
+    step_ms, plain_ms = time_step(eng, kern, A, B, "logN16", smi, (3, 1), 1)
+    return counts, dict(step_ms=step_ms, step_ms_per_ct=step_ms / BATCH,
+                        plain_step_ms=plain_ms, decrypt_max_err=err,
+                        peak_bytes=peak, resident_bytes=base,
+                        launches={k: n for k, n in counts.items() if n})
+
+
 def profile_step(fn, tag, top=12):
     """Device time by kernel over one step (CUDA kernel events only), and
     the busy share of its wall time (kernel times summed; kernels on one
@@ -2356,7 +2460,7 @@ def main():
     # 5. logN15 timing, route A/B, profile
     step_ms, plain_step_ms = time_step(eng, kern, A, B, "logN15", smi,
                                        (3, 3), 3)
-    ab15 = route_ab(eng, kern, sharded, A, B, "logN15", (3, 3))
+    ab15, chain15 = route_ab(eng, kern, sharded, A, B, "logN15", (3, 3))
     profile_step(lambda: eng.cc_mult(A, B), "logN15")
     compressed_keys(eng, ttyping, mont)
 
@@ -2386,26 +2490,22 @@ def main():
         "logN17")
     require(launches17, PATH_17, "the logN17 main path")
     require(step17, STEP_17, "the logN17 step")
-    n_parts = len(eng17.params.parts[1])
-    if step17["ntt_keymul_accum"] != n_parts or step17["ntt_keymul_parts"]:
-        raise AssertionError(
-            f"logN17 step: {step17['ntt_keymul_accum']} chain launches "
-            f"(want {n_parts}), {step17['ntt_keymul_parts']} all-parts")
+    keyswitch_launches(step17, 1, "logN17", "step")
 
     # 8. logN17 switch_key
     err_sw, sw_counts = switch_key_17(eng17, kern, stack_ciphertexts,
                                       unstack_ciphertext)
 
-    # 8b. a rotation and a conjugation through the per-part chain
+    # 8b. a rotation and a conjugation, each through the all-parts kernel
     eval17, evalres17, evalkeys17 = evaluate_light(
         eng17, kern, stack_ciphertexts, unstack_ciphertext, A,
-        DECRYPT_TOL_17, "", "logN17", chain=True)
+        DECRYPT_TOL_17, "", "logN17", large=True)
 
     # 9. logN17 timing (3 single-step loops; one for the plain versions,
     # whose step takes seconds), route A/B, profile
     step17_ms, plain_step17_ms = time_step(eng17, kern, A, B, "logN17", smi,
                                            (3, 1), 1)
-    ab17 = route_ab(eng17, kern, sharded, A, B, "logN17", (3, 1))
+    ab17, chain17 = route_ab(eng17, kern, sharded, A, B, "logN17", (3, 1))
     profile_step(lambda: eng17.cc_mult(A, B), "logN17", top=16)
     share17 = draw_share(eng17, msgs(eng17)[0], "logN17")
 
@@ -2435,18 +2535,19 @@ def main():
     check_against_cpu(eng, CkksEngine, "logN15_30", A, B, out, "logN15_30")
     eval15_30, evalres15_30, _ = evaluate_light(
         eng, kern, stack_ciphertexts, unstack_ciphertext, A,
-        DECRYPT_TOL_30_OP, "_30", "logN15_30", chain=False)
+        DECRYPT_TOL_30_OP, "_30", "logN15_30", large=False)
     step15_30_ms, plain_step15_30_ms = time_step(
         eng, kern, A, B, "logN15_30", smi, (3, 3), 3)
     log(f"logN15 fused step, batch {BATCH}, same call: 62-bit "
         f"{step_ms:.3f} ms/step, 30-bit (logN15_30) {step15_30_ms:.3f} "
         f"ms/step ({smi})")
-    ab15_30 = route_ab(eng, kern, sharded, A, B, "logN15_30", (3, 3))
+    ab15_30, chain15_30 = route_ab(eng, kern, sharded, A, B, "logN15_30",
+                                   (3, 3))
     profile_step(lambda: eng.cc_mult(A, B), "logN15_30")
     del eng, A, B, out
     release_engines(ttyping)
 
-    # 11. logN17_30: kernels, the main path through the per-part chain,
+    # 11. logN17_30: kernels, the main path through the all-parts kernel,
     # the plain-version step, route A/B with peak memory, profile
     t0 = time.perf_counter()
     eng = CkksEngine("logN17_30", device="cuda", seed=SEED)
@@ -2461,20 +2562,21 @@ def main():
     require(launches17_30, lane(PATH_17, "_30"), "the logN17_30 main path")
     require(step17_30, lane(STEP_17, "_30"), "the logN17_30 step")
     only_30(launches17_30, "logN17_30")
-    if (step17_30["ntt_keymul_accum_30"] != n_parts
-            or step17_30["ntt_keymul_parts_30"]):
-        raise AssertionError(
-            f"logN17_30 step: {step17_30['ntt_keymul_accum_30']} chain "
-            f"launches (want {n_parts}), {step17_30['ntt_keymul_parts_30']} "
-            f"all-parts")
+    keyswitch_launches(step17_30, 1, "logN17_30", "step", "_30")
     eval17_30, evalres17_30, evalkeys17_30 = evaluate_light(
         eng, kern, stack_ciphertexts, unstack_ciphertext, A,
-        DECRYPT_TOL_30_OP, "_30", "logN17_30", chain=True)
+        DECRYPT_TOL_30_OP, "_30", "logN17_30", large=True)
     step17_30_ms, plain_step17_30_ms = time_step(
         eng, kern, A, B, "logN17_30", smi, (3, 1), 1)
-    ab17_30 = route_ab(eng, kern, sharded, A, B, "logN17_30", (3, 1))
+    ab17_30, chain17_30 = route_ab(eng, kern, sharded, A, B, "logN17_30",
+                                   (3, 1))
     profile_step(lambda: eng.cc_mult(A, B), "logN17_30", top=16)
     del eng, A, B, out
+    release_engines(ttyping)
+
+    # 11b. a step at Preset.logN16
+    step16, res16 = step_phase16(CkksEngine, Preset, kern, stack_ciphertexts,
+                                 unstack_ciphertext, smi)
     release_engines(ttyping)
 
     # 12. the extension path at logN15: the operator sugar, save/load,
@@ -2490,10 +2592,13 @@ def main():
     release_engines(ttyping)
     multihost = multihost_phase()
 
-    counts = {k: launches15[k] + launches17[k] + sw_counts[k]
-              + launches15_30[k] + launches17_30[k] + eval15[k] + eval17[k]
-              + eval15_30[k] + eval17_30[k] + ext15[k] + mesh15[k]
-              for k in KERNELS}
+    # the driven paths: the main paths, switch_key, the evaluation,
+    # extension and mesh paths, the logN16 step, and the route A/B's
+    # chain route (the per-part chain, each run counted from 0)
+    paths = (launches15, launches17, sw_counts, launches15_30,
+             launches17_30, eval15, eval17, eval15_30, eval17_30, ext15,
+             mesh15, step16, chain15, chain17, chain15_30, chain17_30)
+    counts = {k: sum(p[k] for p in paths) for k in KERNELS}
     counts.update(probe_counts)
     require(counts, [*KERNELS, *PROBE], "the driven paths")
     for res, launches, step, sfx, tag in (
@@ -2510,6 +2615,12 @@ def main():
             (results17_30, eval17_30, "_30", "logN17_30")):
         rank(res, launches, sfx, f"{tag} evaluation path:")
     rank(results15, ext15, "", "logN15 extension path:")
+    for res, launches, sfx, tag in (
+            (results15, chain15, "", "logN15"),
+            (results17, chain17, "", "logN17"),
+            (results15_30, chain15_30, "_30", "logN15_30"),
+            (results17_30, chain17_30, "_30", "logN17_30")):
+        rank(res, launches, sfx, f"{tag} route A/B, chain route:")
     rank(results15, mesh15, "", "logN15 mesh paths (every shard on one "
          "card):")
     measured = {"": (results17, results15, "logN17", "logN15"),
@@ -2561,6 +2672,7 @@ def main():
                       "evaluation": {"ops": evalres17_30,
                                      "keys": evalkeys17_30},
                       **info17_30},
+        "logN16": res16,
         "logN15_extensions": {"launches": {k: n for k, n in ext15.items()
                                            if n}, **extres15},
         "logN15_mesh": {"launches": {k: n for k, n in mesh15.items() if n},

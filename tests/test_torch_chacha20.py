@@ -92,3 +92,20 @@ def test_step_counter_by_replica_matches_sequential_steps():
     for k in range(5):
         assert torch.equal(batched[k], cur)
         cur = tcc.step_counter(cur, inc)
+
+
+def test_chacha20_matches_jax():
+    """``chacha20(state, step)``: the words and the stepped states of 4
+    random states (two at the low counter's wrap) over two steps, fed
+    back, against the JAX package's."""
+    rng = np.random.default_rng(75)
+    state = rng.integers(0, 1 << 32, (4, 16), dtype=np.int64)
+    state[::2, 12] = 0xFFFFFFFF
+    jstate, tstate = jnp.asarray(_jax(state)), torch.from_numpy(state)
+    for _ in range(2):
+        jwords, jstate = jcc.chacha20(jstate, 3)
+        twords, tstate = tcc.chacha20(tstate, 3)
+        np.testing.assert_array_equal(twords.numpy(),
+                                      np.asarray(jwords).astype(np.int64))
+        np.testing.assert_array_equal(tstate.numpy(),
+                                      np.asarray(jstate).astype(np.int64))

@@ -283,3 +283,13 @@ def test_simplerng_matches_jax():
     assert set(tern.unique().tolist()) <= {-1, 0, 1}
     assert g.shape == (3, 256)
     assert set(r.unique().tolist()) == {1, 2}
+
+
+def test_channeled_states_match_jax():
+    """``channeled_states`` ([channels, L, 16]) after one draw."""
+    j, t = _pair("toy")
+    _draws(j, "randint", "toy")
+    _draws(t, "randint", "toy")
+    assert t.channeled_states.shape == (t.total_num_channels
+                                        + t.num_repeating_channels, t.L, 16)
+    assert _eq(j.channeled_states, t.channeled_states)

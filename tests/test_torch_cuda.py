@@ -66,7 +66,8 @@ def card():
 def test_kernels_match_plain_on_card(card, logN, lane):
     """Every kernel against its plain version at a few rows; logN 15 is
     the main path's geometry (L1 = 7, L2 = 8).  At logN 17 (L1 = 8, L2 =
-    9: chunks of two warps) K5 and K6 at batch 1."""
+    9: chunks of two warps) K5 and K6 at batch 1.  K6 reads each part's
+    keys in place: the level's rows of a level-0 key per part."""
     tp = CkksParams(_cfg(logN, lane), card)
     lp_ord, lp_sp = tp.lp(LEVEL, False), tp.lp(LEVEL, True)
     gen = torch.Generator().manual_seed(logN)
@@ -84,9 +85,10 @@ def test_kernels_match_plain_on_card(card, logN, lane):
     p0 = uni(lp_sp[C:], (batch, tp.S, N))
     ec, alphas = teng._parts_consts(tp, LEVEL)
     st = teng._parts_digits(x, tp.parts[LEVEL], lp_ord, ec.shape[-1])
-    pkeys = tuple(torch.stack([uni(lp_sp, (C_sp, N))
-                               for _ in range(ec.shape[0])])
-                  for _ in range(2))
+    lp0 = tp.lp(0, True)
+    pkeys = tuple(tuple(uni(lp0, (lp0.num_channels, N))[LEVEL:]
+                        for _ in range(2))
+                  for _ in range(ec.shape[0]))
     cases = {
         "ntt": lambda: (K.ntt(x, lp_ord, True), K.ntt_plain(x, lp_ord, True)),
         "ntt no entry": lambda: (K.ntt(x, lp_ord, False),
@@ -160,10 +162,11 @@ def test_ntt_keymul_accum_matches_plain_on_card(card, logN, lane):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lane", sorted(LANES))
 def test_chain_step_equals_parts_kernel_step_on_card(card, lane):
-    """The fused step through the per-part chain (13 parts at logN17, 4
-    here) equals the step through the all-parts kernel, byte for byte;
-    each route launches only its own keyswitch kernel, in the lane of the
-    engine's storage dtype."""
+    """The fused step through the per-part chain with its in-part
+    shortcut (13 parts at logN17, 4 here; its ``prm`` built explicitly:
+    the engine's default is the all-parts kernel) equals the step through
+    the all-parts kernel, byte for byte; each route launches only its own
+    keyswitch kernel, in the lane of the engine's storage dtype."""
     eng = teng.CkksEngine(_cfg(10, lane, num_scales=14,
                                num_special_primes=6), device=card, seed=6)
     sfx = LANES[lane][1]
@@ -175,7 +178,8 @@ def test_chain_step_equals_parts_kernel_step_on_card(card, lane):
     ksk = sharded.prepare_step_ksk(eng, 0)
     prm = sharded.mult_step_params(eng, 0)
     outs = []
-    for route in (prm, dict(prm, parts_fused=None)):
+    chain = dict(prm, parts_fused=None, inpart=eng._ksk_inpart(eng.evk, 1))
+    for route in (prm, chain):
         K.reset_launch_counts()
         outs.append(step(a.data[0], a.data[1], b.data[0], b.data[1], ksk,
                          route))
@@ -213,6 +217,41 @@ def test_wrappers_reject_bad_operands(card):
         K.ntt(x.t().contiguous().t(), lp, True)
     with pytest.raises(ValueError):
         K.ntt(x[:-1], lp, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", sorted(LANES))
+def test_parts_kernel_rejects_bad_key_views(card, lane):
+    """K6 reads each part's keys through a pointer: a view off the 16-byte
+    grain, one without contiguous rows, or one on another device raises
+    before a launch; so do tables that point at other keys."""
+    tp = CkksParams(_cfg(7, lane), card)
+    lp_ord, lp_sp = tp.lp(LEVEL, False), tp.lp(LEVEL, True)
+    ec, alphas = teng._parts_consts(tp, LEVEL)
+    C_sp, N = lp_sp.num_channels, 128
+    x = torch.zeros((BATCH, lp_ord.num_channels, N), dtype=tp.dtype,
+                    device=card)
+    st = teng._parts_digits(x, tp.parts[LEVEL], lp_ord, ec.shape[-1])
+    good = tuple((torch.zeros((C_sp, N), dtype=tp.dtype, device=card),
+                  torch.zeros((C_sp, N), dtype=tp.dtype, device=card))
+                 for _ in range(ec.shape[0]))
+    flat = torch.zeros(C_sp * N + 1, dtype=tp.dtype, device=card)
+    bad = {
+        "misaligned": flat[1:].view(C_sp, N),
+        "strided rows": good[0][0].t().contiguous().t(),
+        "on the cpu": good[0][0].cpu(),
+    }
+    K.reset_launch_counts()
+    for name, view in bad.items():
+        keys = ((view, good[0][1]), *good[1:])
+        with pytest.raises(ValueError, match="k0"):
+            K.ntt_keymul_parts(st, ec, alphas, keys, lp_sp)
+    with pytest.raises(ValueError, match="tables"):
+        K.ntt_keymul_parts(st, ec, alphas, good, lp_sp,
+                           K.key_tables(good[::-1]))
+    assert sum(K.LAUNCHES.values()) == 0
+    K.ntt_keymul_parts(st, ec, alphas, good, lp_sp, K.key_tables(good))
+    assert K.LAUNCHES["ntt_keymul_parts" + LANES[lane][1]] == 1
 
 
 @pytest.mark.cuda

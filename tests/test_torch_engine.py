@@ -383,6 +383,43 @@ def test_engine_id_rnspart_and_str_match_jax():
         assert getattr(t1.rnsPart, name) == getattr(j.rnsPart, name), name
 
 
+def _config_pairs():
+    """(name, JAX config, port config) of every Preset and of each 30-bit
+    twin that ``parse_30bit`` builds."""
+    from tiberate_tpu.config import CkksConfig as JCfg
+    from tiberate_tpu.config import Preset as JPreset
+    from tiberate_tpu_torch.config import CkksConfig as TCfg
+    from tiberate_tpu_torch.config import Preset as TPreset
+
+    for p in TPreset:
+        yield p.value, JCfg.parse(JPreset(p.value)), TCfg.parse(p)
+        yield (p.value + "_30", JCfg.parse_30bit(p.value),
+               TCfg.parse_30bit(p.value))
+
+
+def test_config_str_matches_jax():
+    """``str(CkksConfig)`` is the JAX package's text at every preset and
+    30-bit twin (``repr`` was already equal: the hash key)."""
+    names = []
+    for name, j, t in _config_pairs():
+        assert str(t) == str(j), name
+        assert repr(t) == repr(j), name
+        assert str(t).startswith("CkksConfig(buffer_bit_length=")
+        names.append(name)
+    assert len(names) == 8
+
+
+def test_preset_engine_str_matches_jax():
+    """``str(engine)`` at Preset.logN14, the smallest preset, with each
+    engine's id masked: it embeds ``str(ckksCfg)``."""
+    from tiberate_tpu_torch.config import Preset
+
+    j = jeng.CkksEngine("logN14", seed=1)
+    t = teng.CkksEngine(Preset.logN14, device="cpu", seed=1)
+    assert str(t).replace(t.id, "<id>") == str(j).replace(j.id, "<id>")
+    assert str(t.ckksCfg) in str(t)
+
+
 def test_port_logN14_ciphertext_digest_pinned():
     """The port's counterpart of tests/test_golden.py's pinned digest: its
     own keygen, CSPRNG, codec and encrypt at Preset.logN14 give the JAX

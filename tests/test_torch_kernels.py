@@ -218,8 +218,7 @@ def test_ntt_keymul_parts_plain_matches_jnp(params):
     for p, s in enumerate(sts):
         assert _eq(s, st[p, : s.shape[0]])
     ec, alphas = teng._parts_consts(tp, LEVEL)
-    tkeys = tuple(torch.stack([torch.from_numpy(k[i]) for k in keys])
-                  for i in range(2))
+    tkeys = tuple(tuple(torch.from_numpy(k) for k in pair) for pair in keys)
     acc0, acc1 = K.ntt_keymul_parts_plain(st, ec, alphas, tkeys, tlp_sp)
     assert _eq(d0, acc0) and _eq(d1, acc1)
 

@@ -12,7 +12,12 @@ pattern (alpha 5, then 6, then short tail parts) in small.
   which on the CPU runs its jnp branch;
 * ``create_switcher`` on an NTT-domain input against the same;
 * ``switch_key`` on a JAX ciphertext and key-switching key carried across
-  with ``interop.from_jax``, through both keyswitch routes.
+  with ``interop.from_jax``, through both keyswitch routes;
+* ``CkksParams.part_lp`` at each part against the JAX package's;
+* the all-parts key form reads the key's rows in place (no stacked copy,
+  pointer tables beside the views), and ``switch_key`` / ``relinearize``
+  go through ``ntt_keymul_parts`` alone and equal the JAX package's bytes
+  at the toy, the 30-bit toy and this logN17-pattern toy.
 
 Inputs are numpy draws from a seed.  Tolerance: none — byte-identical
 (lazy accumulators included where the reference is the same lazy chain).
@@ -178,7 +183,7 @@ def test_switcher_body_matches_jax(params, switch_case, route):
     if route == "chain_inpart":
         kw = dict(a_ntt=a_ntt, inpart=eng._ksk_inpart(ksk, LEVEL))
     elif route == "parts_kernel":
-        kw = dict(parts_fused=eng._ksk_parts_stacked(ksk, LEVEL))
+        kw = dict(parts_fused=eng._ksk_parts_fused(ksk, LEVEL))
     K.reset_launch_counts()
     got = teng._switcher_body(
         a, ksk_parts, parts, eng._lp(LEVEL, True), eng._lp(LEVEL, False),
@@ -246,3 +251,127 @@ def test_create_switcher_matches_jax(params, switch_case):
     got = eng.create_switcher(a_ntt, ksk, LEVEL, exit_ntt=True)
     for b, (w0, w1) in enumerate(want):
         assert _eq(w0, got[0][b]) and _eq(w1, got[1][b])
+
+
+# (e) the per-part level packs -----------------------------------------
+
+
+@pytest.mark.parametrize("part_id", range(4))
+def test_part_lp_matches_jax(params, part_id):
+    """``part_lp`` of each level-1 part: the part's own global primes."""
+    jp, eng = params
+    jpart, tpart = jp.parts[LEVEL][part_id], eng.params.parts[LEVEL][part_id]
+    jlp, tlp = jp.part_lp(jpart, LEVEL), eng.params.part_lp(tpart, LEVEL)
+    assert tlp.num_channels == jlp.num_channels == tpart.alpha
+    assert _eq(jlp.pack._2q, tlp.pack._2q)
+    assert _eq(jlp.psi, tlp.psi) and _eq(jlp.Rs, tlp.Rs)
+
+
+# (f) the all-parts route: keys in place, every keyswitch through K6 ----
+
+
+def _storage(t):
+    return t.untyped_storage().data_ptr()
+
+
+def _tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (tuple, list)):
+        for o in obj:
+            yield from _tensors(o)
+
+
+@pytest.mark.parametrize("level", [0, LEVEL])
+def test_parts_key_form_reads_the_key_in_place(params, switch_case, level):
+    """Each part's (k0, k1) in the key form is a view of the key's own
+    tensor at the level's rows; the pointer tables hold those views'
+    addresses; nothing cached on the key holds a copy of key rows."""
+    _, eng = params
+    ksk = switch_case[0]
+    keys, tables, ec, alphas = eng._ksk_parts_fused(ksk, level)
+    alloc = eng.params.parts_alloc[level]
+    assert len(keys) == len(alloc) == ec.shape[0] == alphas.shape[0]
+    for (k0, k1), g in zip(keys, alloc):
+        for view, key in zip((k0, k1), ksk.data[g]):
+            assert _storage(view) == _storage(key)
+            assert view.data_ptr() == key[level].data_ptr()
+            assert view.shape == key[level:].shape and view.is_contiguous()
+    ptrs = tuple((k0.data_ptr(), k1.data_ptr()) for k0, k1 in keys)
+    assert tables.ptrs == ptrs
+    assert tables.k0p.tolist() == [p[0] for p in ptrs]
+    assert tables.k1p.tolist() == [p[1] for p in ptrs]
+    assert eng._ksk_parts_fused(ksk, level)[1] is tables  # cached
+    assert "_parts_fused" not in ksk.misc  # the stacked copies' cache
+    own = {_storage(k) for pair in ksk.data for k in pair}
+    row_bytes = ksk.data[0][0][0].nbytes
+    cached = [t for form in ksk.misc["_parts_tables"].values()
+              for t in _tensors(form)]
+    assert len(cached) >= 2 * len(keys) + 2
+    for t in cached:
+        assert _storage(t) in own or t.nbytes < row_bytes
+
+
+ROUTE_CFGS = {"toy": dict(logN=7, num_scales=4, num_special_primes=2,
+                          scale_bits=30),
+              "toy30": dict(logN=7, num_scales=4, num_special_primes=2,
+                            scale_bits=21, buffer_bit_length=30),
+              "logN17_pattern": CFG}
+
+
+@pytest.fixture(scope="module", params=sorted(ROUTE_CFGS))
+def jax_pair(request):
+    """A JAX engine of the config, a ciphertext under a second secret key
+    with its ksk to the engine's key, and a triplet; the port engine with
+    the JAX keys carried across."""
+    j = JaxEngine(jax_toy_config(**ROUTE_CFGS[request.param]), seed=33,
+                  nonce=3)
+    rng = np.random.default_rng(44)
+    m1, m2 = (rng.uniform(-1, 1, j.num_slots) for _ in range(2))
+    sk2 = j._create_secret_key()
+    ct2 = j.encodecrypt(m1, pk=j._create_public_key(sk2))
+    ksk = j.create_key_switching_key(sk2, j.sk)
+    trip = j.cc_mult(j.encodecrypt(m1), j.encodecrypt(m2), post_relin=False)
+    t = TorchEngine(j.ckksCfg, device="cpu", seed=0)
+    t.sk = interop.from_jax(j.sk, device="cpu")
+    t.evk = interop.from_jax(j.evk, device="cpu")
+    return request.param, j, t, (ct2, ksk, trip)
+
+
+@pytest.mark.parametrize("op", ["switch_key", "relinearize"])
+def test_keyswitch_runs_the_parts_kernel_and_matches_jax(jax_pair, op,
+                                                        monkeypatch):
+    """``switch_key`` and ``relinearize`` on JAX objects: one
+    ``ntt_keymul_parts`` call each (its plain version on the CPU, fed the
+    key's rows in place), no chain kernel, the JAX package's bytes; the
+    relinearization builds no in-part cache on the evk."""
+    _, j, t, (ct2, ksk, trip) = jax_pair
+    calls = {"parts": 0, "chain": 0}
+    parts_plain, accum_plain = (K.ntt_keymul_parts_plain,
+                                K.ntt_keymul_accum_plain)
+
+    def parts(*a, **kw):
+        calls["parts"] += 1
+        return parts_plain(*a, **kw)
+
+    def accum(*a, **kw):
+        calls["chain"] += 1
+        return accum_plain(*a, **kw)
+
+    monkeypatch.setattr(K, "ntt_keymul_parts_plain", parts)
+    monkeypatch.setattr(K, "ntt_keymul_accum_plain", accum)
+    if op == "switch_key":
+        want = j.switch_key(ct2, ksk)
+        tksk = interop.from_jax(ksk, device="cpu")
+        got = t.switch_key(interop.from_jax(ct2, device="cpu"), tksk)
+    else:
+        want = j.relinearize(trip, j.evk)
+        tksk = t.evk
+        got = t.relinearize(interop.from_jax(trip, device="cpu"))
+        assert "_inpart" not in tksk.misc
+    assert calls == {"parts": 1, "chain": 0}
+    assert "_parts_tables" in tksk.misc
+    assert got.level == want.level
+    for w, g in zip(want.data, got.data):
+        assert g.dtype == t.params.dtype
+        assert _eq(w, g)

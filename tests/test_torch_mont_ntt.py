@@ -217,3 +217,39 @@ def test_cdt_matches_jax_tree():
     cdt = build_CDT(128, 3.2)
     assert cdt[0] == 0 and cdt == sorted(cdt)
     assert cdt[1 : size + 1] == tree
+
+
+def test_negacyclic_ntt_oracle_matches_jax():
+    """The O(N^2) oracle at logN 4 with a toy prime (q = 1 mod 32) on
+    seeded coefficients, against the JAX package's, and the negacyclic
+    product it diagonalises."""
+    q, logN = 97, 4
+    rng = np.random.default_rng(76)
+    a, b = (rng.integers(0, q, 1 << logN).tolist() for _ in range(2))
+    got = tntt.negacyclic_ntt_oracle(a, q, logN)
+    assert got == jntt.negacyclic_ntt_oracle(a, q, logN)
+    N = 1 << logN
+    prod = [0] * N
+    for i, x in enumerate(a):
+        for j, y in enumerate(b):
+            k, sgn = (i + j) % N, (-1 if i + j >= N else 1)
+            prod[k] = (prod[k] + sgn * x * y) % q
+    fb = tntt.negacyclic_ntt_oracle(b, q, logN)
+    assert tntt.negacyclic_ntt_oracle(prod, q, logN) == [
+        x * y % q for x, y in zip(got, fb)]
+
+
+@pytest.mark.parametrize("lane", LANES)
+@pytest.mark.parametrize("extra_dims", [0, 1, 2])
+def test_modpack_expand_matches_jax(lane, extra_dims):
+    """``ModPack.expand``: each [C, 1] column gains ``extra_dims``
+    singleton dims, with the JAX pack's shapes and values; the flat q and
+    k the kernels read stay [C]."""
+    jp, tp = _packs(Q_LISTS[lane], lane)
+    je, te = jp.expand(extra_dims), tp.expand(extra_dims)
+    if extra_dims == 0:
+        assert te is tp
+    for f in ("ql", "qh", "kl", "kh", "_2q"):
+        assert getattr(te, f).shape == getattr(je, f).shape
+        assert _eq(getattr(je, f), getattr(te, f))
+    assert te.q.shape == te.k.shape == (len(Q_LISTS[lane]),)

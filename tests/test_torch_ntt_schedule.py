@@ -240,7 +240,9 @@ def model_keymul_parts(st, ec, alphas, keys, lp_sp, lane):
     and forms REDC(st_0 Rs) (+) sum_i REDC(st_i L_enter_i) in registers,
     then the strided rounds run.  Pass 2: one twiddle table per chunk for
     all parts; each part's chunk runs the contiguous rounds, in part order,
-    and its two key products go into two accumulators that part 0 sets.
+    and its two key products go into two accumulators that part 0 sets;
+    part p's keys are read where ``keys[p]`` = (k0, k1) lie, as the
+    kernel reads them through its per-part pointer tables.
     Returns the two accumulators [B, C_sp, N]."""
     B, n_parts, amax, N = st.shape
     plan = Plan(N.bit_length() - 1, lane)
@@ -277,7 +279,7 @@ def model_keymul_parts(st, ec, alphas, keys, lp_sp, lane):
         X = tmp[:, :, p].clone()  # [C, B, N1, N2]
         _contig(X, table, plan, True, pk)
         for j in range(2):
-            key = keys[j][p].reshape(C, 1, plan.N1, plan.N2)
+            key = keys[p][j].reshape(C, 1, plan.N1, plan.N2)
             prod = _redc(X, key, pk, 4)
             acc[j] = prod if p == 0 else _tile_add(acc[j], prod,
                                                    _consts(pk, 4)[-1])
@@ -396,10 +398,11 @@ def test_parts_schedule_matches_plain(logN, S, lane):
     ec, alphas = teng._parts_consts(tp, 1)
     x = _residues(rng, lp.pack, (B, lp.num_channels, N))
     st = teng._parts_digits(x, tp.parts[1], lp, ec.shape[-1]).contiguous()
-    keys = tuple(torch.stack([_residues(rng, lp_sp.pack, (lp_sp.num_channels,
-                                                          N))
-                              for _ in range(ec.shape[0])])
-                 for _ in range(2))
+    # each part's (k0, k1): the level-1 rows of a level-0 key, in place
+    full = tp.lp(0, True).pack
+    keys = tuple(tuple(_residues(rng, full, (full.num_channels, N))[1:]
+                       for _ in range(2))
+                 for _ in range(ec.shape[0]))
     want = K.ntt_keymul_parts_plain(st, ec, alphas, keys, lp_sp)
     got = model_keymul_parts(st, ec, alphas, keys, lp_sp, lane)
     for g, w in zip(got, want):

@@ -92,9 +92,9 @@ def _case(tp, name):
     if name == "ntt_keymul_parts":
         ec, alphas = teng._parts_consts(tp, LEVEL)
         st = teng._parts_digits(x, tp.parts[LEVEL], lp, ec.shape[-1])
-        pkeys = tuple(torch.stack([_uniform(gen, lp_sp.pack.q, (C_sp, N))
-                                   for _ in range(ec.shape[0])])
-                      for _ in range(2))
+        pkeys = tuple(tuple(_uniform(gen, lp_sp.pack.q, (C_sp, N))
+                            for _ in range(2))
+                      for _ in range(ec.shape[0]))
         return (lambda: K.ntt_keymul_parts_plain(st, ec, alphas, pkeys,
                                                  lp_sp),
                 roofline.ntt_keymul_parts(BATCH, alphas.tolist(), C_sp, LOGN))

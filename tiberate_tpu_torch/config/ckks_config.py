@@ -192,3 +192,16 @@ class CkksConfig:
             f"{self.num_scales}_{self.num_special_primes}_{self.security_bits}_"
             f"{self.quantum}_{self.distribution}"
         )
+
+    def __str__(self):
+        return (
+            f"CkksConfig(buffer_bit_length={self.buffer_bit_length}, "
+            f"scale_bits={self.scale_bits}, logN={self.logN}, "
+            f"num_scales={self.num_scales}, "
+            f"num_special_primes={self.num_special_primes}, "
+            f"sigma={self.sigma}, "
+            f"uniform_ternary_secret={self.uniform_ternary_secret}, "
+            f"security_bits={self.security_bits}, quantum='{self.quantum}', "
+            f"distribution='{self.distribution}', "
+            f"force_secured={self.force_secured})"
+        )

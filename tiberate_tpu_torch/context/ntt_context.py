@@ -286,6 +286,10 @@ class CkksParams:
         """The base-prime-only view (last ordinary channel)."""
         return self._full[self.P - 1 : self.P]
 
+    def part_lp(self, part: PartPack, lvl: int) -> LevelPack:
+        """Level view of one part's primes (contiguous global rows)."""
+        return self._full[part.g0 : part.g0 + part.alpha]
+
     # ------------------------------------------------------------------
 
     def _build_parts(self, lvl):

@@ -36,6 +36,14 @@
 //     loads) and adds into two register accumulators; both are stored
 //     once, as 16-byte vectors.
 //
+// The keys are read in place: k0p and k1p are device tables of one base
+// pointer per part, each pointing at that part's [C_sp, N] evk rows
+// wherever the key holds them (row-contiguous, 16-byte aligned; the
+// wrapper checks both).  The TPU kernel takes the parts stacked into one
+// [n_parts, C_sp, N] array, the layout its BlockSpec indexes by part; a
+// pointer per part costs pass 2 one uniform load a part and spares the
+// caller a stacked copy of every key it switches with.
+//
 // What bounds it on the H100: the REDCs of the extension, the butterflies
 // of n_parts x C_sp rows and the key products (ops/roofline.py; the bytes
 // bound is a few percent of it).  Against the four costs of the
@@ -95,11 +103,12 @@ parts_strided_k(const W* __restrict__ st, const W* __restrict__ ec,
         tmp + ((size_t)row << LOGN), psi + ((size_t)c << LOGN), q, k);
 }
 
-// keys k0, k1 [n_parts, C_sp, N]; acc0, acc1 [B, C_sp, N].
+// key tables k0p, k1p [n_parts]: part p's rows, each [C_sp, N];
+// acc0, acc1 [B, C_sp, N].
 template <typename W, int LOGN>
 __global__ void __launch_bounds__(Plan<W, LOGN>::T2)
-parts_contig_k(const W* __restrict__ tmp, const W* __restrict__ k0,
-               const W* __restrict__ k1, W* __restrict__ acc0,
+parts_contig_k(const W* __restrict__ tmp, const W* const* __restrict__ k0p,
+               const W* const* __restrict__ k1p, W* __restrict__ acc0,
                W* __restrict__ acc1, int n_parts, int C_sp,
                const W* __restrict__ qv, const W* __restrict__ kv,
                const W* __restrict__ psi) {
@@ -119,7 +128,7 @@ parts_contig_k(const W* __restrict__ tmp, const W* __restrict__ k0,
     chunk_twiddles<W, P::L1, P::L2, P::TPC>(T, psi + ((size_t)c << LOGN), j1,
                                             t);
     tile_sync<P::WARP2>();
-    // one part further on: C_sp rows of tmp and of each key
+    // one part further on: C_sp rows of tmp
     const size_t pstride = (size_t)C_sp << LOGN;
     const W* src = tmp + (((size_t)b * n_parts * C_sp + c) << LOGN) + chunk;
     // after the last round thread t holds words tR .. tR+R-1 of the chunk
@@ -128,13 +137,13 @@ parts_contig_k(const W* __restrict__ tmp, const W* __restrict__ k0,
     for (int p = 0; p < n_parts; ++p) {
         W v[SC::R], key[SC::R];
         fwd_chunk<W, LOGN>(v, src + p * pstride, t, T, q, k, q2);
-        ld_vec(key, k0 + ko + p * pstride);
+        ld_vec(key, k0p[p] + ko);
 #pragma unroll
         for (int i = 0; i < SC::R; ++i) {
             const W x = redc(v[i], key[i], q, k);
             a0[i] = p == 0 ? x : tile_add(a0[i], x, q2);
         }
-        ld_vec(key, k1 + ko + p * pstride);
+        ld_vec(key, k1p[p] + ko);
 #pragma unroll
         for (int i = 0; i < SC::R; ++i) {
             const W x = redc(v[i], key[i], q, k);
@@ -148,7 +157,8 @@ parts_contig_k(const W* __restrict__ tmp, const W* __restrict__ k0,
 
 template <typename W, int LOGN>
 static int parts_n(const W* st, const W* ec, const int* alphas, W* tmp,
-                   const W* k0, const W* k1, W* acc0, W* acc1, int B,
+                   const W* const* k0p, const W* const* k1p, W* acc0,
+                   W* acc1, int B,
                    int n_parts, int amax, int C_sp, const W* q, const W* k,
                    const W* psi, cudaStream_t s) {
     typedef Plan<W, LOGN> P;
@@ -161,7 +171,7 @@ static int parts_n(const W* st, const W* ec, const int* alphas, W* tmp,
         st, ec, alphas, tmp, n_parts, amax, C_sp, q, k, psi);
     TT_CHECK();
     parts_contig_k<W, LOGN><<<dim3(P::N1 / P::CH, B * C_sp), P::T2,
-                              P::SMEM2, s>>>(tmp, k0, k1, acc0, acc1,
+                              P::SMEM2, s>>>(tmp, k0p, k1p, acc0, acc1,
                                              n_parts, C_sp, q, k, psi);
     TT_CHECK();
     return 0;
@@ -169,23 +179,25 @@ static int parts_n(const W* st, const W* ec, const int* alphas, W* tmp,
 
 template <typename W>
 static int ntt_keymul_parts(const W* st, const W* ec, const int* alphas,
-                            W* tmp, const W* k0, const W* k1, W* acc0,
-                            W* acc1, int B, int n_parts, int amax, int C_sp,
-                            int logN, const W* q, const W* k, const W* psi,
+                            W* tmp, const W* const* k0p,
+                            const W* const* k1p, W* acc0, W* acc1, int B,
+                            int n_parts, int amax, int C_sp, int logN,
+                            const W* q, const W* k, const W* psi,
                             void* stream) {
-    TT_BY_LOGN(parts_n, st, ec, alphas, tmp, k0, k1, acc0, acc1, B, n_parts,
-               amax, C_sp, q, k, psi, (cudaStream_t)stream)
+    TT_BY_LOGN(parts_n, st, ec, alphas, tmp, k0p, k1p, acc0, acc1, B,
+               n_parts, amax, C_sp, q, k, psi, (cudaStream_t)stream)
 }
 
 #if TT_I64
 extern "C" int tt_ntt_keymul_parts(const i64* st, const i64* ec,
                                    const int* alphas, i64* tmp,
-                                   const i64* k0, const i64* k1, i64* acc0,
+                                   const i64* const* k0p,
+                                   const i64* const* k1p, i64* acc0,
                                    i64* acc1, int B, int n_parts, int amax,
                                    int C_sp, int logN, const i64* q,
                                    const i64* k, const i64* psi,
                                    void* stream) {
-    return ntt_keymul_parts(st, ec, alphas, tmp, k0, k1, acc0, acc1, B,
+    return ntt_keymul_parts(st, ec, alphas, tmp, k0p, k1p, acc0, acc1, B,
                             n_parts, amax, C_sp, logN, q, k, psi, stream);
 }
 #endif
@@ -193,12 +205,13 @@ extern "C" int tt_ntt_keymul_parts(const i64* st, const i64* ec,
 #if TT_I32
 extern "C" int tt_ntt_keymul_parts_30(const i32* st, const i32* ec,
                                       const int* alphas, i32* tmp,
-                                      const i32* k0, const i32* k1,
-                                      i32* acc0, i32* acc1, int B,
-                                      int n_parts, int amax, int C_sp,
-                                      int logN, const i32* q, const i32* k,
+                                      const i32* const* k0p,
+                                      const i32* const* k1p, i32* acc0,
+                                      i32* acc1, int B, int n_parts,
+                                      int amax, int C_sp, int logN,
+                                      const i32* q, const i32* k,
                                       const i32* psi, void* stream) {
-    return ntt_keymul_parts(st, ec, alphas, tmp, k0, k1, acc0, acc1, B,
+    return ntt_keymul_parts(st, ec, alphas, tmp, k0p, k1p, acc0, acc1, B,
                             n_parts, amax, C_sp, logN, q, k, psi, stream);
 }
 #endif

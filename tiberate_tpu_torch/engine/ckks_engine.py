@@ -13,13 +13,21 @@ operands.  Keys and noise come from the counter-mode ChaCha20 CSPRNG
 (:mod:`tiberate_tpu_torch.rng.csprng`) on the engine's device, drawn in
 the JAX package's order, so the same ``(seed, nonce)`` gives the JAX
 package's keys and ciphertexts byte for byte.
-The NTTs, the tensor product, the keyswitch (all parts in one kernel at
-logN <= 16, the per-part chain at logN 17, as the JAX package routes it)
-and the P-division go through the kernel wrappers of
-:mod:`tiberate_tpu_torch.ops.ntt_kernels`:
+The NTTs, the tensor product, the keyswitch (all parts in one kernel,
+``ntt_keymul_parts``, at every logN) and the P-division go through the
+kernel wrappers of :mod:`tiberate_tpu_torch.ops.ntt_kernels`:
 one code path, which launches the Hopper kernels for CUDA tensors and runs
 their plain versions for CPU tensors.  Outputs are bit-identical to the JAX
 package's jnp path on the same inputs.
+
+One route differs from the JAX package's on purpose.  The JAX engine
+switches keys at logN17 and above through the per-part chain
+(``tiberate_tpu/engine/ckks_engine.py:908-912``), because its Pallas
+all-parts kernel keeps the part sums in VMEM scratch and that working set
+does not fit at logN17.  The H100 kernel keeps them in registers, so here
+every logN takes the all-parts kernel; both routes give the same bytes.
+The per-part chain stays for the mesh paths and for a caller that asks
+for it (``parts_fused=None``).
 """
 
 import functools
@@ -406,10 +414,11 @@ def _switcher_body(a, ksk_parts, parts, lp_sp, lp_ord, PiRs, lvl, S,
     """Key switching of ``a`` [..., C, N] (coefficient domain, [0, q); NTT
     domain with ``exit_ntt``): returns (c0, c1) canonical ordinary rows.
 
-    ``parts_fused`` = (k0, k1, ec, alphas) from
+    ``parts_fused`` = (keys, tables, ec, alphas) from
     :meth:`CkksEngine._ksk_parts_fused`: every part's digits go to ONE
     ``ntt_keymul_parts`` call, which extends, transforms, multiplies by
-    both evk components and sums the parts.
+    both evk components (read in place through ``tables``) and sums the
+    parts.
 
     ``parts_fused`` None: the per-part chain over ``ksk_parts`` (each
     part's (k0, k1) evk rows at the level, :meth:`CkksEngine._ksk_args`):
@@ -426,9 +435,9 @@ def _switcher_body(a, ksk_parts, parts, lp_sp, lp_ord, PiRs, lvl, S,
     if exit_ntt:
         a = kern.intt(a, lp_ord, "exit_reduce")
     if parts_fused is not None:
-        k0, k1, ec, alphas = parts_fused
+        keys, tables, ec, alphas = parts_fused
         st = _parts_digits(a, parts, lp_ord, ec.shape[-1])
-        acc = kern.ntt_keymul_parts(st, ec, alphas, (k0, k1), lp_sp)
+        acc = kern.ntt_keymul_parts(st, ec, alphas, keys, lp_sp, tables)
     else:
         acc = None
         skips = (None,) * len(parts)
@@ -1167,7 +1176,7 @@ class CkksEngine:
         if key.misc.get("a_seed") is None:
             raise ValueError("only keys created with a_seed= are "
                              "compressible")
-        # the key-form caches (_parts_fused, _inpart) hold the a halves
+        # the key-form caches (_parts_tables, _inpart) hold the a halves
         misc = {k: v for k, v in key.misc.items() if not k.startswith("_")}
         return dict(misc, compressed=True)
 
@@ -1244,28 +1253,20 @@ class CkksEngine:
             cache = ksk.misc[name] = {}
         return cache
 
-    def _ksk_parts_stacked(self, ksk: KeySwitchKey, level: int):
-        """(k0, k1, ec, alphas) for ``ntt_keymul_parts`` at ``level``: the
-        live parts' evk rows stacked [n_parts, C_sp, N] and
-        :meth:`_parts_consts`.  Cached on the key."""
-        cache = self._key_cache(ksk, "_parts_fused")
-        if level not in cache:
-            ksk_parts, _ = self._ksk_args(ksk, level)
-            keys = tuple(torch.stack([kp[i] for kp in ksk_parts])
-                         for i in range(2))
-            cache[level] = (*keys, *self._parts_consts(level))
-        return cache[level]
-
     def _ksk_parts_fused(self, ksk: KeySwitchKey, level: int):
-        """The all-parts keyswitch's key form (:meth:`_ksk_parts_stacked`)
-        at logN <= 16; None at logN >= 17, where the keyswitch runs the
-        per-part chain, as the JAX package routes it."""
-        if self.ckksCfg.logN >= 17:
-            return None
-        return self._ksk_parts_stacked(ksk, level)
+        """(keys, tables, ec, alphas) for ``ntt_keymul_parts`` at
+        ``level``: the live parts' (k0, k1) evk rows as views into the
+        key (:meth:`_ksk_args`, no copy), their pointer tables
+        (``ntt_kernels.key_tables``; cached on the key beside the views
+        they point into) and :meth:`_parts_consts`."""
+        cache = self._key_cache(ksk, "_parts_tables")
+        if level not in cache:
+            keys, _ = self._ksk_args(ksk, level)
+            cache[level] = (keys, kern.key_tables(keys))
+        return (*cache[level], *self._parts_consts(level))
 
     def _ksk_inpart(self, ksk: KeySwitchKey, level: int):
-        """(diag_keys, skips) for the keyswitch in-part shortcut:
+        """(diag_keys, skips) for the per-part chain's in-part shortcut:
         ``diag_keys[i]`` [C, N] holds in row j row j of part(j)'s evk
         component i (the key the identity extension row multiplies), and
         ``skips`` each part's own channel range (lo, hi).  Cached on the
@@ -1626,8 +1627,7 @@ class CkksEngine:
     def relinearize(self, ct_triplet: CiphertextTriplet,
                     evk: EvaluationKey = None) -> Ciphertext:
         """Triplet (NTT and Montgomery state) -> ciphertext: the keyswitch
-        of d2, all parts in one kernel at logN <= 16, the per-part chain
-        with the in-part shortcut at logN 17."""
+        of d2, all parts in one kernel."""
         evk = evk or self.evk
         _check_ntt_mont_state(ct_triplet)
         level = ct_triplet.level
@@ -1636,7 +1636,6 @@ class CkksEngine:
             *ct_triplet.data, ksk_parts, parts, self._lp(level, True),
             self._lp(level, False), tuple(self.params.PiRs[level]), level,
             self.ckksCfg.num_special_primes,
-            inpart=self._ksk_inpart(evk, level),
             parts_fused=self._ksk_parts_fused(evk, level),
         )
         return Ciphertext(data=(ct0, ct1), level=level, **self._meta())

@@ -81,6 +81,15 @@ class ModPack:
     def to(self, device):
         return ModPack(*(getattr(self, f).to(device) for f in _PACK_FIELDS))
 
+    def expand(self, extra_dims: int):
+        """Append singleton dims to the [C, 1] columns for broadcasting
+        against [..., C, N, ...]; the flat ``q`` and ``k`` stay [C]."""
+        if extra_dims == 0:
+            return self
+        idx = (Ellipsis,) + (None,) * extra_dims
+        return ModPack(*(getattr(self, f)[idx] for f in _SPLIT_FIELDS),
+                       q=self.q, k=self.k)
+
     @classmethod
     def from_q(cls, q_list, R_bits=NBITS, device="cpu"):
         """Build from a list of python-int moduli (R_bits: 62 or 30)."""
@@ -105,7 +114,8 @@ class ModPack:
         )
 
 
-_PACK_FIELDS = ("ql", "qh", "kl", "kh", "_2q", "q", "k")
+_SPLIT_FIELDS = ("ql", "qh", "kl", "kh", "_2q")
+_PACK_FIELDS = (*_SPLIT_FIELDS, "q", "k")
 
 
 def _split(x, half=HALF_BITS, mask=LB_MASK):

@@ -139,6 +139,24 @@ def bit_reverse(a: int, nbits: int) -> int:
     return r
 
 
+def negacyclic_ntt_oracle(coeffs, q: int, logN: int):
+    """O(N^2) exact negacyclic evaluation for tests: the polynomial at
+    ψ^(2k+1) for k = 0 .. N-1 in natural order (ψ from
+    :func:`primitive_root_2N`), plain ints."""
+    N = 1 << logN
+    g = primitive_root_2N(q, N)
+    out = []
+    for k in range(N):
+        root = pow(g, 2 * k + 1, q)
+        acc = 0
+        x = 1
+        for c in coeffs:
+            acc = (acc + c * x) % q
+            x = x * root % q
+        out.append(acc)
+    return out
+
+
 def make_psi_tables(q_list, logN: int):
     """Bit-reversed ψ / ψ^-1 power series per prime (plain ints):
     ``psi[c][j] = ψ_c^{bitrev(j, logN)} mod q_c``."""

@@ -39,6 +39,7 @@ versions, lazy outputs included.
 """
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -417,21 +418,21 @@ def ntt_tensor(x0, x1, y0, y1, lp):
 # ----------------------------------------------------------------------
 
 
-def ntt_keymul_parts_plain(st, ec, alphas, keys, lp_sp):
+def ntt_keymul_parts_plain(st, ec, alphas, keys, lp_sp, tables=None):
     """Per part: basis extension of the digits (``_extend``), NTT, both
-    key products; parts summed with ``mont_add`` in part order."""
+    key products; parts summed with ``mont_add`` in part order.
+    ``tables`` is the kernel's and is not read here."""
     pk = lp_sp.pack
-    k0, k1 = keys
     d0 = d1 = None
-    for p, alpha in enumerate(alphas.tolist()):
+    for p, ((k0, k1), alpha) in enumerate(zip(keys, alphas.tolist())):
         ext = mont.mont_enter(st[..., p, 0:1, :], ec[p, :, 0:1], pk)
         for i in range(1, alpha):
             Y = mont.mont_mult(st[..., p, i : i + 1, :], ec[p, :, i : i + 1],
                                pk)
             ext = mont.mont_add(ext, Y, pk)
         ext = ntt_plain(ext, lp_sp, enter=False)
-        t0 = mont.mont_mult(ext, k0[p], pk)
-        t1 = mont.mont_mult(ext, k1[p], pk)
+        t0 = mont.mont_mult(ext, k0, pk)
+        t1 = mont.mont_mult(ext, k1, pk)
         if d0 is None:
             d0, d1 = t0, t1
         else:
@@ -440,43 +441,85 @@ def ntt_keymul_parts_plain(st, ec, alphas, keys, lp_sp):
     return d0, d1
 
 
-def ntt_keymul_parts(st, ec, alphas, keys, lp_sp):
+class KeyTables(NamedTuple):
+    """K6's key operand in place: the parts' base pointers, on the host
+    (``ptrs``: one (k0, k1) pair a part) and as the two [n_parts] int64
+    tables the kernel reads (``k0p``, ``k1p``, on the keys' device)."""
+
+    ptrs: tuple
+    k0p: torch.Tensor
+    k1p: torch.Tensor
+
+
+def key_tables(keys) -> KeyTables:
+    """The pointer tables of ``keys`` (a tuple over parts of (k0, k1)
+    views).  They point into the views' storage: a holder keeps the views
+    alive beside them."""
+    ptrs = tuple((k0.data_ptr(), k1.data_ptr()) for k0, k1 in keys)
+    dev = keys[0][0].device
+    k0p, k1p = (torch.tensor([pp[i] for pp in ptrs], dtype=torch.int64,
+                             device=dev) for i in range(2))
+    return KeyTables(ptrs, k0p, k1p)
+
+
+def _check_part_keys(keys, n_parts, C_sp, N, device, dtype):
+    """Each part's (k0, k1): a [C_sp, N] view with contiguous rows, of the
+    lane's dtype, on ``device``, 16-byte aligned (the kernel's vector
+    loads)."""
+    if len(keys) != n_parts:
+        raise ValueError(f"{len(keys)} key parts for {n_parts} digit parts")
+    views = {f"key part {p} k{i}": key for p, pair in enumerate(keys)
+             for i, key in enumerate(pair)}
+    _check(device, dtype, **views)
+    for name, key in views.items():
+        if tuple(key.shape) != (C_sp, N):
+            raise ValueError(f"{name} shape {tuple(key.shape)} != "
+                             f"{(C_sp, N)}")
+        if key.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def ntt_keymul_parts(st, ec, alphas, keys, lp_sp, tables=None):
     """The whole keyswitch part loop.
 
     st: [..., n_parts, amax, N] signed mixed-radix digits (zero-padded to
     ``amax``); ec: [n_parts, C_sp, amax] extension constants (``Rs``, then
     the part's ``L_enter`` rows); alphas: [n_parts] int32 digit counts;
-    keys: (k0, k1), each [n_parts, C_sp, N].  Returns the two lazy
-    accumulators, each [..., C_sp, N].
+    keys: a tuple over parts of (k0, k1), each a [C_sp, N] view that the
+    kernel reads in place; tables: their :func:`key_tables` (built here
+    when None; callers that switch with one key many times cache them).
+    Returns the two lazy accumulators, each [..., C_sp, N].
     """
     if _on_cpu(st):
         return ntt_keymul_parts_plain(st, ec, alphas, keys, lp_sp)
     C_sp = lp_sp.num_channels
     n_parts, amax, N = st.shape[-3:]
-    k0, k1 = keys
     if tuple(ec.shape) != (n_parts, C_sp, amax):
         raise ValueError(f"ec shape {tuple(ec.shape)} != "
                          f"{(n_parts, C_sp, amax)}")
     if tuple(alphas.shape) != (n_parts,):
         raise ValueError("alphas must hold one count per part")
-    for key in keys:
-        if tuple(key.shape) != (n_parts, C_sp, N):
-            raise ValueError(f"key shape {tuple(key.shape)} != "
-                             f"{(n_parts, C_sp, N)}")
+    _check_part_keys(keys, n_parts, C_sp, N, st.device, lp_sp.pack.dtype)
+    if tables is None:
+        tables = key_tables(keys)
+    elif tables.ptrs != tuple((k0.data_ptr(), k1.data_ptr())
+                              for k0, k1 in keys):
+        raise ValueError("key tables do not point at these keys")
     lead = st.shape[:-3]
     B = math.prod(lead)
     _check_rows(B * n_parts * C_sp)
-    _, logN = _geometry(k0[0], C_sp)
-    _check(st.device, lp_sp.pack.dtype, st=st, ec=ec, alphas=alphas, k0=k0,
-           k1=k1, q=lp_sp.pack.q, k=lp_sp.pack.k, psi=lp_sp.psi)
+    _, logN = _geometry(keys[0][0], C_sp)
+    _check(st.device, lp_sp.pack.dtype, st=st, ec=ec, alphas=alphas,
+           q=lp_sp.pack.q, k=lp_sp.pack.k, psi=lp_sp.psi)
+    _check(st.device, torch.int64, k0p=tables.k0p, k1p=tables.k1p)
     tmp = torch.empty((B, n_parts, C_sp, N), dtype=st.dtype,
                       device=st.device)
     acc0 = torch.empty((*lead, C_sp, N), dtype=st.dtype, device=st.device)
     acc1 = torch.empty_like(acc0)
     rc = _entry("tt_ntt_keymul_parts", lp_sp.pack)(
-        _ptr(st), _ptr(ec), _ptr(alphas), _ptr(tmp), _ptr(k0), _ptr(k1),
-        _ptr(acc0), _ptr(acc1), B, n_parts, amax, C_sp, logN,
-        _ptr(lp_sp.pack.q), _ptr(lp_sp.pack.k), _ptr(lp_sp.psi),
+        _ptr(st), _ptr(ec), _ptr(alphas), _ptr(tmp), _ptr(tables.k0p),
+        _ptr(tables.k1p), _ptr(acc0), _ptr(acc1), B, n_parts, amax, C_sp,
+        logN, _ptr(lp_sp.pack.q), _ptr(lp_sp.pack.k), _ptr(lp_sp.psi),
         _stream(st.device),
     )
     _done(rc, "ntt_keymul_parts", lp_sp.pack)

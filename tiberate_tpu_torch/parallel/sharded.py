@@ -4,11 +4,13 @@ The torch counterpart of ``tiberate_tpu/parallel/sharded.py``
 (``make_mult_step`` / ``mult_step_params`` / ``prepare_step_ksk``).  A
 batch of ciphertexts is the leading dimension of the step's operands.
 
-Single device: the keyswitch route follows the JAX package:
-``prm["parts_fused"]`` set (logN <= 16) runs all parts in one
-``ntt_keymul_parts`` kernel; None (logN 17) runs the per-part chain with
-the in-part shortcut (``prm["inpart"]``).  A caller forces the other route
-by replacing ``parts_fused`` in ``prm``.
+Single device: ``prm["parts_fused"]`` runs all keyswitch parts in one
+``ntt_keymul_parts`` kernel at every logN (the JAX package takes its
+per-part chain from logN17 up, a VMEM limit of its Pallas kernel that the
+H100 kernel does not have; both give the same bytes).  A caller forces
+the per-part chain by setting ``parts_fused`` to None in ``prm``, and
+enables its in-part shortcut by setting ``prm["inpart"]`` to
+``eng._ksk_inpart(ksk, work_level)``.
 
 On an engine mesh (``CkksEngine(mesh=)``) whose ``rns`` axis divides the
 work level's ordinary channels, the step runs per shard: each shard
@@ -181,7 +183,7 @@ def prepare_step_ksk(eng, level: int = 0, pre_rescale: bool = True,
     Engine-mesh rns mode: the key laid out for the sharded switcher
     (:class:`rns_sharded.RnsKsk`).  Otherwise the evk's per-part (k0, k1)
     rows at the work level, which the per-part chain reads (the all-parts
-    route reads its stacked keys from ``prm["parts_fused"]``)."""
+    route reads the same rows in place through ``prm["parts_fused"]``)."""
     work_level = level + 1 if pre_rescale else level
     ksk = ksk or eng.evk
     if rns_shard in (None, True) and _rns_axis(eng, work_level):
@@ -192,10 +194,11 @@ def prepare_step_ksk(eng, level: int = 0, pre_rescale: bool = True,
 def mult_step_params(eng, level: int = 0, pre_rescale: bool = True,
                      ksk=None, rns_shard=None):
     """The parameter dict for :func:`make_mult_step`'s step function; the
-    key-derived entries (``inpart``, ``parts_fused``) come from ``ksk``
-    (default: the engine's evk) and are cached on it.  On the engine mesh
-    (rns mode), ``rns_tables`` holds the sharded switcher's per-shard
-    tables and the single-device key forms are not built."""
+    all-parts key form ``parts_fused`` comes from ``ksk`` (default: the
+    engine's evk) and is cached on it; ``inpart``, which only the per-part
+    chain reads, is None.  On the engine mesh (rns mode), ``rns_tables``
+    holds the sharded switcher's per-shard tables and the single-device
+    key form is not built."""
     work_level = level + 1 if pre_rescale else level
     ksk = ksk or eng.evk
     axis = (_rns_axis(eng, work_level)
@@ -207,7 +210,7 @@ def mult_step_params(eng, level: int = 0, pre_rescale: bool = True,
         lp_sp=eng._lp(work_level, True),
         parts=tuple(eng.params.parts[work_level]),
         PiRs=tuple(eng.params.PiRs[work_level]),
-        inpart=None if axis else eng._ksk_inpart(ksk, work_level),
+        inpart=None,
         parts_fused=None if axis else eng._ksk_parts_fused(ksk, work_level),
         rns_tables=(_rns_switcher(eng, work_level, axis,
                                   _coef_axis(eng)).tables

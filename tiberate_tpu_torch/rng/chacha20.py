@@ -80,6 +80,14 @@ def step_counter(state, step):
     return out
 
 
+def chacha20(state, step):
+    """One keystream block per row, and the stepped states.
+
+    Returns (random_words [..., 16], new_state), as the JAX package's
+    ``chacha20``."""
+    return chacha20_block(state), step_counter(state, step)
+
+
 def chacha20_block_oracle(state_words):
     """Pure-python RFC 7539 block function for golden tests.
 

@@ -254,6 +254,11 @@ class Csprng(RandNumGen):
             ]
         return [int(s) & M32 for s in seed]
 
+    @property
+    def channeled_states(self):
+        """The states viewed per channel: [channels, L, 16]."""
+        return self.states.reshape(-1, self.L, 16)
+
     def _chacha_and_step(self, r0, r1):
         """ChaCha state rows [r0, r1); step their counters."""
         target = self.states[r0:r1]

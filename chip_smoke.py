@@ -18,10 +18,11 @@ Phases (any failure exits non-zero):
    ``cuobjdump`` is present;
 2c. every entry of the register-tiled kernels (K1, K2 with its three
    epilogues, K3 with one and two keys, the chain with and without a skip
-   range, K4, K5 and K6) at logN 4, 7 and 10 in both lanes, byte for byte
-   against their plain versions, K1 without entry also on the signed
-   (negative) words of a rotated and of a conjugated secret key; and the
-   SASS of the register-tiled core
+   range, K4, K5 and K6) and the step's glue kernels (G1 ``rescale``, G2
+   ``parts_digits``, G3 ``pdiv_p0``) at logN 4, 7 and 10 in both lanes,
+   byte for byte against their plain versions, K1 without entry also on
+   the signed (negative) words of a rotated and of a conjugated secret
+   key; and the SASS of the register-tiled core
    (``cuobjdump``): the instructions per butterfly of the inverse
    contiguous pass and of K5's and K6's contiguous passes;
 2d. the ChaCha20 CSPRNG on the card against the same generator on the
@@ -43,7 +44,13 @@ Phases (any failure exits non-zero):
    each kernel against its plain torch version on the same card tensors —
    byte for byte, lazy outputs included — and time both (the plain
    version by its one comparison call); K1 without entry, K2's "mont" and
-   "exit" epilogues and K3 with one key are compared too;
+   "exit" epilogues and K3 with one key are compared too.  The glue
+   kernels G1-G3 (the rescale, the keyswitch digits, the P-division's
+   special rows) run here too, timed beside their bytes bound, and are
+   then compared on adversarial residues read through views: every kept
+   row below a rescaler of q - 1, rows at 0 and q - 1, rescalers at
+   round_at and either side of it, both roundings, a part's rows of the
+   level's and an accumulator's special rows (the same in 6, 10, 11);
 4. drive the main path at Preset.logN15 on the card: keygen,
    ``encodecrypt_batch`` of 8 messages twice, the fused cc_mult step on
    the batch (all keyswitch parts in one kernel), ``decryptcode_batch``;
@@ -60,9 +67,9 @@ Phases (any failure exits non-zero):
    must equal the card's byte for byte (sk, pk, every evk part); its
    step on one pair and ``rescale`` must equal the card's;
 5. time the logN15 step (median of 3 loops after a warm-up), the same step
-   with every wrapper swapped for its plain version (torch ops on the
-   card), and the step through the per-part keyswitch chain instead of the
-   all-parts kernel (byte-identical); profile one step with
+   with every wrapper (K1-K6, G1-G3) swapped for its plain version (torch
+   ops on the card), and the step through the per-part keyswitch chain
+   instead of the all-parts kernel (byte-identical); profile one step with
    torch.profiler: device time by kernel, and the device's busy share of
    that profiled step's wall time (the profiler slows the host, so this
    share is lower than an unprofiled step's); a seed-expanded evk
@@ -224,11 +231,19 @@ _SOURCES = {
     "ntt_tensor": ("tensor.cu", 1194, 1268),
     "ntt_keymul_parts": ("keyswitch.cu", 868, 1009),
 }
+# The step's glue kernels (G1-G3, csrc/glue.cu) have no Pallas
+# counterpart: XLA fuses that glue inside the JAX package's jitted step.
+# Each replaces the JAX function named here, in both lanes.
+_GLUE = {"rescale": 527, "parts_digits": 236, "pdiv_p0": 279}
+GLUE = tuple(_GLUE)
 KERNELS = {
-    name + sfx: (f"tiberate_tpu_torch/csrc/{src}",
-                 f"{_PALLAS}:{line30 if sfx else line}")
-    for sfx in ("", "_30")
-    for name, (src, line, line30) in _SOURCES.items()
+    **{name + sfx: (f"tiberate_tpu_torch/csrc/{src}",
+                    f"{_PALLAS}:{line30 if sfx else line}")
+       for sfx in ("", "_30")
+       for name, (src, line, line30) in _SOURCES.items()},
+    **{name + sfx: ("tiberate_tpu_torch/csrc/glue.cu",
+                    f"tiberate_tpu/engine/ckks_engine.py:{line}")
+       for sfx in ("", "_30") for name, line in _GLUE.items()},
 }
 # the fold-rate probe's kernels (no 30-bit Shoup lane)
 PROBE = {
@@ -240,16 +255,17 @@ PROBE = {
 # and those the fused step itself launches; the 30-bit paths launch the
 # same kernels in their _30 lane
 PATH_15 = ("ntt", "intt", "ntt_keymul", "intt_pdiv", "ntt_tensor",
-           "ntt_keymul_parts")
-STEP_15 = ("intt", "intt_pdiv", "ntt_tensor", "ntt_keymul_parts")
+           "ntt_keymul_parts", *GLUE)
+STEP_15 = ("intt", "intt_pdiv", "ntt_tensor", "ntt_keymul_parts", *GLUE)
 # every preset keyswitches through K6; the per-part chain runs on the mesh
 # paths (phase 13) and on the route A/B's chain route
 PATH_17 = PATH_15
 STEP_17 = STEP_15
 # the kernels the logN15 evaluation path launches (phase 5b): keys (K1, K2),
-# pc_mult (K3 and its K1 cache), keyswitches (K6, K4), square (K5)
+# pc_mult (K3 and its K1 cache), keyswitches (K6, K4, the digits G2 and
+# the special rows G3), square (K5), the rescales (G1)
 EVAL_15 = ("ntt", "intt", "ntt_keymul", "intt_pdiv", "ntt_tensor",
-           "ntt_keymul_parts")
+           "ntt_keymul_parts", *GLUE)
 # the kernels the logN15 extension path launches (phase 12): rotation and
 # MPC keys (K1, K2), pc_mult and decrypts (K3), keyswitches (K6, K4),
 # cc_mult (K5)
@@ -284,16 +300,20 @@ def cuda_ms(fn, reps=3, inner=3):
 
 @contextlib.contextmanager
 def plain_wrappers(kern):
-    """Route every kernel wrapper to its plain version (for timing the
-    step without the kernels); restored on exit."""
-    saved = {name: getattr(kern, name) for name in kern.WRAPPERS}
+    """Route every kernel wrapper (K1-K6 and the glue's G1-G3) to its
+    plain version (for timing the step without the kernels); restored on
+    exit."""
+    from tiberate_tpu_torch.ops import glue_kernels as glue
+
+    saved = [(mod, name, getattr(mod, name)) for mod in (kern, glue)
+             for name in mod.WRAPPERS]
     try:
-        for name in kern.WRAPPERS:
-            setattr(kern, name, getattr(kern, name + "_plain"))
+        for mod, name, _ in saved:
+            setattr(mod, name, getattr(mod, name + "_plain"))
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(kern, name, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def uniform(gen, q, shape):
@@ -318,10 +338,58 @@ def part_keys(kern, gen, q0, n_parts, N, level=1):
     return keys, kern.key_tables(keys)
 
 
+def glue_adversarial(eng, glue, gen):
+    """{case: (kernel output, plain output)} of G1-G3 at the step's
+    shapes on adversarial residues: every kept row below a rescaler of
+    q - 1, rows at 0 and q - 1, rescalers at round_at and either side of
+    it, both roundings; digits and special rows at 0 and q - 1.  Each
+    operand is a view, as the engine passes it: the rescaler and rows of
+    one tensor, a part's rows of the level's, an accumulator's special
+    rows."""
+    dev = eng.device
+    lp0, lp1, lp_sp = eng._lp(0, False), eng._lp(1, False), eng._lp(1, True)
+    C, S, N = lp1.num_channels, eng.params.S, eng.ckksCfg.N
+    q0, q1, q_sp = lp0.pack.q, lp1.pack.q, lp_sp.pack.q
+    round_at = eng.params.q[0] // 2
+    d = uniform(gen, q0, (BATCH, C + 1, N))
+    d[:, 0, : N // 2] = q0[0] - 1
+    d[:, 1:, : N // 4] = 0
+    d[:, 1:, N // 4 : N // 2] = torch.minimum(q1 - 1, q0[0] - 2)[:, None]
+    d[:, 0, N // 2 :] = torch.tensor(
+        [round_at - 1, round_at, round_at + 1, int(q0[0]) - 1],
+        dtype=d.dtype, device=dev).repeat(N // 8)
+    a = uniform(gen, q1, (BATCH, C, N))
+    a[..., ::2] = (q1 - 1)[:, None]
+    a[..., 1::4] = 0
+    acc = uniform(gen, q_sp, (BATCH, C + S, N))
+    acc[:, C:, ::2] = (q_sp[C:] - 1)[:, None]
+    acc[:, C:, 1::4] = 0
+    parts = eng.params.parts[1]
+    amax = max(p.alpha for p in parts)
+    rs = eng.params.rescale_scales[0]
+    cases = {}
+    for exact in (True, False):
+        args = (d[:, 0:1], d[:, 1:], rs, lp1, round_at, exact)
+        cases[f"rescale exact={exact}"] = (glue.rescale(*args),
+                                           glue.rescale_plain(*args))
+    cases["parts_digits"] = (glue.parts_digits(a, parts, lp1, amax),
+                             glue.parts_digits_plain(a, parts, lp1, amax))
+    for part in (parts[0], parts[-2], parts[-1]):
+        args = (a[:, part.lo : part.hi], (part,), lp1[part.lo : part.hi],
+                part.alpha, part.lo)
+        cases[f"one part {part.lo}:{part.hi}"] = (
+            glue.parts_digits(*args), glue.parts_digits_plain(*args))
+    args = (acc[:, C:], lp_sp[C:], eng.params.PiRs[1], C, S)
+    cases["pdiv_p0"] = (glue.pdiv_p0(*args), glue.pdiv_p0_plain(*args))
+    return cases
+
+
 def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
     """Every kernel against its plain version at the step shapes of
     ``eng`` (batch 8, work level 1), in the lane of its storage dtype; the
-    chain kernel with no skip range and with one part's range.  ``loops``
+    chain kernel with no skip range and with one part's range; the glue
+    kernels G1-G3 on random residues, then on adversarial ones
+    (:func:`glue_adversarial`), compared only.  ``loops``
     = (reps, inner) of cuda_ms for the kernels; each plain version, which
     repeats the kernel's arithmetic in torch ops and is no yardstick of
     speed, is timed by its one comparison call (CUDA events).  Each result
@@ -329,6 +397,8 @@ def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
     bytes of every input (data, twiddles, keys, constants) read once and
     every output written once, at the datasheet HBM rate, and its REDCs at
     the lane's measured rate ``redc_per_s``."""
+    from tiberate_tpu_torch.ops import glue_kernels as glue
+
     dev = eng.device
     gen = torch.Generator(device=dev).manual_seed(SEED)
     N = eng.ckksCfg.N
@@ -357,6 +427,12 @@ def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
                            amax).contiguous()
     pkeys, tables = part_keys(kern, gen, eng._lp(0, True).pack.q, n_parts,
                               N)
+    d0 = uniform(gen, q0, (BATCH, C + 1, N))
+    rs, round_at = eng.params.rescale_scales[0], eng.params.q[0] // 2
+    cur = uniform(gen, q_sp[C:], (BATCH, S, N))
+    lp_spec = lp_sp[C:]
+    part_list = [p.alpha for p in parts]
+    word = x.element_size()
 
     def accum_case(skip):
         accs = [tuple(uniform(gen, 2 * q_sp, (BATCH, C_sp, N))
@@ -397,6 +473,16 @@ def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
                                           tables),
             lambda: kern.ntt_keymul_parts_plain(st, ec, alphas, pkeys,
                                                 lp_sp)),
+        "rescale": (
+            lambda: glue.rescale(d0[:, :1], d0[:, 1:], rs, lp_ord, round_at),
+            lambda: glue.rescale_plain(d0[:, :1], d0[:, 1:], rs, lp_ord,
+                                       round_at)),
+        "parts_digits": (
+            lambda: glue.parts_digits(x, parts, lp_ord, amax),
+            lambda: glue.parts_digits_plain(x, parts, lp_ord, amax)),
+        "pdiv_p0": (
+            lambda: glue.pdiv_p0(cur, lp_spec, PiRs, C, S),
+            lambda: glue.pdiv_p0_plain(cur, lp_spec, PiRs, C, S)),
     }
     consts = (lp_ord.pack.q, lp_ord.pack.k)
     # bytes each call must move: inputs read once, outputs written once
@@ -414,6 +500,11 @@ def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
         "ntt_keymul_parts": nbytes(st, ec, alphas, *sum(pkeys, ()),
                                    tables.k0p, tables.k1p, lp_sp.psi,
                                    lp_sp.pack.q, lp_sp.pack.k, ext, ext),
+        "rescale": roofline.rescale_bytes(BATCH, C, N, word),
+        "parts_digits": roofline.parts_digits_bytes(
+            BATCH, part_list, amax, N, word,
+            glue.digits_table(parts, lp_ord).numel()),
+        "pdiv_p0": roofline.pdiv_p0_bytes(BATCH, S, N, word),
     }
     # REDCs each call's kernel performs (ops/roofline.py)
     redc = {
@@ -428,11 +519,16 @@ def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
         "ntt_tensor": roofline.ntt_tensor(BATCH * C, logN),
         "ntt_keymul_parts": roofline.ntt_keymul_parts(
             BATCH, alphas.tolist(), C_sp, logN),
+        "rescale": roofline.rescale(BATCH * C, N),
+        "parts_digits": roofline.parts_digits(BATCH, part_list, N),
+        "pdiv_p0": roofline.pdiv_p0(BATCH, S, N),
     }
     shapes = {"ntt": [BATCH, C, N], "intt": [BATCH, C, N],
               "ntt_keymul": [BATCH, C + 1, N], "intt_pdiv": [BATCH, C_sp, N],
               "ntt_tensor": [BATCH, C, N],
-              "ntt_keymul_parts": [BATCH, n_parts, amax, N]}
+              "ntt_keymul_parts": [BATCH, n_parts, amax, N],
+              "rescale": [BATCH, C + 1, N], "parts_digits": [BATCH, C, N],
+              "pdiv_p0": [BATCH, S, N]}
     results = {}
     for name, (kfn, pfn) in cases.items():
         got = kfn()
@@ -477,7 +573,15 @@ def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
                 r if isinstance(r, tuple) else (r,) for r in (kfn(), pfn())))):
             raise AssertionError(f"{tag} {name} disagrees with its plain "
                                  f"version")
-    log(f"{tag} also byte-identical at these shapes: {', '.join(variants)}")
+    adversarial = glue_adversarial(eng, glue, gen)
+    torch.cuda.synchronize()
+    for name, (got, want) in adversarial.items():
+        if not torch.equal(got, want):
+            raise AssertionError(f"{tag} {name} on adversarial residues "
+                                 f"disagrees with its plain version")
+    log(f"{tag} also byte-identical at these shapes: {', '.join(variants)}; "
+        f"on adversarial residues and views: "
+        f"{', '.join(adversarial)}")
     results["ntt_keymul_accum"]["with_skip"] = results.pop(skip_key)
     return results
 
@@ -511,12 +615,14 @@ def signed_key_rows(kern, mod, tp):
 
 
 def check_small(kern, mod, CkksParams, toy_config):
-    """Phase 2c: every entry of the two ntt.cu transforms, K5 (tensor.cu)
-    and K6 (keyswitch.cu) at logN 4, 7 and 10 (odd and even logN: both
-    splits L1 = L2 and L1 + 1 = L2), in both lanes, on a toy parameter set
-    at batch 2, against its plain version byte for byte; K1 without entry
-    also on the signed rows of a rotated and of a conjugated secret key.
-    Returns the number of cases."""
+    """Phase 2c: every entry of the two ntt.cu transforms, K5 (tensor.cu),
+    K6 (keyswitch.cu) and the glue's G1-G3 (glue.cu) at logN 4, 7 and 10
+    (odd and even logN: both splits L1 = L2 and L1 + 1 = L2), in both
+    lanes, on a toy parameter set at batch 2, against its plain version
+    byte for byte; K1 without entry also on the signed rows of a rotated
+    and of a conjugated secret key.  Returns the number of cases."""
+    from tiberate_tpu_torch.ops import glue_kernels as glue
+
     n = 0
     for logN in (4, 7, 10):
         for lane, opts in ((62, dict(scale_bits=30)),
@@ -541,6 +647,11 @@ def check_small(kern, mod, CkksParams, toy_config):
                                    ec.shape[-1]).contiguous()
             pkeys, tables = part_keys(kern, gen, tp.lp(0, True).pack.q,
                                       ec.shape[0], N)
+            d0 = uniform(gen, tp.lp(0, False).pack.q, (2, C + 1, N))
+            resc = (d0[:, :1], d0[:, 1:], tp.rescale_scales[0], lp,
+                    tp.q[0] // 2)
+            digits = (x, tp.parts[1], lp, ec.shape[-1])
+            spec = (p0, lp_sp[C:], tp.PiRs[1], C, tp.S)
 
             def accum(skip):
                 a = tuple(uniform(gen, 2 * q_sp, (2, C_sp, N))
@@ -576,6 +687,10 @@ def check_small(kern, mod, CkksParams, toy_config):
                                           tables),
                     kern.ntt_keymul_parts_plain(st, ec, alphas, pkeys,
                                                 lp_sp)),
+                "rescale": (glue.rescale(*resc), glue.rescale_plain(*resc)),
+                "parts_digits": (glue.parts_digits(*digits),
+                                 glue.parts_digits_plain(*digits)),
+                "pdiv_p0": (glue.pdiv_p0(*spec), glue.pdiv_p0_plain(*spec)),
             }
             torch.cuda.synchronize()
             for name, (got, want) in cases.items():
@@ -2001,13 +2116,15 @@ def extension_phase(CkksEngine, Preset, kern, typing, smi):
 MESHES = (("rns2", dict(rns=2)), ("rns4", dict(rns=4)),
           ("rns2_coef2", dict(rns=2, coef=2)),
           ("batch2_rns2", dict(batch=2, rns=2)))
-# the kernels the mesh step launches on each shard's rows: K5, K2, K3 (the
-# first part two-key, the chain's accumulate form after it) and K4 (its
-# ordinary rows); with a coef axis the local stages run on K5, K3 and K2
-# and the P-division as torch ops (no K4)
+# the kernels the mesh step launches on each shard's rows: G1 (the
+# shard's rows of the rescale), K5, K2, G2 (the digits, replicated), K3
+# (the first part two-key, the chain's accumulate form after it), G3 and
+# K4 (its ordinary rows); with a coef axis the local stages run on K5, K3
+# and K2 and the P-division's ordinary rows as torch ops (no K4)
 MESH_STEP = ("ntt_tensor", "intt", "ntt_keymul", "ntt_keymul_accum",
-             "intt_pdiv")
-MESH_STEP_COEF = ("ntt_tensor", "intt", "ntt_keymul", "ntt_keymul_accum")
+             "intt_pdiv", *GLUE)
+MESH_STEP_COEF = ("ntt_tensor", "intt", "ntt_keymul", "ntt_keymul_accum",
+                  *GLUE)
 SHARED = "shards sharing one card, not a scaling figure"
 
 
@@ -2423,8 +2540,8 @@ def main():
 
     t0 = time.perf_counter()
     n_small = check_small(kern, mod, CkksParams, toy_config)
-    log(f"logN 4, 7, 10: {n_small} cases of the ntt.cu entries, K5 and K6, "
-        f"both lanes, byte-identical to their plain versions "
+    log(f"logN 4, 7, 10: {n_small} cases of the ntt.cu entries, K5, K6 "
+        f"and G1-G3, both lanes, byte-identical to their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
     sass = contig_sass(cuda_build)
     if sass is None:

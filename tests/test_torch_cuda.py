@@ -8,7 +8,9 @@ the CPU's, the fold-rate probe's three kernels against their plain
 versions, K1 without entry on the signed rows of a rotated or conjugated
 secret key, and the CSPRNG, keygen, the batch encrypt and decrypt forms,
 the rotation and conjugation keys, rotations and ``pc_mult`` on the card
-against the CPU's, and the mesh engine with every shard on the card
+against the CPU's, the step's glue kernels (G1-G3) against their plain
+versions on random and adversarial inputs and on views, and the mesh
+engine with every shard on the card
 against the single-device engine on the CPU.  The file imports no jax, so it also
 runs on a machine that has only torch:
 
@@ -29,6 +31,7 @@ from tiberate_tpu_torch.config.toy import toy_config
 from tiberate_tpu_torch.context.ntt_context import CkksParams
 from tiberate_tpu_torch.engine import ckks_engine as teng
 from tiberate_tpu_torch.ops import fold_probe as fp
+from tiberate_tpu_torch.ops import glue_kernels as G
 from tiberate_tpu_torch.ops import ntt as ntt_ops
 from tiberate_tpu_torch.ops import ntt_kernels as K
 from tiberate_tpu_torch.parallel import sharded
@@ -252,6 +255,134 @@ def test_parts_kernel_rejects_bad_key_views(card, lane):
     assert sum(K.LAUNCHES.values()) == 0
     K.ntt_keymul_parts(st, ec, alphas, good, lp_sp, K.key_tables(good))
     assert K.LAUNCHES["ntt_keymul_parts" + LANES[lane][1]] == 1
+
+
+def _glue_cases(tp, gen, card):
+    """{case: (kernel output, plain output)} of G1-G3 at level 1 of
+    ``tp``, batch 2: random residues, then adversarial ones (every kept
+    row below a rescaler of q - 1, rows at 0 and q - 1, rescalers at
+    round_at and either side of it; digits and special rows at 0 and
+    q - 1), each operand a view of a larger tensor as the engine passes
+    it."""
+    lp0, lp1, lp_sp = tp.lp(0, False), tp.lp(1, False), tp.lp(1, True)
+    C, S, N = lp1.num_channels, tp.S, tp.N
+
+    def uni(q, shape):
+        x = torch.randint(0, 1 << 62, shape, generator=gen)
+        return (x % q.cpu().long()[:, None]).to(card, tp.dtype)
+
+    q0 = lp0.pack.q.cpu().long()
+    d = uni(lp0.pack.q, (BATCH, C + 1, N))
+    round_at = tp.q[0] // 2
+    adv = d.clone()
+    adv[:, 0, : N // 2] = int(q0[0]) - 1
+    adv[:, 1:, : N // 4] = 0
+    adv[:, 1:, N // 4 : N // 2] = torch.minimum(
+        q0[1:] - 1, q0[0] - 2)[:, None].to(card, tp.dtype)
+    adv[:, 0, N // 2 :] = torch.tensor(
+        [round_at - 1, round_at, round_at + 1, int(q0[0]) - 1],
+        dtype=tp.dtype).repeat(N // 8).to(card)
+    a = uni(lp1.pack.q, (BATCH, C, N))
+    a_adv = a.clone()
+    a_adv[..., ::2] = (lp1.pack.q - 1)[:, None]
+    a_adv[..., 1::4] = 0
+    acc = uni(lp_sp.pack.q, (BATCH, C + S, N))
+    acc_adv = acc.clone()
+    acc_adv[:, C:, ::2] = (lp_sp.pack.q[C:] - 1)[:, None]
+    acc_adv[:, C:, 1::4] = 0
+    parts = tp.parts[1]
+    amax = max(p.alpha for p in parts)
+    rs = tp.rescale_scales[0]
+    cases = {}
+    for tag, x, y, z in (("random", d, a, acc),
+                         ("adversarial", adv, a_adv, acc_adv)):
+        for exact in (True, False):
+            args = (x[:, 0:1], x[:, 1:], rs, lp1, round_at, exact)
+            cases[f"rescale {tag} exact={exact}"] = (
+                G.rescale(*args), G.rescale_plain(*args))
+        cases[f"parts_digits {tag}"] = (
+            G.parts_digits(y, parts, lp1, amax),
+            G.parts_digits_plain(y, parts, lp1, amax))
+        for part in parts:
+            args = (y[:, part.lo : part.hi], (part,),
+                    lp1[part.lo : part.hi], part.alpha, part.lo)
+            cases[f"one part {part.lo}:{part.hi} {tag}"] = (
+                G.parts_digits(*args), G.parts_digits_plain(*args))
+        args = (z[:, C:], lp_sp[C:], tp.PiRs[1], C, S)
+        cases[f"pdiv_p0 {tag}"] = (G.pdiv_p0(*args), G.pdiv_p0_plain(*args))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", sorted(LANES))
+@pytest.mark.parametrize("logN", [7, 10, 15])
+def test_glue_kernels_match_plain_on_card(card, logN, lane):
+    """G1-G3 against their plain versions, byte for byte, at the S = 6
+    toy (parts of alpha 6 and fewer, zero-padded), in both lanes; each
+    launches once a call, in its lane."""
+    tp = CkksParams(_cfg(logN, lane, num_scales=14, num_special_primes=6),
+                    card)
+    K.reset_launch_counts()
+    cases = _glue_cases(tp, torch.Generator().manual_seed(200 + logN), card)
+    torch.cuda.synchronize()
+    sfx = LANES[lane][1]
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+        "rescale" + sfx: 4, "pdiv_p0" + sfx: 2,
+        "parts_digits" + sfx: 2 * (1 + len(tp.parts[1]))}
+    for name, (got, want) in cases.items():
+        assert got.dtype == tp.dtype and got.is_contiguous(), name
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.cuda
+def test_glue_wrappers_refuse_bad_operands(card):
+    """What the glue kernels do not read raises before a launch: rows not
+    N words apart, coefficients not contiguous, leading dimensions of no
+    single stride, another dtype or device, more digits or special rows
+    than the kernels hold."""
+    tp = CkksParams(_cfg(7), card)
+    lp0, lp1, lp_sp = tp.lp(0, False), tp.lp(1, False), tp.lp(1, True)
+    C, S, N = lp1.num_channels, tp.S, tp.N
+    d = torch.zeros((BATCH, C + 1, N), dtype=tp.dtype, device=card)
+    rs, ra = tp.rescale_scales[0], tp.q[0] // 2
+    a = torch.zeros((BATCH, C, N), dtype=tp.dtype, device=card)
+    cur = torch.zeros((BATCH, S, N), dtype=tp.dtype, device=card)
+    parts = tp.parts[1]
+    wide = torch.zeros((BATCH, C, 2 * N), dtype=tp.dtype, device=card)
+    bad = [
+        (ValueError, lambda: G.rescale(d[:, :1], d[:, 1:].transpose(-1, -2)
+                                       .contiguous().transpose(-1, -2),
+                                       rs, lp1, ra)),
+        (ValueError, lambda: G.rescale(d[:, :1], wide[..., :N], rs, lp1,
+                                       ra)),
+        (ValueError, lambda: G.rescale(d[:, :1, :N // 2], d[:, 1:, :N // 2],
+                                       rs, lp1, ra)),
+        (ValueError, lambda: G.rescale(d[:1, :1], d[:, 1:], rs, lp1, ra)),
+        (ValueError, lambda: G.rescale(d[:, :1], d[:, 1:], rs.cpu(), lp1,
+                                       ra)),
+        (TypeError, lambda: G.rescale(d[:, :1].int(), d[:, 1:].int(), rs,
+                                      lp1, ra)),
+        (ValueError, lambda: G.parts_digits(a.transpose(-1, -2)
+                                            .contiguous()
+                                            .transpose(-1, -2), parts, lp1,
+                                            2)),
+        (ValueError, lambda: G.parts_digits(
+            torch.zeros((2, BATCH, C, N), dtype=tp.dtype,
+                        device=card).transpose(0, 1), parts, lp1, 2)),
+        (ValueError, lambda: G.parts_digits(a, parts, lp1, 9)),
+        (ValueError, lambda: G.parts_digits(a[:, 1:], parts, lp1, 2)),
+        (ValueError, lambda: G.pdiv_p0(cur[..., ::2], lp_sp[C:],
+                                       tp.PiRs[1], C, S)),
+        (ValueError, lambda: G.pdiv_p0(cur, lp_sp[C - 1:], tp.PiRs[1],
+                                       C - 1, S + 1)),
+        (TypeError, lambda: G.pdiv_p0(cur.int(), lp_sp[C:], tp.PiRs[1], C,
+                                      S)),
+    ]
+    K.reset_launch_counts()
+    for err, call in bad:
+        with pytest.raises(err):
+            call()
+    assert sum(K.LAUNCHES.values()) == 0
 
 
 @pytest.mark.cuda

@@ -9,6 +9,9 @@ compute, each plain version runs at toy_config(logN=7, num_scales=4,
 num_special_primes=2) in both lanes (three parts at level 1: alpha 1, 2,
 1), and the count must equal the formula — exactly.
 
+The step's glue (G1-G3, ``ops/glue_kernels.py``) is counted the same
+way: its plain versions run the kernels' REDCs one for one.
+
 K4 is the exception: its plain version runs the successive P-division
 chain (``intt_pdiv_plain``: exit, enter, S x (enter P0, multiply), exit),
 while the kernel evaluates the division's affine form (``csrc/ntt.cu``,
@@ -24,6 +27,7 @@ import torch
 from tiberate_tpu_torch.config.toy import toy_config
 from tiberate_tpu_torch.context.ntt_context import CkksParams
 from tiberate_tpu_torch.engine import ckks_engine as teng
+from tiberate_tpu_torch.ops import glue_kernels as G
 from tiberate_tpu_torch.ops import mont, roofline
 from tiberate_tpu_torch.ops import ntt_kernels as K
 
@@ -98,7 +102,23 @@ def _case(tp, name):
         return (lambda: K.ntt_keymul_parts_plain(st, ec, alphas, pkeys,
                                                  lp_sp),
                 roofline.ntt_keymul_parts(BATCH, alphas.tolist(), C_sp, LOGN))
+    C0 = tp.lp(LEVEL - 1, False).num_channels
+    d = _uniform(gen, tp.lp(LEVEL - 1, False).pack.q, (BATCH, C0, N))
+    cur = _uniform(gen, lp_sp.pack.q[C:], (BATCH, tp.S, N))
+    parts = tp.parts[LEVEL]
+    glue = {
+        "rescale": (lambda: G.rescale_plain(
+            d[..., :1, :], d[..., 1:, :], tp.rescale_scales[LEVEL - 1], lp,
+            tp.q[LEVEL - 1] // 2), roofline.rescale(BATCH * C, N)),
+        "parts_digits": (lambda: G.parts_digits_plain(
+            x, parts, lp, max(p.alpha for p in parts)),
+            roofline.parts_digits(BATCH, [p.alpha for p in parts], N)),
+        "pdiv_p0": (lambda: G.pdiv_p0_plain(cur, lp_sp[C:], tp.PiRs[LEVEL],
+                                            C, tp.S),
+                    roofline.pdiv_p0(BATCH, tp.S, N)),
+    }
     cases = {
+        **glue,
         "ntt[enter]": (lambda: K.ntt_plain(x, lp, True),
                        roofline.ntt(rows, LOGN, True)),
         "ntt": (lambda: K.ntt_plain(x, lp, False),
@@ -125,7 +145,8 @@ def _case(tp, name):
     "ntt[enter]", "ntt", "intt[mont]", "intt[exit]", "intt[exit_reduce]",
     "ntt_keymul[1 key, enter]", "ntt_keymul[2 keys]",
     "ntt_keymul_accum:none", "ntt_keymul_accum:0", "ntt_keymul_accum:1",
-    "ntt_keymul_accum:2", "ntt_tensor", "ntt_keymul_parts",
+    "ntt_keymul_accum:2", "ntt_tensor", "ntt_keymul_parts", "rescale",
+    "parts_digits", "pdiv_p0",
 ])
 def test_redc_count_equals_plain_version(tp, redc_count, name):
     run, formula = _case(tp, name)
@@ -143,6 +164,39 @@ def test_kernel_shapes_counts():
     assert roofline.ntt_keymul_parts(8, alphas, 18, 15) == 8 * 18 * (
         17 * 32768 + 9 * (16384 * 15 + 2 * 32768))
     assert roofline.intt_pdiv(10, 15, 2) == 10 * (16384 * 15 + 4 * 32768)
+
+
+def test_glue_shapes_counts():
+    """The glue's formulas at the logN17 step, reckoned by hand: G1 over
+    [8, 72, 2^17] (73 ordinary channels at level 0), G2 over the 13 parts
+    of level 1 (alpha 5, eleven of 6, the base prime alone) with a 90-word
+    table row each, G3 with S = 6.  At the 62-bit REDC rate the probe
+    measured (510-535 G/s, PERF.md) G1 and G2 are bound by bytes; G3's 15
+    REDCs to 12 words a coefficient sit at the crossing there, and it is
+    bound by bytes at logN15's S = 2."""
+    N = 1 << 17
+    alphas = [5] + [6] * 11 + [1]
+    cases = {
+        "rescale": (roofline.rescale_bytes(8, 72, N, 8),
+                    roofline.rescale(8 * 72, N),
+                    8 * (8 * N * 145 + 216), 8 * 72 * N),
+        "parts_digits": (roofline.parts_digits_bytes(8, alphas, 6, N, 8,
+                                                     13 * G._PART),
+                         roofline.parts_digits(8, alphas, N),
+                         8 * (8 * N * (72 + 13 * 6) + 13 * 90),
+                         8 * N * (10 + 11 * 15)),
+        "pdiv_p0": (roofline.pdiv_p0_bytes(8, 6, N, 8),
+                    roofline.pdiv_p0(8, 6, N),
+                    8 * (96 * N + 30 + 12), 8 * N * 15),
+    }
+    cases["pdiv_p0 at S = 2"] = (roofline.pdiv_p0_bytes(8, 2, N // 4, 8),
+                                 roofline.pdiv_p0(8, 2, N // 4),
+                                 8 * (32 * N // 4 + 2 + 4), 8 * N // 4)
+    for name, (nbytes, redc, want_bytes, want_redc) in cases.items():
+        assert (nbytes, redc) == (want_bytes, want_redc), name
+        b = roofline.bound(nbytes, redc, 510e9)
+        assert b["bound_by"] == ("operations" if name == "pdiv_p0"
+                                 else "bytes"), name
 
 
 def test_bound_takes_the_larger_term():

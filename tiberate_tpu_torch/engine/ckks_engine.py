@@ -15,9 +15,12 @@ the JAX package's order, so the same ``(seed, nonce)`` gives the JAX
 package's keys and ciphertexts byte for byte.
 The NTTs, the tensor product, the keyswitch (all parts in one kernel,
 ``ntt_keymul_parts``, at every logN) and the P-division go through the
-kernel wrappers of :mod:`tiberate_tpu_torch.ops.ntt_kernels`:
-one code path, which launches the Hopper kernels for CUDA tensors and runs
-their plain versions for CPU tensors.  Outputs are bit-identical to the JAX
+kernel wrappers of :mod:`tiberate_tpu_torch.ops.ntt_kernels`, and the
+step's glue between them (the rescale, the keyswitch digits and the
+special rows of the P-division) through those of
+:mod:`tiberate_tpu_torch.ops.glue_kernels`: one code path, which
+launches the Hopper kernels for CUDA tensors and runs their plain
+versions for CPU tensors.  Outputs are bit-identical to the JAX
 package's jnp path on the same inputs.
 
 One route differs from the JAX package's on purpose.  The JAX engine
@@ -43,6 +46,7 @@ import torch
 from tiberate_tpu_torch import errors
 from tiberate_tpu_torch.config import CkksConfig, Preset
 from tiberate_tpu_torch.context.ntt_context import CkksParams, PartPack
+from tiberate_tpu_torch.ops import glue_kernels as glue
 from tiberate_tpu_torch.ops import mont
 from tiberate_tpu_torch.ops import ntt_kernels as kern
 from tiberate_tpu_torch.parallel.mesh import (
@@ -201,23 +205,11 @@ def _check_ntt_mont_state(ds):
 
 def _rescale_core(d, rescale_scale, lp_next, round_at, exact_rounding=True):
     """Drop the top RNS channel, rounding exactly unless told not to.
-    d: [..., C, N] in [0, q) -> [..., C-1, N]."""
-    return _rescale_rows(d[..., 0:1, :], d[..., 1:, :], rescale_scale,
-                         lp_next, round_at, exact_rounding)
-
-
-def _rescale_rows(rescaler, rows, rescale_scale, lp_next, round_at,
-                  exact_rounding=True):
-    """:func:`_rescale_core` of any of the kept rows: ``rescaler`` [..., 1,
-    N] the dropped channel, ``rows`` [..., c, N] the kept rows, with their
-    ``rescale_scale`` and ``lp_next`` rows (a shard's rows of the result)."""
-    data = rows - rescaler
-    data = mont.mont_mult(data, rescale_scale, lp_next.pack)
-    if exact_rounding:
-        data = data + (rescaler > round_at).to(data.dtype)
-    # REDC of a signed difference can land marginally below zero
-    data = mont.make_unsigned(data, lp_next.pack)
-    return mont.reduce_2q(data, lp_next.pack)
+    d: [..., C, N] in [0, q) -> [..., C-1, N]: one G1 kernel
+    (``glue_kernels.rescale``), which reads the dropped row and the kept
+    rows of ``d`` in place."""
+    return glue.rescale(d[..., 0:1, :], d[..., 1:, :], rescale_scale,
+                        lp_next, round_at, exact_rounding)
 
 
 def _ccmult_tensor_core(x0, x1, y0, y1, lp):
@@ -308,26 +300,10 @@ def _pre_extend(a_part, part: PartPack, plp):
     """Mixed-radix (Garner) digits of the part residues.
 
     a_part: [..., alpha, N] values in [0, q); returns [..., alpha, N]
-    signed digits.
+    signed digits: G2 (``glue_kernels.parts_digits``) with one part.
     """
-    alpha = part.alpha
-    pk = plp.pack
-    rows = [a_part[..., 0, :]] * alpha
-    for i in range(alpha - 1):
-        ql, qh = pk.ql[i + 1], pk.qh[i + 1]
-        kl, kh = pk.kl[i + 1], pk.kh[i + 1]
-        y = a_part[..., i + 1, :] - rows[i + 1]
-        y = mont.mont_mult_raw(y, part.Y_scalar[i], ql, qh, kl, kh)
-        rows[i + 1] = y
-        if i + 2 < alpha:
-            suffix = pk[i + 2 : alpha]
-            ynew = mont.mont_mult_raw(
-                y[..., None, :], part.L_scalar[i],
-                suffix.ql, suffix.qh, suffix.kl, suffix.kh,
-            )
-            for j, r in enumerate(range(i + 2, alpha)):
-                rows[r] = rows[r] + ynew[..., j, :]
-    return torch.stack(rows, dim=-2)
+    return glue.parts_digits(a_part, (part,), plp, part.alpha,
+                             lo_base=part.lo)[..., 0, :, :]
 
 
 def _extend(state, part: PartPack, lp_sp, lvl: int):
@@ -353,38 +329,15 @@ def _pdiv_fused(acc, lp_sp, lp_ord, PiRs, S):
     C = lp_ord.num_channels
     lp_spec = lp_sp[C:]
     cur = kern.intt(acc[..., C:, :].contiguous(), lp_spec, "exit_reduce")
-    return kern.intt_pdiv(acc, _pdiv_p0(cur, lp_spec, PiRs, C, S), lp_ord,
-                          PiRs)
-
-
-def _pdiv_p0(cur, lp_spec, PiRs, C, S):
-    """The plain rows the successive P-division subtracts, in division
-    order [..., S, N], from the canonical coefficient-domain special rows
-    ``cur`` [..., S, N]: the rescale replayed on the special block alone
-    (``PiRs`` rows from ``C`` on are the special rows')."""
-    rows = []
-    for i in range(S):
-        r = cur[..., S - 1 - i, :]
-        rows.append(r)
-        if i < S - 1:
-            upd = mont.mont_sub(cur, r[..., None, :], lp_spec.pack)
-            cur = mont.mont_mult(upd, PiRs[i][C:], lp_spec.pack)
-    return torch.stack(rows, dim=-2)
+    return kern.intt_pdiv(acc, glue.pdiv_p0(cur, lp_spec, PiRs, C, S),
+                          lp_ord, PiRs)
 
 
 def _parts_digits(a, parts, lp_ord, amax):
     """Every part's mixed-radix digits, zero-padded to ``amax`` rows:
-    [..., n_parts, amax, N] (the ``ntt_keymul_parts`` operand)."""
-    sts = []
-    for part in parts:
-        st = _pre_extend(a[..., part.lo : part.hi, :], part,
-                         lp_ord[part.lo : part.hi])
-        if part.alpha < amax:
-            pad = st.new_zeros((*st.shape[:-2], amax - part.alpha,
-                                st.shape[-1]))
-            st = torch.cat([st, pad], dim=-2)
-        sts.append(st)
-    return torch.stack(sts, dim=-3)
+    [..., n_parts, amax, N] (the ``ntt_keymul_parts`` operand), in one G2
+    kernel (``glue_kernels.parts_digits``)."""
+    return glue.parts_digits(a, parts, lp_ord, amax)
 
 
 def _parts_consts(params, level):

@@ -1,7 +1,8 @@
 """Build and load the Hopper kernels (``csrc/*.cu``) at first use.
 
-``nvcc`` compiles each source into an object file (``tensor.cu`` and
-``keyswitch.cu`` once per lane, ``ntt.cu`` once per lane and direction),
+``nvcc`` compiles each source into an object file (``tensor.cu``,
+``keyswitch.cu`` and ``glue.cu`` once per lane, ``ntt.cu`` once per lane
+and direction),
 all at once in parallel processes, and links them into one shared library
 with a plain C interface under ``tiberate_tpu_torch/_build/`` (named by a
 hash of the sources, so an edited source is rebuilt); ``ctypes`` loads
@@ -20,15 +21,16 @@ import subprocess
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("ntt.cu", "tensor.cu", "keyswitch.cu", "fold_probe.cu")
+SOURCES = ("ntt.cu", "tensor.cu", "keyswitch.cu", "glue.cu", "fold_probe.cu")
 HEADERS = ("mont.cuh", "ntt.cuh")
 # (source, extra nvcc flags) per object file: ntt.cu, tensor.cu and
 # keyswitch.cu instantiate their kernels for every logN, so each lane (and
-# each direction of ntt.cu) builds apart
+# each direction of ntt.cu) builds apart; glue.cu's lanes build apart too
 UNITS = (*(("ntt.cu", (f"-DTT_LANE={lane}", f"-DTT_FWD={fwd}"))
            for lane in (62, 30) for fwd in (1, 0)),
          *((src, (f"-DTT_LANE={lane}",))
-           for src in ("tensor.cu", "keyswitch.cu") for lane in (62, 30)),
+           for src in ("tensor.cu", "keyswitch.cu", "glue.cu")
+           for lane in (62, 30)),
          ("fold_probe.cu", ()))
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
@@ -49,6 +51,10 @@ _LANED = {
                       _P, _P, _P],
     "tt_ntt_keymul_parts": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _P, _P, _P, _P],
+    # the step's glue (glue.cu): batch strides and round_at as long long
+    "tt_rescale": [_P, _L, _P, _L, _P, _I, _I, _I, _P, _P, _P, _L, _I, _P],
+    "tt_parts_digits": [_P, _L, _P, _I, _I, _I, _I, _P, _I, _P],
+    "tt_pdiv_p0": [_P, _L, _P, _I, _I, _I, _P, _P, _P, _P],
 }
 # Every C entry point -> argument types.  The fold-rate probe takes its
 # constants by value in its lane's word, and its Shoup fold has no 30-bit

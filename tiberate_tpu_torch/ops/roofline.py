@@ -16,7 +16,8 @@ compute-aware roofline (``bench.py::_roofline_ct_per_s``), whose rate the
 TPU probe measured in the same way.
 
 The counts are those of the kernels (``csrc/ntt.cuh``, ``ntt.cu``,
-``tensor.cu``, ``keyswitch.cu``; each formula names the code it counts),
+``tensor.cu``, ``keyswitch.cu``, ``glue.cu``; each formula names the code
+it counts),
 per polynomial row of N coefficients: a forward or inverse transform runs
 N/2 butterflies, one REDC each, in each of its logN stages; prologues and
 epilogues add one REDC per coefficient for each multiply.  A skipped
@@ -81,6 +82,50 @@ def ntt_keymul_parts(batch: int, alphas, C_sp: int, logN: int) -> int:
     N = 1 << logN
     return batch * C_sp * sum(a * N + _transform(logN) + 2 * N
                               for a in alphas)
+
+
+def rescale(rows: int, N: int) -> int:
+    """G1 over ``rows`` = B x c kept rows: one REDC per coefficient
+    (``rescale_k``, glue.cu)."""
+    return rows * N
+
+
+def parts_digits(batch: int, alphas, N: int) -> int:
+    """G2: per part and coefficient, alpha - 1 digits, digit i + 1's REDC
+    followed by one REDC into each of the alpha - i - 2 rows above it
+    (``digits_k``, glue.cu): alpha (alpha - 1) / 2."""
+    return batch * N * sum(a * (a - 1) // 2 for a in alphas)
+
+
+def pdiv_p0(batch: int, S: int, N: int) -> int:
+    """G3: division i updates the S - 1 - i rows it leaves to later
+    divisions, one REDC each (``pdiv_p0_k``, glue.cu): S (S - 1) / 2 per
+    coefficient."""
+    return batch * N * S * (S - 1) // 2
+
+
+# The glue's bytes, in words of ``word`` bytes: every input read once and
+# every output written once (G1-G3 are bound by these).
+
+
+def rescale_bytes(batch: int, c: int, N: int, word: int) -> int:
+    """G1: c kept rows and the rescaler read, c rows written; the scale,
+    q and k of each kept row."""
+    return word * (batch * N * (2 * c + 1) + 3 * c)
+
+
+def parts_digits_bytes(batch: int, alphas, amax: int, N: int, word: int,
+                       table_words: int) -> int:
+    """G2: each part's alpha rows read, its amax rows of the digit
+    operand written; the constants table."""
+    return word * (batch * N * (sum(alphas) + len(alphas) * amax)
+                   + table_words)
+
+
+def pdiv_p0_bytes(batch: int, S: int, N: int, word: int) -> int:
+    """G3: S special rows read and S written; the S - 1 division columns
+    and each row's q and k."""
+    return word * (2 * batch * S * N + (S - 1) * S + 2 * S)
 
 
 def bound(nbytes: float, redc: int, redc_per_s: float) -> dict:

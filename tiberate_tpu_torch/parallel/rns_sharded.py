@@ -42,9 +42,9 @@ import torch
 from tiberate_tpu_torch.engine.ckks_engine import (
     _extend,
     _pdiv_fused,
-    _pdiv_p0,
     _pre_extend,
 )
+from tiberate_tpu_torch.ops import glue_kernels as glue
 from tiberate_tpu_torch.ops import ntt_kernels as kern
 from tiberate_tpu_torch.parallel import coef_sharded as cs
 from tiberate_tpu_torch.parallel import mesh as meshlib
@@ -185,7 +185,8 @@ def make_rns_sharded_switcher(eng, level: int, mesh, axis: str = "rns",
                 t = T[c]
                 res = []
                 for x in dc:
-                    p0 = _pdiv_p0(x[..., ro:, :], t.lp_spec, t.PiRs, ro, S)
+                    p0 = glue.pdiv_p0(x[..., ro:, :], t.lp_spec, t.PiRs, ro,
+                                      S)
                     res.append(kern.pdiv_plain(x[..., :ro, :], p0, t.lp_o,
                                                t.PiRs))
                 out0[c], out1[c] = res
@@ -197,8 +198,9 @@ def make_rns_sharded_switcher(eng, level: int, mesh, axis: str = "rns",
             for c, v in acc.items():
                 t = T[c]
                 out0[c], out1[c] = (
-                    kern.intt_pdiv(x, _pdiv_p0(sp[c][i][..., :S, :],
-                                               t.lp_spec, t.PiRs, ro, S),
+                    kern.intt_pdiv(x, glue.pdiv_p0(sp[c][i][..., :S, :],
+                                                   t.lp_spec, t.PiRs, ro,
+                                                   S),
                                    t.lp_o, t.PiRs)
                     for i, x in enumerate(v))
         else:

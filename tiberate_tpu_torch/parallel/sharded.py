@@ -35,8 +35,8 @@ from tiberate_tpu_torch.engine.ckks_engine import (
     _decrypt_double_core,
     _relin_core,
     _rescale_core,
-    _rescale_rows,
 )
+from tiberate_tpu_torch.ops import glue_kernels as glue
 from tiberate_tpu_torch.ops import mont
 from tiberate_tpu_torch.ops import ntt_kernels as kern
 from tiberate_tpu_torch.parallel import coef_sharded as cs
@@ -124,7 +124,7 @@ def rescale_sharded(eng, x, level, spec, exact_rounding=True):
     for c, blk in whole.blocks.items():
         r0, r1 = out.rows(c)
         dev = x.mesh.device(c)
-        out.blocks[c] = _rescale_rows(
+        out.blocks[c] = glue.rescale(
             blk[..., 0:1, :], blk[..., 1 + r0:1 + r1, :],
             eng.params.rescale_scales[level][r0:r1].to(dev),
             eng._block_lp(level + 1, False, r0, r1, dev), round_at,

@@ -27,10 +27,20 @@ Phases (any failure exits non-zero):
    contiguous pass and of K5's and K6's contiguous passes;
 2d. the ChaCha20 CSPRNG on the card against the same generator on the
    CPU, with the logN15 and the logN17 engine's channel model and one
-   (seed, nonce): ``randint`` over the full q chain, ``discrete_gaussian
-   (repeats=2)``, ``randround_batch`` and ``encrypt_noise_batch`` of 8,
-   three successive calls each, byte for byte, then the states; ms per
-   draw on the card (CUDA events);
+   (seed, nonce): ``randbytes`` and ``randint`` over the full q chain,
+   ``discrete_gaussian(repeats=2)``, ``randround_batch`` and
+   ``encrypt_noise_batch`` of 8, three successive calls each, byte for
+   byte, then the states, the card's launches counted (R1-R4, the
+   generator's own entry points); ms per draw on the card (CUDA events);
+   then each CSPRNG kernel (R1 ``chacha_words``, R2 ``chacha_randint``,
+   R3 ``chacha_dgauss``, R4 ``chacha_randround``, and R2 + R3 as
+   ``encrypt_noise``) against its plain version on the card at its
+   draw's shape, timed beside its bytes bound and its issue bound (SASS
+   instructions a block, ``cuobjdump``, at 132 x 4 warp issues a cycle at
+   the card's highest SM clock), and compared on edge counters (low words
+   at 2^32 - 1 and 2^32 - 1 - k inc, high words at 2^32 - 1), moduli near
+   2^62 and 2^30 and edge coefficients (fractions m / 2^32 and one ulp
+   either side, halves, negatives, +-0), single and batch forms;
 2e. the pinned digests: ``CkksEngine(preset, seed=1234, nonce=1)
    .encodecrypt(linspace(-1, 1))`` on the card hashes to
    ``ct_sha256_seed1234_nonce1`` of ``tests/golden/presets.json`` and
@@ -38,8 +48,7 @@ Phases (any failure exits non-zero):
 2f. (run with phase 9's logN17 engine) the native host oracle
    (``utils/native.py``, exact ``__int128`` arithmetic): K1 -> mont_mult
    -> K2 on the card equals its negacyclic product for every prime of the
-   logN17 chain, and the CSPRNG's ChaCha20 block function on the card its
-   blocks;
+   logN17 chain, and R1's blocks on the card its ChaCha20 blocks;
 3. at the logN15 step shapes (batch 8, 16/17/18 channels, N = 32768) hold
    each kernel against its plain torch version on the same card tensors —
    byte for byte, lazy outputs included — and time both (the plain
@@ -55,7 +64,11 @@ Phases (any failure exits non-zero):
    ``encodecrypt_batch`` of 8 messages twice, the fused cc_mult step on
    the batch (all keyswitch parts in one kernel), ``decryptcode_batch``;
    the decrypt error must stay below 1e-6 and every kernel of the path
-   must have launched.  Then, from the CSPRNG state before the batch
+   must have launched; keygen must have drawn through R2 and R3 and the
+   batch encrypts through R2, R3 and R4, and a draw on the card through
+   the plain torch word path fails the phase (the same holds in 7, 10,
+   11, key creation and the draw shares).  Then, from the CSPRNG state
+   before the batch
    draws, the same 16 messages through single ``encodecrypt`` calls must
    give the batch ciphertexts byte for byte, and 8 single
    ``decryptcode`` calls the batch decode within 1e-9, and the batch forms
@@ -74,9 +87,9 @@ Phases (any failure exits non-zero):
    that profiled step's wall time (the profiler slows the host, so this
    share is lower than an unprofiled step's); a seed-expanded evk
    (``a_seed``) through ``compress_ksk`` and ``expand_ksk`` gives back its
-   bytes; then 5b; then the CSPRNG's share of keygen and of
-   ``encodecrypt_batch`` (its draws timed, synchronised, in a second
-   keygen and batch);
+   bytes; then 5b; then the CSPRNG's share of keygen, of
+   ``encodecrypt_batch`` and of the 14 Galois keys (its draws timed,
+   synchronised, in a second keygen, batch and Galois set);
 5b. the evaluation path at logN15 on the batch of 8, its launch counts set
    to 0 before it and read after: the Galois keys (14 rotation keys) and
    the conjugation key (time, device memory), ``rotate_offset`` by 1, 5
@@ -124,12 +137,13 @@ Phases (any failure exits non-zero):
     preset bound, and ``sum`` 200x that), ``_30`` kernels only; step
     times with the kernels and
     the plain versions, printed beside phase 5's 62-bit logN15 step; the
-    route A/B; one profiled step;
+    route A/B; one profiled step; the CSPRNG's share of keygen and of
+    ``encodecrypt_batch``;
 11. "logN17_30" (17 primes): the 30-bit kernels at the step's shapes; the
     main path through the all-parts kernel (one ``ntt_keymul_parts_30``
     launch, no chain launch; error below 1e-2); the evaluation as in 8b,
     within 5e-3; the step equal to the plain-version step; the route A/B
-    with peak memory; one profiled step;
+    with peak memory; one profiled step; the CSPRNG's share as in 10;
 11b. Preset.logN16 (4 special primes): keygen, ``encodecrypt_batch`` of
     8 twice, the fused step through the all-parts kernel (launches
     counted from 0), its decrypt error below 1e-6, its time and peak
@@ -179,10 +193,13 @@ Each kernel has two bounds (``tiberate_tpu_torch/ops/roofline.py``): the
 time its bytes take at the H100's datasheet HBM rate (every input read
 once, the output written once), and the time its REDCs, counted from its
 source at the shape of the call, take at the REDC rate of its lane that
-phase 2b measured on this card.  ``bound_ms`` is the larger; ``bound_by``
-says which ("bytes" or "operations": the REDCs).  Before the JSON lines,
-the kernels of each driven path are ranked by launches x (time - bound),
-once with the launches of the whole path, once with the step's and once
+phase 2b measured on this card (the CSPRNG's kernels: their SASS
+instructions at the card's warp-issue rate, phase 2d).  ``bound_ms`` is
+the larger; ``bound_by`` says which ("bytes" or "operations").  Before
+the JSON lines, the kernels of each driven path are ranked by launches x
+(time - bound) (the CSPRNG's at the logN15 and logN17 draws, on the
+62-bit main paths), once with the launches of the whole path, once with
+the step's and once
 with the evaluation path's (and the extension path's and the mesh
 paths' at logN15).  The
 second-to-last line is a JSON object with one entry per kernel and lane,
@@ -245,6 +262,19 @@ KERNELS = {
                     f"tiberate_tpu/engine/ckks_engine.py:{line}")
        for sfx in ("", "_30") for name, line in _GLUE.items()},
 }
+# The CSPRNG's kernels (R1-R4, csrc/csprng.cu; one lane) have no Pallas
+# counterpart either: XLA fuses the JAX package's jitted block function
+# and samplers.  Each replaces the JAX function named here.
+_CSPRNG = {"chacha_words": 196, "chacha_randint": 80, "chacha_dgauss": 107,
+           "chacha_randround": 202}
+CSPRNG = tuple(_CSPRNG)
+KERNELS.update({name: ("tiberate_tpu_torch/csrc/csprng.cu",
+                       f"tiberate_tpu/rng/csprng.py:{line}")
+                for name, line in _CSPRNG.items()})
+# the kernels keygen draws with (sk, pk, evk: R2, R3), and those
+# encodecrypt_batch draws with (R4, and R2 + R3 for the noise)
+KEYGEN_DRAWS = ("chacha_randint", "chacha_dgauss")
+ENCRYPT_DRAWS = ("chacha_randint", "chacha_dgauss", "chacha_randround")
 # the fold-rate probe's kernels (no 30-bit Shoup lane)
 PROBE = {
     name: ("tiberate_tpu_torch/csrc/fold_probe.cu",
@@ -786,13 +816,14 @@ def rank(results, launches, sfx, tag):
     kernel with one part's range skipped, as the step runs it."""
     rows = []
     for name, res in results.items():
-        n = launches[name + sfx]
+        name = name if name in CSPRNG else name + sfx
+        n = launches[name]
         if n:
             res = res.get("with_skip", res)
             # a kernel faster than its bound loses nothing (the bound's
             # dependent-chain rate understates independent butterflies)
             rows.append((n * max(0.0, res["ms"] - res["bound_ms"]),
-                         name + sfx, n, res))
+                         name, n, res))
     rows.sort(key=lambda r: -r[0])
     log(f"{tag} kernels by launches x (time - bound), a negative gap read "
         f"as 0: " + "; ".join(
@@ -811,6 +842,29 @@ def count_launches(kern, fn):
     return out, dict(kern.LAUNCHES)
 
 
+@contextlib.contextmanager
+def card_draws_only():
+    """While active, a draw on a card generator that ran the plain torch
+    word path (the block function of the CSPRNG's plain versions) raises;
+    also a decorator."""
+    from tiberate_tpu_torch.ops import csprng_kernels as ck
+    from tiberate_tpu_torch.rng import csprng as rc
+
+    plain = ck.chacha20_block
+
+    def guarded(state):
+        if state.device.type == "cuda":
+            raise AssertionError("a draw on the card ran the plain torch "
+                                 "word path")
+        return plain(state)
+
+    try:
+        ck.chacha20_block = rc.chacha20_block = guarded
+        yield
+    finally:
+        ck.chacha20_block = rc.chacha20_block = plain
+
+
 def require(counts, names, what):
     missing = [k for k in names if counts[k] == 0]
     if missing:
@@ -818,8 +872,10 @@ def require(counts, names, what):
 
 
 def only_30(counts, what):
-    """A 30-bit path launches no 62-bit kernel."""
-    wrong = [k for k, n in counts.items() if n and not k.endswith("_30")]
+    """A 30-bit path launches no 62-bit kernel (the CSPRNG's kernels have
+    one lane)."""
+    wrong = [k for k, n in counts.items()
+             if n and not k.endswith("_30") and k not in CSPRNG]
     if wrong:
         raise AssertionError(f"62-bit kernels launched on {what}: {wrong}")
 
@@ -832,11 +888,14 @@ def msgs(eng):
                  for _ in range(2))
 
 
+@card_draws_only()
 def drive(eng, kern, stack, unstack, tol, tag):
     """keygen, encodecrypt_batch of 8 messages twice, cc_mult on the batch,
     decryptcode_batch, with the launch counts set to 0 before and read
-    after; the step's own counts separately.  Then the single forms from
-    the same CSPRNG state (:func:`single_forms`).  Returns (A, B, out,
+    after; the step's own counts separately; keygen must have drawn
+    through R2 and R3, the batch encrypts through R2, R3 and R4, and no
+    draw through the plain word path.  Then the single forms from the
+    same CSPRNG state (:func:`single_forms`).  Returns (A, B, out,
     launches, step counts, err, info)."""
     m1, m2 = msgs(eng)
 
@@ -853,6 +912,12 @@ def drive(eng, kern, stack, unstack, tol, tag):
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t0
     before = dict(kern.LAUNCHES)
+    enc_counts = {k: before[k] - keygen_counts[k] for k in before}
+    require(keygen_counts, KEYGEN_DRAWS, f"{tag} keygen")
+    require(enc_counts, ENCRYPT_DRAWS, f"{tag} encodecrypt_batch")
+    log(f"{tag} CSPRNG launches: keygen "
+        f"{ {k: keygen_counts[k] for k in CSPRNG} }, encodecrypt_batch of "
+        f"{BATCH} twice { {k: enc_counts[k] for k in CSPRNG} }")
     t0 = time.perf_counter()
     out = eng.cc_mult(A, B)
     torch.cuda.synchronize()
@@ -888,6 +953,8 @@ def drive(eng, kern, stack, unstack, tol, tag):
         f"forms: " + ", ".join(f"{k} {single_path[k]} -> {launches[k]}"
                                for k in launches if single_path[k]))
     info = dict(keygen_s=t_keygen, encodecrypt_batch_s=t_enc,
+                keygen_draw_launches={k: keygen_counts[k] for k in CSPRNG},
+                encrypt_draw_launches={k: enc_counts[k] for k in CSPRNG},
                 decryptcode_batch_s=t_dec,
                 encodecrypt_single_s=single["encodecrypt_s"],
                 decryptcode_single_s=single["decryptcode_s"],
@@ -1091,15 +1158,193 @@ def leaves(key):
             for t in (d if isinstance(d, tuple) else (d,))]
 
 
-def csprng_phase(Csprng, CkksConfig, presets, smi):
+def edge_states(states, inc, kmax):
+    """``states`` with every second row's low counter at 2^32 - 1 or at
+    2^32 - 1 - k inc or 2^32 - k inc (k <= kmax: each carries into word 13
+    at a replica advance) and every seventh high counter at 2^32 - 1
+    (word 13 wraps)."""
+    m32 = 0xFFFFFFFF
+    lows = [m32, *((m32 - k * inc) & m32 for k in range(kmax + 1)),
+            *((m32 + 1 - k * inc) & m32 for k in range(1, kmax + 1))]
+    s = states.clone()
+    rows = torch.arange(0, s.shape[0], 2, device=s.device)
+    s[rows, 12] = torch.tensor(lows, device=s.device)[rows % len(lows)]
+    s[::7, 13] = m32
+    return s
+
+
+def edge_coefs(rng, shape):
+    """f64 coefficients with fractions of exactly m / 2^32, one ulp either
+    side and (2m + 1) / 2^33 (a half after the x 2^32), negatives, +-0."""
+    c = rng.uniform(-2.0**40, 2.0**40, shape)
+    whole = np.floor(rng.uniform(0, 2.0**20, shape))
+    exact = whole + rng.integers(0, 1 << 32, shape) / 2.0**32
+    c[:, 0::6] = exact[:, 0::6]
+    c[:, 1::6] = np.nextafter(exact, np.inf)[:, 1::6]
+    c[:, 2::6] = np.nextafter(exact, -np.inf)[:, 2::6]
+    c[:, 3::6] = (whole + (2 * rng.integers(0, 1 << 32, shape) + 1)
+                  / 2.0**33)[:, 3::6]
+    c[:, 1::4] *= -1
+    c[:, 5::24] = 0.0
+    c[:, 11::24] = -0.0
+    return c
+
+
+def csprng_sass(cuda_build, depth):
+    """{kernel: SASS instructions (NOP left out)} of R1-R4, R3 at the
+    tree's ``depth``: one row's block function and samples (the replica
+    loop's body, with the row's loads and counter store); None without
+    ``cuobjdump``."""
+    names = {"words_k": "chacha_words", "randint_k": "chacha_randint",
+             f"dgauss_kILi{depth}E": "chacha_dgauss",
+             "randround_k": "chacha_randround"}
+    sass = cuda_build.sass(*names)
+    if sass is None:
+        return None
+    out = {}
+    for block in sass.split("Function : ")[1:]:
+        for part, name in names.items():
+            if part in block.split()[0]:
+                out[name] = len([op for op in re.findall(
+                    r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                    r"([A-Z][A-Z0-9_.]*)", block) if op != "NOP"])
+    return out
+
+
+def max_sm_clock_hz():
+    """The card's highest SM clock (nvidia-smi), in Hz."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def csprng_kernels(gen, ck, roofline, q, coefs, sass, clock_hz, tag):
+    """R1-R4 (and R2 + R3 of ``encrypt_noise``) against their plain
+    versions on the card, each at its draw's shape in ``gen``'s channel
+    model: R1 and R2 over the q chain's rows (pk / evk), R3 over one
+    repeating channel (keygen's e), R2 + R3 for BATCH messages
+    (``encrypt_noise_batch``), R4 over BATCH messages (``randround_batch``).
+    Each is timed (CUDA events, median of 3 loops of 3 after a warm-up;
+    the plain version 3 single calls) beside its bytes and issue bounds.
+    Then each is compared, not timed, on edge counters (``edge_states``),
+    moduli of both lanes near their tops and edge coefficients, in its
+    single and its batch form."""
+    L, inc, N = gen.L, gen.inc, gen.num_coefs
+    rows_q, r_rep = len(q) * L, gen.repeating_start
+    lo, hi, depth = gen._btree_lo, gen._btree_hi, gen.tree_depth
+    qt = torch.tensor(q, device=gen.device)
+    tree = nbytes(lo, hi)
+    # name -> (wrapper, args, blocks = rows x replicas, base rows read,
+    # rows stepped, sample bytes, other input bytes)
+    cases = {
+        "chacha_words": (ck.chacha_words, (0, rows_q, inc), rows_q, rows_q,
+                         rows_q, rows_q * 128, 0),
+        "chacha_randint": (ck.chacha_randint, (0, rows_q, qt, 0, inc),
+                           rows_q, rows_q, rows_q, rows_q * 32,
+                           nbytes(qt)),
+        "chacha_dgauss": (ck.chacha_dgauss, (r_rep, r_rep + L, lo, hi,
+                                             depth, inc), L, L, L, L * 32,
+                          tree),
+        "encrypt_noise": (ck.encrypt_noise, (r_rep, L, lo, hi, depth, 2,
+                                             BATCH, inc), 3 * BATCH * L,
+                          2 * L, 2 * L, 3 * BATCH * L * 32, tree + 8),
+        "chacha_randround": (ck.chacha_randround, (0, coefs, inc),
+                             BATCH * N // 16, N // 16, N // 16,
+                             BATCH * N * 8, nbytes(coefs)),
+    }
+    res = {}
+    for name, (fn, args, blocks, rows, stepped, out_b, in_b) in cases.items():
+        plain = getattr(ck, name + "_plain")
+        a, b = gen.states.clone(), gen.states.clone()
+        got, want = fn(a, *args), plain(b, *args)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        same = all(torch.equal(g, w) for g, w in zip(got, want)) and (
+            torch.equal(a, b))
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        if not same:
+            raise AssertionError(f"{tag} {name} disagrees with its plain "
+                                 f"version")
+        ms = cuda_ms(lambda: fn(a, *args))
+        plain_ms = cuda_ms(lambda: plain(b, *args), 3, 1)
+        if name == "encrypt_noise":
+            # R2 over L rows, R3 over 2 L, each for BATCH messages
+            per = sum(sass[k] for k in ("chacha_randint", "chacha_dgauss")
+                      ) / 2 if sass else None
+        else:
+            per = sass.get(name) if sass else None
+        b_ = roofline.issue_bound(
+            roofline.csprng_bytes(rows, stepped, out_b, in_b), blocks, per,
+            clock_hz)
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=None, rows=rows, blocks=blocks,
+                         sass_per_block=per, **b_)
+        log(f"{tag} {name}: byte-identical to its plain version, "
+            f"{ms:.4f} ms (plain {plain_ms:.4f}); {blocks} blocks; bounds: "
+            f"bytes {b_['bytes_bound_ms']:.4f} ms, issue "
+            + ("not measured" if per is None else
+               f"{b_['compute_bound_ms']:.4f} ms ({per:.0f} SASS a block)")
+            + f"; share {b_['bound_ms'] / ms:.1%}")
+    # the same kernels on edge counters, moduli and coefficients, both
+    # batch forms: compared only
+    m62, m30 = (1 << 62) - 57, (1 << 30) - 35
+    edge_q = torch.tensor([m62, m30, (1 << 62) - 1, (1 << 30) - 1, 3, 2],
+                          device=gen.device)
+    rng = np.random.default_rng(SEED)
+    checked = []
+    for B in (1, BATCH):
+        st = edge_states(gen.states, inc, 2 * B + 1)
+        ec = torch.from_numpy(edge_coefs(rng, (B, N))).to(gen.device)
+        edge = {
+            "chacha_words": (ck.chacha_words, (0, 6 * L, inc)),
+            "chacha_randint": (ck.chacha_randint, (0, 6 * L, edge_q, -1,
+                                                   inc)),
+            "chacha_dgauss": (ck.chacha_dgauss, (r_rep, r_rep + 2 * L, lo,
+                                                 hi, depth, inc)),
+            "encrypt_noise": (ck.encrypt_noise, (r_rep, L, lo, hi, depth, 2,
+                                                 B, inc)),
+            "chacha_randround": (ck.chacha_randround, (0, ec, inc)),
+        }
+        for name, (fn, args) in edge.items():
+            a, b = st.clone(), st.clone()
+            got, want = fn(a, *args), getattr(ck, name + "_plain")(b, *args)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            if not (all(torch.equal(g, w) for g, w in zip(got, want))
+                    and torch.equal(a, b)):
+                raise AssertionError(f"{tag} {name} on edge counters "
+                                     f"(B = {B}) disagrees with its plain "
+                                     f"version")
+            checked.append(f"{name} (B = {B})")
+    log(f"{tag} on edge counters, moduli near 2^62 and 2^30 and edge "
+        f"coefficients, byte-identical to the plain versions: "
+        f"{', '.join(checked)}")
+    return res
+
+
+def csprng_phase(Csprng, CkksConfig, presets, smi, kern, roofline,
+                 cuda_build):
     """Phase 2d.  A generator on the card and one on the CPU with the
-    channel model of each preset's engine and one (seed, nonce); each draw
-    three times in a row on both, byte for byte, then the states; ms per
-    draw on the card (CUDA events: median of 3 loops of 3 draws) beside
-    the bytes bound of the block function (the rows' states read once,
-    their stepped states and the samples written once).  Returns
-    {preset: {draw: result}}."""
-    results = {}
+    channel model of each preset's engine and one (seed, nonce): each draw
+    (``randbytes``, ``randint`` over the q chain, ``discrete_gaussian``,
+    ``randround_batch``, ``encrypt_noise_batch``) three times in a row on
+    both, byte for byte, then the states, the card's launches counted from
+    0 (a path of the generator's own entry points); ms per draw on the
+    card (CUDA events: median of 3 loops of 3 draws) beside its bytes
+    bound (the base rows' states read once, their stepped counters and the
+    samples written once); then the kernels against their plain versions
+    (:func:`csprng_kernels`).  Returns ({preset: {draw: result}}, {preset:
+    {kernel: result}}, the draws' launch counts)."""
+    from tiberate_tpu_torch.ops import csprng_kernels as ck
+
+    sass = None
+    clock_hz = max_sm_clock_hz()
+    results, kernels = {}, {}
+    counts = dict.fromkeys(kern.LAUNCHES, 0)
     for preset in presets:
         cfg = CkksConfig.parse(preset)
         S = cfg.num_special_primes
@@ -1108,47 +1353,65 @@ def csprng_phase(Csprng, CkksConfig, presets, smi):
                   num_repeating_channels=max(S, 2), sigma=cfg.sigma,
                   seed=SEED, nonce=7)
         gpu, cpu = Csprng(**kw, device="cuda"), Csprng(**kw, device="cpu")
+        if sass is None:
+            sass = csprng_sass(cuda_build, gpu.tree_depth) or {}
+            log("CSPRNG kernels' SASS instructions a block (cuobjdump): "
+                + (", ".join(f"{k} {n}" for k, n in sass.items())
+                   or "not measured") + f"; max SM clock "
+                f"{clock_hz / 1e6:.0f} MHz ({smi})")
         coefs = np.random.default_rng(SEED).uniform(-2.0**40, 2.0**40,
                                                     (BATCH, cfg.N))
-        L16 = cfg.N // 16
-        # draw -> (call, state rows it runs the block function on)
+        L, L16 = gpu.L, cfg.N // 16
+        # draw -> (call, base rows read, rows stepped, sample words[,
+        # other input bytes])
         draws = {
+            f"randbytes over the q chain ({len(cfg.q)} channels)": (
+                lambda r: (r.randbytes(shares=len(cfg.q) - S, repeats=S),),
+                len(cfg.q) * L, len(cfg.q) * L, len(cfg.q) * L * 16),
             f"randint over the q chain ({len(cfg.q)} channels)": (
                 lambda r: (r.randint(amax=cfg.q, repeats=S),),
-                len(cfg.q) * gpu.L),
+                len(cfg.q) * L, len(cfg.q) * L, len(cfg.q) * cfg.N),
             "discrete_gaussian(repeats=2)": (
-                lambda r: (r.discrete_gaussian(repeats=2),), 2 * gpu.L),
+                lambda r: (r.discrete_gaussian(repeats=2),), 2 * L, 2 * L,
+                2 * cfg.N),
             f"randround_batch({BATCH})": (
-                lambda r: (r.randround_batch(coefs),), BATCH * L16),
+                lambda r: (r.randround_batch(coefs),), L16, L16,
+                BATCH * cfg.N, coefs.nbytes),
             f"encrypt_noise_batch({BATCH})": (
-                lambda r: r.encrypt_noise_batch(BATCH), 3 * BATCH * gpu.L),
+                lambda r: r.encrypt_noise_batch(BATCH), 2 * L, 2 * L,
+                3 * BATCH * cfg.N),
         }
-        out_bytes = {}
-        for name, (fn, _) in draws.items():
+        for name, (fn, *_) in draws.items():
             t0 = time.perf_counter()
             for _ in range(3):
-                got, want = fn(gpu), fn(cpu)
+                kern.reset_launch_counts()
+                got = fn(gpu)
                 torch.cuda.synchronize()
+                for k, n in kern.LAUNCHES.items():
+                    counts[k] += n
+                want = fn(cpu)
                 if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
                     raise AssertionError(f"{tag} CSPRNG {name} on the card "
                                          f"differs from the CPU's")
-            out_bytes[name] = nbytes(*got)
             log(f"{tag} CSPRNG {name}: card == CPU over 3 successive calls "
                 f"({time.perf_counter() - t0:.1f} s with the CPU's)")
         if not torch.equal(gpu.states.cpu(), cpu.states):
             raise AssertionError(f"{tag} CSPRNG states differ after the "
                                  f"draws")
         res = {}
-        for name, (fn, rows) in draws.items():
+        for name, (fn, rows, stepped, words, *in_b) in draws.items():
             ms = cuda_ms(lambda fn=fn: fn(gpu))
-            nbytes_ = rows * 16 * 8 + rows * 2 * 8 + out_bytes[name]
+            nbytes_ = roofline.csprng_bytes(rows, stepped, words * 8, *in_b)
             bound_ms = nbytes_ / HBM_BYTES_PER_S * 1e3
             res[name] = dict(ms=ms, rows=rows, bytes=nbytes_,
                              bytes_bound_ms=bound_ms)
             log(f"{tag} CSPRNG {name}: {ms:.4f} ms per draw on the card, "
-                f"{rows} block rows, bytes bound {bound_ms:.4f} ms ({smi})")
+                f"{rows} base rows, bytes bound {bound_ms:.4f} ms ({smi})")
         results[tag] = res
-    return results
+        kernels[tag] = csprng_kernels(gpu, ck, roofline, cfg.q,
+                                      torch.from_numpy(coefs).cuda(), sass,
+                                      clock_hz, tag)
+    return results, kernels, counts
 
 
 def digest_phase(CkksEngine, typing):
@@ -1183,12 +1446,12 @@ def digest_phase(CkksEngine, typing):
     return errs
 
 
-def oracle_phase(eng, kern, mont, native, chacha20):
+def oracle_phase(eng, kern, mont, native, ck):
     """Phase 2f.  The native host oracle (exact ``__int128`` arithmetic,
     no code shared with the kernels or their plain versions) against the
     card at the logN17 chain: for every prime, K1 (enter) of a and b,
     ``mont_mult``, K2 (exit_reduce) equals the oracle's negacyclic
-    product; and the CSPRNG's block function on the card equals the
+    product; and R1's blocks on the card (``chacha_words``) equal the
     oracle's ChaCha20 blocks."""
     t0 = time.perf_counter()
     lp = eng._lp(0, True)
@@ -1213,12 +1476,12 @@ def oracle_phase(eng, kern, mont, native, chacha20):
                              f"oracle at primes {bad}")
     states = rng.integers(0, 2**32, (1 << 16, 16), dtype=np.uint32)
     states[::7, 12] = 0xFFFFFFFF
-    card = chacha20.chacha20_block(
-        torch.from_numpy(states.astype(np.int64)).cuda()).cpu().numpy()
+    rows = torch.from_numpy(states.astype(np.int64)).cuda()
+    card = ck.chacha_words(rows, 0, rows.shape[0], 1).cpu().numpy()
     same = np.array_equal(card, native.chacha20_blocks(states)
                           .astype(np.int64))
-    log(f"ChaCha20 block function on the card == the native oracle's on "
-        f"{states.shape[0]} states: {same}")
+    log(f"R1 (chacha_words) on the card == the native oracle's ChaCha20 "
+        f"blocks on {states.shape[0]} states: {same}")
     if not same:
         raise AssertionError("the card's ChaCha20 blocks differ from the "
                              "oracle's")
@@ -1249,10 +1512,12 @@ def compressed_keys(eng, typing, mont):
                              "the evk")
 
 
-def draw_share(eng, msgs, tag):
-    """The CSPRNG's share of keygen and of one ``encodecrypt_batch``: both
-    run again with every draw method timed (host clock, synchronised
-    before and after each draw).  Replaces the engine's keys."""
+@card_draws_only()
+def draw_share(eng, msgs, tag, galois=False):
+    """The CSPRNG's share of keygen, of one ``encodecrypt_batch`` and
+    (``galois``) of the Galois keys: each run again with every draw method
+    timed (host clock, synchronised before and after each draw).
+    Replaces the engine's keys."""
     rng = eng.rng
     names = ("randint", "discrete_gaussian", "randround", "randround_batch",
              "encrypt_noise_batch")
@@ -1272,13 +1537,16 @@ def draw_share(eng, msgs, tag):
         eng.sk = eng._create_secret_key()
         eng.pk, eng.evk  # noqa: B018
 
+    runs = [("keygen", keygen), (f"encodecrypt_batch of {BATCH}",
+                                  lambda: eng.encodecrypt_batch(msgs))]
+    if galois:
+        runs.append((f"{eng.ckksCfg.logN - 1} Galois keys",
+                     lambda: eng._create_galois_key(eng.sk)))
     res = {}
     try:
         for name in names:
             setattr(rng, name, timed(getattr(rng, name)))
-        for what, fn in (("keygen", keygen),
-                         (f"encodecrypt_batch of {BATCH}",
-                          lambda: eng.encodecrypt_batch(msgs))):
+        for what, fn in runs:
             spent[0] = 0.0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1428,6 +1696,7 @@ def keyswitch_launches(counts, n, tag, name, sfx=""):
             f"{tag} {name}: (K6, K4, chain) launches {got}, want {want}")
 
 
+@card_draws_only()
 def make_keys(eng, tag, galois):
     """The rotation keys (the Galois set, or delta 1 alone) and the
     conjugation key, timed (host clock, synchronised), with the device
@@ -1492,7 +1761,8 @@ def evaluate15(eng, eng_cpu, kern, stack, unstack, A, B, out, smi):
     L = eng.ckksCfg.logN - 1  # keyswitches of sum / mean, and of -1
     kern.reset_launch_counts()
     states, keys = make_keys(eng, tag, galois=True)
-    require(kern.LAUNCHES, ("ntt", "intt"), f"{tag} key creation")
+    require(kern.LAUNCHES, ("ntt", "intt", *KEYGEN_DRAWS),
+            f"{tag} key creation")
 
     def row(v):
         return np.broadcast_to(v, m1.shape)
@@ -2552,9 +2822,11 @@ def main():
             f"{imad} IMAD-class, for {bfly} butterflies a thread: "
             f"{total / bfly:.1f} ({imad / bfly:.1f} IMAD-class) a butterfly")
 
-    # 2d. the CSPRNG on the card against the CPU; 2e. the pinned digests
-    csprng = csprng_phase(Csprng, CkksConfig, (Preset.logN15, Preset.logN17),
-                          smi)
+    # 2d. the CSPRNG on the card against the CPU, and its kernels against
+    # their plain versions; 2e. the pinned digests
+    csprng, csprng_k, draws = csprng_phase(
+        Csprng, CkksConfig, (Preset.logN15, Preset.logN17), smi, kern,
+        roofline, cuda_build)
     digest_errs = digest_phase(CkksEngine, ttyping)
 
     # 3. logN15 kernels against their plain versions
@@ -2587,7 +2859,7 @@ def main():
         eng, eng_cpu, kern, stack_ciphertexts, unstack_ciphertext, A, B,
         out, smi)
     del eng_cpu
-    share15 = draw_share(eng, msgs(eng)[0], "logN15")
+    share15 = draw_share(eng, msgs(eng)[0], "logN15", galois=True)
     del eng, A, B, out
     release_engines(ttyping)
 
@@ -2627,10 +2899,10 @@ def main():
     share17 = draw_share(eng17, msgs(eng17)[0], "logN17")
 
     # 2f. the native oracle at the logN17 chain (phase 9's engine)
-    from tiberate_tpu_torch.rng import chacha20
+    from tiberate_tpu_torch.ops import csprng_kernels
     from tiberate_tpu_torch.utils import native
 
-    oracle = oracle_phase(eng17, kern, mont, native, chacha20)
+    oracle = oracle_phase(eng17, kern, mont, native, csprng_kernels)
 
     del eng17, A, B, out
     release_engines(ttyping)
@@ -2661,6 +2933,7 @@ def main():
     ab15_30, chain15_30 = route_ab(eng, kern, sharded, A, B, "logN15_30",
                                    (3, 3))
     profile_step(lambda: eng.cc_mult(A, B), "logN15_30")
+    share15_30 = draw_share(eng, msgs(eng)[0], "logN15_30")
     del eng, A, B, out
     release_engines(ttyping)
 
@@ -2688,6 +2961,7 @@ def main():
     ab17_30, chain17_30 = route_ab(eng, kern, sharded, A, B, "logN17_30",
                                    (3, 1))
     profile_step(lambda: eng.cc_mult(A, B), "logN17_30", top=16)
+    share17_30 = draw_share(eng, msgs(eng)[0], "logN17_30")
     del eng, A, B, out
     release_engines(ttyping)
 
@@ -2714,13 +2988,17 @@ def main():
     # chain route (the per-part chain, each run counted from 0)
     paths = (launches15, launches17, sw_counts, launches15_30,
              launches17_30, eval15, eval17, eval15_30, eval17_30, ext15,
-             mesh15, step16, chain15, chain17, chain15_30, chain17_30)
+             mesh15, step16, chain15, chain17, chain15_30, chain17_30, draws)
     counts = {k: sum(p[k] for p in paths) for k in KERNELS}
     counts.update(probe_counts)
     require(counts, [*KERNELS, *PROBE], "the driven paths")
+    # the CSPRNG's kernels join the 62-bit main paths' ranking at their
+    # logN15 and logN17 draws
+    kernels15, kernels17 = ({k: csprng_k[t][k] for k in CSPRNG}
+                            for t in ("logN15", "logN17"))
     for res, launches, step, sfx, tag in (
-            (results15, launches15, step15, "", "logN15"),
-            (results17, launches17, step17, "", "logN17"),
+            (results15 | kernels15, launches15, step15, "", "logN15"),
+            (results17 | kernels17, launches17, step17, "", "logN17"),
             (results15_30, launches15_30, step15_30, "_30", "logN15_30"),
             (results17_30, launches17_30, step17_30, "_30", "logN17_30")):
         rank(res, launches, sfx, f"{tag} main path:")
@@ -2745,6 +3023,12 @@ def main():
                         "logN15_30")}
     kernels = []
     for key, (src, rep) in KERNELS.items():
+        if key in CSPRNG:
+            kernels.append(dict(name=key, route="cuda", source=src,
+                                replaces=rep, launches=counts[key],
+                                **csprng_k["logN17"][key], shape="logN17",
+                                logN15=csprng_k["logN15"][key]))
+            continue
         sfx = "_30" if key.endswith("_30") else ""
         name = key[: len(key) - len(sfx)]
         big, small, big_tag, small_tag = measured[sfx]
@@ -2761,7 +3045,9 @@ def main():
                 for key, (src, rep) in PROBE.items()]
     log(json.dumps({
         "card": smi, "batch": BATCH,
-        "csprng": csprng, "digest_decrypt_max_err": digest_errs,
+        "csprng": csprng, "csprng_kernels": csprng_k,
+        "csprng_draw_launches": {k: draws[k] for k in CSPRNG},
+        "digest_decrypt_max_err": digest_errs,
         "native_oracle": oracle,
         "logN15": {"step_ms": step_ms, "step_ms_per_ct": step_ms / BATCH,
                    "plain_step_ms": plain_step_ms,
@@ -2781,11 +3067,13 @@ def main():
                       "step_ms_per_ct": step15_30_ms / BATCH,
                       "plain_step_ms": plain_step15_30_ms,
                       "decrypt_max_err": err15_30, "route_ab": ab15_30,
+                      "csprng_share": share15_30,
                       "evaluation": {"ops": evalres15_30}, **info15_30},
         "logN17_30": {"step_ms": step17_30_ms,
                       "step_ms_per_ct": step17_30_ms / BATCH,
                       "plain_step_ms": plain_step17_30_ms,
                       "decrypt_max_err": err17_30, "route_ab": ab17_30,
+                      "csprng_share": share17_30,
                       "evaluation": {"ops": evalres17_30,
                                      "keys": evalkeys17_30},
                       **info17_30},

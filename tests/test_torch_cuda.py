@@ -9,8 +9,9 @@ versions, K1 without entry on the signed rows of a rotated or conjugated
 secret key, and the CSPRNG, keygen, the batch encrypt and decrypt forms,
 the rotation and conjugation keys, rotations and ``pc_mult`` on the card
 against the CPU's, the step's glue kernels (G1-G3) against their plain
-versions on random and adversarial inputs and on views, and the mesh
-engine with every shard on the card
+versions on random and adversarial inputs and on views, the CSPRNG's
+kernels (R1-R4) against their plain versions on edge counters in their
+single and batch forms, and the mesh engine with every shard on the card
 against the single-device engine on the CPU.  The file imports no jax, so it also
 runs on a machine that has only torch:
 
@@ -453,6 +454,137 @@ def test_csprng_on_card_equals_cpu(card):
             for g, c in zip(fn(gpu), fn(cpu)):
                 assert g.device.type == "cuda" and torch.equal(g.cpu(), c)
     assert torch.equal(gpu.states.cpu(), cpu.states)
+
+
+def _edge_states(states, inc, kmax):
+    """Every second row's low counter at 2^32 - 1 or at 2^32 - 1 - k inc
+    or 2^32 - k inc (k <= kmax: each carries into word 13 at a replica
+    advance), every seventh high counter at 2^32 - 1 (word 13 wraps)."""
+    m32 = 0xFFFFFFFF
+    lows = [m32, *((m32 - k * inc) & m32 for k in range(kmax + 1)),
+            *((m32 + 1 - k * inc) & m32 for k in range(1, kmax + 1))]
+    s = states.clone()
+    rows = torch.arange(0, s.shape[0], 2, device=s.device)
+    s[rows, 12] = torch.tensor(lows, device=s.device)[rows % len(lows)]
+    s[::7, 13] = m32
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 5])
+def test_csprng_kernels_match_plain_on_card(card, B, monkeypatch):
+    """R1-R4 against their plain versions on the card on edge counters:
+    the single forms and the batch forms of B replicas (R2 + R3 of
+    ``encrypt_noise``, R4 of ``randround``), rows not a multiple of the
+    kernels' block, 62- and 30-bit moduli near their tops; every draw one
+    launch, equal samples and equal states after.  A generator on the card
+    then draws through the kernels only: the plain word path raises if it
+    runs on a card tensor."""
+    from tiberate_tpu_torch.ops import csprng_kernels as ck
+    from tiberate_tpu_torch.rng import csprng as tcs
+
+    N, C = 1 << 10, 5      # L = 256 rows a channel; R4's N/16 = 64 rows
+    gen = Csprng(num_coefs=N, num_channels=[C], num_repeating_channels=2,
+                 seed=7, nonce=3, device=card)
+    L, inc = gen.L, gen.inc
+    states = _edge_states(gen.states, inc, 2 * B + 1)
+    lo, hi, depth = gen._btree_lo, gen._btree_hi, gen.tree_depth
+    q = torch.tensor([(1 << 62) - 57, (1 << 30) - 35, 3, (1 << 61) - 1,
+                      (1 << 30) - 1, (1 << 62) - 1], device=card)
+    rng = np.random.default_rng(B)
+    coefs = rng.uniform(-2.0**40, 2.0**40, (B, 16 * 61))
+    coefs[:, ::5] = np.floor(coefs[:, ::5]) + rng.integers(
+        0, 1 << 32, coefs[:, ::5].shape) / 2.0**32
+    coefs[:, 1::5] = np.nextafter(coefs[:, 1::5], np.inf)
+    coefs[:, 2::7], coefs[:, 3::7] = 0.0, -0.0
+    coefs[:, 4::9] = -0.5 - np.arange(coefs[:, 4::9].shape[1])
+    coefs = torch.from_numpy(coefs).to(card)
+    cases = {
+        "chacha_words": (ck.chacha_words, (3, 3 + 5 * 61, inc)),
+        "chacha_randint": (ck.chacha_randint, (7, 6 * L + 7, q, -1, inc)),
+        "chacha_dgauss": (ck.chacha_dgauss, (5 * L, 7 * L, lo, hi, depth,
+                                             inc)),
+        "encrypt_noise": (ck.encrypt_noise, (5 * L, L, lo, hi, depth, 2, B,
+                                             inc)),
+        "chacha_randround": (ck.chacha_randround, (5, coefs, inc)),
+    }
+    for name, (fn, args) in cases.items():
+        a, b = states.clone(), states.clone()
+        before = dict(K.LAUNCHES)
+        got = fn(a, *args)
+        want = getattr(ck, name + "_plain")(b, *args)
+        torch.cuda.synchronize()
+        made = {k: K.LAUNCHES[k] - before[k] for k in ck.KERNELS
+                if K.LAUNCHES[k] != before[k]}
+        assert made == ({"chacha_randint": 1, "chacha_dgauss": 1}
+                        if name == "encrypt_noise" else {name: 1}), name
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and torch.equal(g, w), name
+        assert torch.equal(a, b), name
+
+    def card_words(x, *args):
+        if x.device.type == "cuda":
+            raise AssertionError("a card draw ran the plain word path")
+        return plain_block(x, *args)
+
+    plain_block = ck.chacha20_block
+    monkeypatch.setattr(ck, "chacha20_block", card_words)
+    monkeypatch.setattr(tcs, "chacha20_block", card_words)
+    before = dict(K.LAUNCHES)
+    gen.randbytes(repeats=1)
+    gen.randint(amax=q.tolist(), repeats=2)
+    gen.discrete_gaussian(repeats=2)
+    gen.encrypt_noise_batch(B)
+    gen.randround(coefs.new_zeros(N))
+    gen.randround_batch(coefs.new_zeros((B, N)))
+    torch.cuda.synchronize()
+    assert {k: K.LAUNCHES[k] - before[k] for k in ck.KERNELS} == {
+        "chacha_words": 1, "chacha_randint": 2, "chacha_dgauss": 2,
+        "chacha_randround": 2}
+
+
+@pytest.mark.cuda
+def test_csprng_wrappers_refuse_bad_operands_on_card(card):
+    """What the CSPRNG kernels do not read raises before a launch: states
+    of another dtype, not contiguous or not 16-byte aligned, a row range
+    outside them, an operand on another device, a wrong tree, a counter
+    step past 32 bits."""
+    from tiberate_tpu_torch.ops import csprng_kernels as ck
+
+    gen = Csprng(num_coefs=1 << 8, num_channels=[2], seed=1, device=card)
+    st, rows = gen.states, gen.states.shape[0]
+    lo, hi = gen._btree_lo, gen._btree_hi
+    q = torch.tensor([97], device=card)
+    shifted = torch.zeros(rows * 16 + 1, dtype=torch.int64,
+                          device=card)[1:].view(rows, 16)
+    coefs = torch.zeros((2, 256), dtype=torch.float64, device=card)
+    bad = [
+        (TypeError, lambda: ck.chacha_words(st.int(), 0, 4, 1)),
+        (ValueError, lambda: ck.chacha_words(st.t().contiguous().t(), 0, 4,
+                                             1)),
+        (ValueError, lambda: ck.chacha_words(shifted, 0, 4, 1)),
+        (ValueError, lambda: ck.chacha_words(st, 0, rows + 1, 1)),
+        (OverflowError, lambda: ck.chacha_words(st, 0, 4, 1 << 32)),
+        (ValueError, lambda: ck.chacha_randint(st, 0, 4, q.cpu(), 0, 1)),
+        (TypeError, lambda: ck.chacha_randint(st, 0, 4, q.int(), 0, 1)),
+        (ValueError, lambda: ck.chacha_dgauss(st, 0, 4, lo[:7], hi[:7], 5,
+                                              1)),
+        (ValueError, lambda: ck.chacha_dgauss(st, 0, 4, lo.cpu(), hi, 5,
+                                              1)),
+        (OverflowError, lambda: ck.encrypt_noise(st, 0, 64, lo, hi, 5, 2,
+                                                 1 << 12, 1 << 20)),
+        (ValueError, lambda: ck.chacha_randround(st, rows - 8, coefs, 1)),
+        (TypeError, lambda: ck.chacha_randround(st, 0, coefs.float(), 1)),
+    ]
+    before = st.clone()
+    K.reset_launch_counts()
+    for err, call in bad:
+        with pytest.raises(err):
+            call()
+    assert sum(K.LAUNCHES.values()) == 0
+    assert torch.equal(st, before)
 
 
 @pytest.mark.cuda

@@ -207,3 +207,19 @@ def test_bound_takes_the_larger_term():
     b = roofline.bound(3.35e9, 2 * 10**9, 1e12)
     assert b["bound_ms"] == pytest.approx(2.0)
     assert b["bound_by"] == "operations" and b["redc"] == 2 * 10**9
+
+
+def test_csprng_bounds():
+    """R1-R4: 128 bytes a base row read, 16 a stepped row written, the
+    samples and other inputs once; the issue term is rows x replicas x
+    SASS instructions over 32 lanes at 132 x 4 warp issues a cycle."""
+    assert roofline.csprng_bytes(10, 4, 320, 64) == 1280 + 64 + 320 + 64
+    assert roofline.warp_issue_per_s(1e9) == 528e9
+    b = roofline.issue_bound(3.35e9, 528 * 32 * 10**6, 2000, 1e9)
+    assert b["bytes_bound_ms"] == pytest.approx(1.0)
+    assert b["compute_bound_ms"] == pytest.approx(2000.0)
+    assert b["bound_by"] == "operations" and b["bound_ms"] == b[
+        "compute_bound_ms"]
+    b = roofline.issue_bound(3.35e12, 10, None, 1e9)
+    assert b["bound_ms"] == pytest.approx(1000.0)
+    assert b["bound_by"] == "bytes" and b["compute_bound_ms"] is None

@@ -2,7 +2,7 @@
 
 ``nvcc`` compiles each source into an object file (``tensor.cu``,
 ``keyswitch.cu`` and ``glue.cu`` once per lane, ``ntt.cu`` once per lane
-and direction),
+and direction, ``fold_probe.cu`` and ``csprng.cu`` once),
 all at once in parallel processes, and links them into one shared library
 with a plain C interface under ``tiberate_tpu_torch/_build/`` (named by a
 hash of the sources, so an edited source is rebuilt); ``ctypes`` loads
@@ -21,7 +21,8 @@ import subprocess
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("ntt.cu", "tensor.cu", "keyswitch.cu", "glue.cu", "fold_probe.cu")
+SOURCES = ("ntt.cu", "tensor.cu", "keyswitch.cu", "glue.cu", "fold_probe.cu",
+           "csprng.cu")
 HEADERS = ("mont.cuh", "ntt.cuh")
 # (source, extra nvcc flags) per object file: ntt.cu, tensor.cu and
 # keyswitch.cu instantiate their kernels for every logN, so each lane (and
@@ -31,11 +32,12 @@ UNITS = (*(("ntt.cu", (f"-DTT_LANE={lane}", f"-DTT_FWD={fwd}"))
          *((src, (f"-DTT_LANE={lane}",))
            for src in ("tensor.cu", "keyswitch.cu", "glue.cu")
            for lane in (62, 30)),
-         ("fold_probe.cu", ()))
+         ("fold_probe.cu", ()), ("csprng.cu", ()))
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _L = ctypes.c_longlong
 
 # The kernels of the cc_mult path: C entry point of the 62-bit lane ->
@@ -65,6 +67,12 @@ _SIGNATURES = {
     "tt_fold_shoup": [_P, _P, _L, _L, _L, _L, _I, _P],
     "tt_fold_redc": [_P, _P, _L, _L, _L, _L, _I, _P],
     "tt_fold_redc_30": [_P, _P, _L, _I, _I, _I, _I, _P],
+    # the CSPRNG (csprng.cu, one lane): counter advances as unsigned int
+    "tt_chacha_words": [_P, _I, _U, _P, _P],
+    "tt_chacha_randint": [_P, _I, _I, _U, _U, _U, _I, _I, _P, _L, _P, _P],
+    "tt_chacha_dgauss": [_P, _I, _I, _U, _U, _I, _U, _U, _P, _P, _I, _P,
+                         _P],
+    "tt_chacha_randround": [_P, _I, _I, _U, _U, _P, _P, _P],
 }
 
 _lib = None

@@ -11,6 +11,13 @@ Two terms, the larger of which bounds the call:
   datasheet figure: a 62-bit REDC is about twenty 32-bit integer
   multiply-adds, which no published peak states.
 
+The CSPRNG's kernels (R1-R4, ``csprng.cu``) do no REDC: their second
+term is instruction issue, the SASS instructions of one row's work (the
+block function and its samples, counted in the built kernel by
+``cuobjdump``) for every row and replica, one thread each, at the card's
+warp-issue rate (132 SMs x 4 schedulers, one warp instruction a cycle
+each, at the SM clock).
+
 This is the counterpart of the VPU term of the JAX package's
 compute-aware roofline (``bench.py::_roofline_ct_per_s``), whose rate the
 TPU probe measured in the same way.
@@ -25,6 +32,9 @@ channel costs nothing.
 """
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM datasheet, at the 700 W power limit
+H100_SMS = 132             # H100 SXM datasheet
+SCHEDULERS_PER_SM = 4      # warp schedulers an SM, one issue a cycle each
+WARP = 32
 
 
 def _transform(logN: int) -> int:
@@ -134,6 +144,42 @@ def bound(nbytes: float, redc: int, redc_per_s: float) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     compute_ms = redc / redc_per_s * 1e3
     return dict(redc=redc, bytes_bound_ms=bytes_ms,
+                compute_bound_ms=compute_ms,
+                bound_ms=max(bytes_ms, compute_ms),
+                bound_by="bytes" if bytes_ms >= compute_ms else "operations")
+
+
+# The CSPRNG (R1-R4): bytes and instruction issue.
+
+
+def csprng_bytes(rows: int, stepped: int, out_bytes: int,
+                 in_bytes: int = 0) -> int:
+    """R1-R4: ``rows`` base state rows read once (16 int64 words), the
+    counters of ``stepped`` rows written (words 12 and 13), the samples
+    written once and any other input (coefficients, moduli, the CDT tree)
+    read once."""
+    return 128 * rows + 16 * stepped + out_bytes + in_bytes
+
+
+def warp_issue_per_s(sm_clock_hz: float) -> float:
+    """Warp instructions the card issues a second at ``sm_clock_hz``."""
+    return H100_SMS * SCHEDULERS_PER_SM * sm_clock_hz
+
+
+def issue_bound(nbytes: float, blocks: int, sass_per_block,
+                sm_clock_hz: float) -> dict:
+    """A CSPRNG call's two bounds in ms: its bytes, and ``blocks`` (rows x
+    replicas, one thread each) times ``sass_per_block`` SASS instructions
+    over 32 threads a warp at the warp-issue rate; ``sass_per_block`` None
+    (not measured) leaves the bytes alone."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    if sass_per_block is None:
+        return dict(warp_instructions=None, bytes_bound_ms=bytes_ms,
+                    compute_bound_ms=None, bound_ms=bytes_ms,
+                    bound_by="bytes")
+    warps = blocks * sass_per_block / WARP
+    compute_ms = warps / warp_issue_per_s(sm_clock_hz) * 1e3
+    return dict(warp_instructions=warps, bytes_bound_ms=bytes_ms,
                 compute_bound_ms=compute_ms,
                 bound_ms=max(bytes_ms, compute_ms),
                 bound_by="bytes" if bytes_ms >= compute_ms else "operations")

@@ -25,7 +25,11 @@ the samplers are ``int64`` tensors holding the unsigned bit pattern (torch
 has no ``uint64`` arithmetic): products wrap mod 2^64 as ``uint64`` does,
 every right shift of such a pattern is made logical with a mask, and the
 one unsigned comparison flips the sign bit on both sides.  The states live
-on ``device`` and every draw runs there, as plain torch ops.
+on ``device`` and every draw runs there: on the card as one kernel of
+``csrc/csprng.cu`` (R1-R4, :mod:`tiberate_tpu_torch.ops.csprng_kernels`),
+on the CPU as the plain torch functions of this module and of
+:mod:`~tiberate_tpu_torch.rng.chacha20`, which the kernels' wrappers run
+there.
 """
 
 import os
@@ -33,6 +37,7 @@ import os
 import numpy as np
 import torch
 
+from tiberate_tpu_torch.ops import csprng_kernels as ck
 from tiberate_tpu_torch.rng.chacha20 import (
     M32,
     NOTHING_UP_MY_SLEEVE,
@@ -129,9 +134,10 @@ def _dgauss_from_words(words, btree_lo, btree_hi, depth: int):
 
 def _encrypt_noise_core(rows_t, rows_u, btree_lo, btree_hi, amax: int,
                         B: int, depth: int, inc: int):
-    """Device core of :meth:`Csprng.encrypt_noise_batch`: ChaCha the
-    B-replicated counter trajectories of the two repeating channels (one
-    block call for all of them) and sample.  A k-fold counter advance as
+    """The plain version of :meth:`Csprng.encrypt_noise_batch`'s draws
+    (``ops.csprng_kernels.encrypt_noise`` runs it on CPU tensors): ChaCha
+    the B-replicated counter trajectories of the two repeating channels
+    (one block call for all of them) and sample.  A k-fold counter advance as
     ONE 32-bit add carries exactly like k sequential ``step_counter``
     calls while ``k * inc < 2^32``."""
     if 2 * B * inc > M32:
@@ -260,11 +266,8 @@ class Csprng(RandNumGen):
         return self.states.reshape(-1, self.L, 16)
 
     def _chacha_and_step(self, r0, r1):
-        """ChaCha state rows [r0, r1); step their counters."""
-        target = self.states[r0:r1]
-        words = chacha20_block(target)
-        self.states[r0:r1] = step_counter(target, self.inc)
-        return words
+        """ChaCha state rows [r0, r1); step their counters (R1)."""
+        return ck.chacha_words(self.states, r0, r1, self.inc)
 
     def _generate(self, start_channel, end_channel):
         """ChaCha the selected channel rows; step their counters."""
@@ -302,24 +305,24 @@ class Csprng(RandNumGen):
         nch = len(amax) - repeats  # non-repeating channels used
         start = self.total_num_channels - nch
         end = self.total_num_channels + repeats
-        words = self._generate(start, end)
-        q_rows = torch.tensor([int(a) for a in amax], dtype=_I64,
-                              device=self.device).repeat_interleave(self.L)
-        samples = _randint_from_words(words, q_rows, int(shift))
+        q = ck.device_table([int(a) for a in amax], self.device)
+        samples = ck.chacha_randint(self.states, start * self.L,
+                                    end * self.L, q, int(shift), self.inc)
         return samples.reshape(-1, self.num_coefs)
 
     def discrete_gaussian(self, non_repeats=0, repeats=1):
         nch = non_repeats
         start = self.total_num_channels - nch
         end = self.total_num_channels + repeats
-        words = self._generate(start, end)
-        samples = _dgauss_from_words(
-            words, self._btree_lo, self._btree_hi, self.tree_depth
+        samples = ck.chacha_dgauss(
+            self.states, start * self.L, end * self.L, self._btree_lo,
+            self._btree_hi, self.tree_depth, self.inc,
         )
         return samples.reshape(-1, self.num_coefs)
 
     def encrypt_noise_batch(self, B: int, amax: int = 2):
-        """Noise draws for B encryptions in one ChaCha call.
+        """Noise draws for B encryptions in one ChaCha call (on the card,
+        one R2 and one R3 launch).
 
         Bit-identical to B sequential iterations of the encrypt loop's
         draw pair ``(discrete_gaussian(repeats=2),
@@ -329,24 +332,17 @@ class Csprng(RandNumGen):
         the stored states advanced to exactly where call k would have
         found them.  Returns ``(e [B, 2, N], v [B, N])``, int64.
         """
-        L = self.L
-        r0 = self.repeating_start
-        rows_t = self.states[r0 : r0 + L]
-        rows_u = self.states[r0 + L : r0 + 2 * L]
-        e, v, new_t, new_u = _encrypt_noise_core(
-            rows_t, rows_u, self._btree_lo, self._btree_hi, int(amax),
-            B=B, depth=self.tree_depth, inc=self.inc,
+        return ck.encrypt_noise(
+            self.states, self.repeating_start, self.L, self._btree_lo,
+            self._btree_hi, self.tree_depth, int(amax), B, self.inc,
         )
-        self.states[r0 : r0 + L] = new_t
-        self.states[r0 + L : r0 + 2 * L] = new_u
-        return e.reshape(B, 2, self.num_coefs), v.reshape(B, self.num_coefs)
 
     def randround(self, coef):
         """Stochastically round f64 coefficients [N] on the device, against
         the first N/16 state rows as the threshold stream; returns int64
         [N] on the device."""
-        words = self._chacha_and_step(0, self.num_coefs // 16)
-        return _randround_core(self._f64(coef), words)
+        coef = self._f64(coef).reshape(1, -1).contiguous()
+        return ck.chacha_randround(self.states, 0, coef, self.inc)[0]
 
     def randround_batch(self, coefs):
         """Stochastically round a batch of f64 coefficients [B, N] in one
@@ -359,9 +355,5 @@ class Csprng(RandNumGen):
         if B * self.inc > M32:
             raise OverflowError(f"B * inc = {B * self.inc} exceeds the "
                                 f"32-bit counter step")
-        L16 = self.num_coefs // 16
-        base = self.states[:L16]
-        ks = torch.arange(B, dtype=_I64, device=self.device)[:, None]
-        words = chacha20_block(step_counter(base, ks * self.inc))
-        self.states[:L16] = step_counter(base, B * self.inc)
-        return _randround_core(coefs.reshape(-1), words).reshape(B, -1)
+        coefs = coefs.reshape(B, -1).contiguous()
+        return ck.chacha_randround(self.states, 0, coefs, self.inc)

@@ -4,7 +4,10 @@ The torch counterpart of ``tiberate_tpu/utils/trace.py``:
 
 * :func:`profile`: a context manager around ``torch.profiler.profile``
   over the CPU and, where a card is present, CUDA activities; on exit it
-  writes a chrome trace (``trace_<pid>_<n>.json``) into ``logdir``;
+  writes a chrome trace (``trace_<pid>_<n>.json``) into ``logdir``.  The
+  profiler runs one warm-up step first, whose records it discards: on a
+  card the first launches after tracing starts can go unrecorded, so the
+  caller's code runs only once tracing is live;
 * :func:`annotate`: a named region inside a profile
   (``torch.profiler.record_function``), also an NVTX range when a card is
   present.
@@ -22,7 +25,7 @@ import tempfile
 import torch
 from torch.profiler import ProfilerActivity
 from torch.profiler import profile as _torch_profile
-from torch.profiler import record_function
+from torch.profiler import record_function, schedule
 
 _traces = itertools.count()
 
@@ -43,7 +46,13 @@ def profile(logdir: str | None = None):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with _torch_profile(activities=activities) as prof:
+    warm_then_record = schedule(wait=0, warmup=1, active=1, repeat=1)
+    with _torch_profile(activities=activities,
+                        schedule=warm_then_record) as prof:
+        if torch.cuda.is_available():
+            torch.zeros(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+        prof.step()
         try:
             yield path
         finally:

@@ -72,6 +72,7 @@ from tiberate_tpu_torch.typing import (
     register_default_engine,
 )
 from tiberate_tpu_torch.utils import encoding as codec
+from tiberate_tpu_torch.utils import trace
 from tiberate_tpu_torch.utils.massive import decompose_rot_offsets
 
 logger = logging.getLogger("tiberate_tpu_torch")
@@ -419,25 +420,32 @@ def _switcher_body(a, ksk_parts, parts, lp_sp, lp_ord, PiRs, lvl, S,
 
 def _switch_key_core(ct0, a, ksk_parts, parts, lp_sp, lp_ord, PiRs, lvl, S,
                      exit_ntt, parts_fused=None):
-    """switch_key: new ct0 = ct0 + c0, new ct1 = c1."""
-    c0, c1 = _switcher_body(a, ksk_parts, parts, lp_sp, lp_ord, PiRs, lvl,
-                            S, exit_ntt, parts_fused=parts_fused)
-    new0 = mont.reduce_2q(mont.mont_add(ct0, c0, lp_ord.pack), lp_ord.pack)
+    """switch_key: new ct0 = ct0 + c0, new ct1 = c1 (the spans
+    ``keyswitch`` and ``switch_key.close``)."""
+    with trace.annotate("keyswitch"):
+        c0, c1 = _switcher_body(a, ksk_parts, parts, lp_sp, lp_ord, PiRs,
+                                lvl, S, exit_ntt, parts_fused=parts_fused)
+    with trace.annotate("switch_key.close"):
+        new0 = mont.reduce_2q(mont.mont_add(ct0, c0, lp_ord.pack),
+                              lp_ord.pack)
     return new0, c1
 
 
 def _relin_core(d0, d1, d2, ksk_parts, parts, lp_sp, lp_ord, PiRs, lvl, S,
                 inpart=None, parts_fused=None):
-    """relinearize a triplet in the NTT domain -> (ct0, ct1)."""
+    """relinearize a triplet in the NTT domain -> (ct0, ct1) (the spans
+    ``keyswitch`` and ``relin.close``, the closing adds)."""
     d2_ntt = d2
     d0 = kern.intt(d0, lp_ord, "exit_reduce")
     d1 = kern.intt(d1, lp_ord, "exit_reduce")
     d2 = kern.intt(d2, lp_ord, "exit_reduce")
-    c0, c1 = _switcher_body(d2, ksk_parts, parts, lp_sp, lp_ord, PiRs, lvl,
-                            S, False, a_ntt=d2_ntt, inpart=inpart,
-                            parts_fused=parts_fused)
-    ct0 = mont.reduce_2q(d0 + c0, lp_ord.pack)
-    ct1 = mont.reduce_2q(d1 + c1, lp_ord.pack)
+    with trace.annotate("keyswitch"):
+        c0, c1 = _switcher_body(d2, ksk_parts, parts, lp_sp, lp_ord, PiRs,
+                                lvl, S, False, a_ntt=d2_ntt, inpart=inpart,
+                                parts_fused=parts_fused)
+    with trace.annotate("relin.close"):
+        ct0 = mont.reduce_2q(d0 + c0, lp_ord.pack)
+        ct1 = mont.reduce_2q(d1 + c1, lp_ord.pack)
     return ct0, ct1
 
 
@@ -1318,33 +1326,43 @@ class CkksEngine:
         one ``randround_batch``), one ``encrypt_noise_batch`` and one
         encrypt core on [B, C, N] (one launch of each kernel).  The
         ciphertexts are the bytes of sequential :meth:`encodecrypt` calls,
-        with the bias guard on or off."""
-        pk = pk or self.pk
-        if padding:
-            ms = [codec.padding(m, num_slots=self.num_slots) for m in ms]
-        ms = np.stack([np.asarray(m) for m in ms])
-        deviation = self.params.deviations[level]
-        C = self._channels(pk, level)
-        B = ms.shape[0]
-        scale = self.ckksCfg.scale
-        dc_rns = np.zeros((B, C), dtype=self.ckksCfg.numpy_dtype)
-        if self.bias_guard:
-            pts = codec.encode_batch(
-                ms, scale=scale, deviation=deviation, rng=self.rng,
-                norm=self.norm, return_without_scaling=True,
-            ).copy()
-            dc_integral = np.floor(pts[:, 0])
-            pts[:, 0] -= dc_integral
-            dc_rns = self._dc_residues(dc_integral, level, C)
-            pts = self.rng.randround_batch(pts * np.float64(scale))
-        else:
-            pts = codec.encode_batch(ms, scale=scale, deviation=deviation,
-                                     rng=self.rng, norm=self.norm)
-        e, v = self.rng.encrypt_noise_batch(B)
-        ct = self._encrypt(pts, dc_rns, e[:, 0], e[:, 1], v, pk, level)
-        return [Ciphertext(data=(self._shard(d0), self._shard(d1)),
-                           flags=ct._flags, level=level, **self._meta())
-                for d0, d1 in zip(*ct.data)]
+        with the bias guard on or off.  Traced as the span
+        ``encodecrypt_batch``, with the children ``encode`` (the host FFT
+        and the random rounding), ``draw`` (the noise) and ``encrypt``."""
+        with trace.annotate("encodecrypt_batch"):
+            pk = pk or self.pk
+            with trace.annotate("encode"):
+                if padding:
+                    ms = [codec.padding(m, num_slots=self.num_slots)
+                          for m in ms]
+                ms = np.stack([np.asarray(m) for m in ms])
+                deviation = self.params.deviations[level]
+                C = self._channels(pk, level)
+                B = ms.shape[0]
+                scale = self.ckksCfg.scale
+                dc_rns = np.zeros((B, C), dtype=self.ckksCfg.numpy_dtype)
+                if self.bias_guard:
+                    pts = codec.encode_batch(
+                        ms, scale=scale, deviation=deviation, rng=self.rng,
+                        norm=self.norm, return_without_scaling=True,
+                    ).copy()
+                    dc_integral = np.floor(pts[:, 0])
+                    pts[:, 0] -= dc_integral
+                    dc_rns = self._dc_residues(dc_integral, level, C)
+                    pts = self.rng.randround_batch(pts * np.float64(scale))
+                else:
+                    pts = codec.encode_batch(ms, scale=scale,
+                                             deviation=deviation,
+                                             rng=self.rng, norm=self.norm)
+            with trace.annotate("draw"):
+                e, v = self.rng.encrypt_noise_batch(B)
+            with trace.annotate("encrypt"):
+                ct = self._encrypt(pts, dc_rns, e[:, 0], e[:, 1], v, pk,
+                                   level)
+                return [Ciphertext(data=(self._shard(d0), self._shard(d1)),
+                                   flags=ct._flags, level=level,
+                                   **self._meta())
+                        for d0, d1 in zip(*ct.data)]
 
     def _decrypt_args(self, level):
         C = self._lp(level, False).num_channels
@@ -1468,7 +1486,9 @@ class CkksEngine:
         """Decrypt and decode same-level ciphertexts with one decrypt core
         on [B, C, N] and one vectorized decode; per message the result is
         :meth:`decryptcode`'s up to the decode's float summation order.
-        Returns [B, slots]."""
+        Returns [B, slots].  Traced as the span ``decryptcode_batch``, with
+        the children ``decrypt`` and ``decode`` (the copy to the host and
+        the host decode)."""
         sk = sk or self.sk
         _check_ntt_mont_state(sk)
         level = cts[0].level
@@ -1477,24 +1497,28 @@ class CkksEngine:
                                       to="decryptcode_batch")
         for ct in cts:
             _check_plain_state(ct)
-        C = self._lp(level, False).num_channels
-        core = functools.partial(
-            _decrypt_double_core,
-            torch.stack([ct.data[0][:C] for ct in cts]),
-            torch.stack([ct.data[1][:C] for ct in cts]),
-        )
-        scaled, dcs = self._decrypt_scaled(core, sk, level, final_round)
-
-        correction = self.params.corrections[level]
-        decoded = codec.decode_batch(
-            np.asarray(scaled.cpu()).reshape(len(cts), -1),
-            scale=self.ckksCfg.scale, correction=correction, norm=self.norm,
-        )[:, : self.num_slots]
-        if dcs is not None:
-            decoded = decoded + (
-                np.asarray(dcs, dtype=np.float64)[:, None]
-                / self.ckksCfg.scale * correction
-            )
+        with trace.annotate("decryptcode_batch"):
+            with trace.annotate("decrypt"):
+                C = self._lp(level, False).num_channels
+                core = functools.partial(
+                    _decrypt_double_core,
+                    torch.stack([ct.data[0][:C] for ct in cts]),
+                    torch.stack([ct.data[1][:C] for ct in cts]),
+                )
+                scaled, dcs = self._decrypt_scaled(core, sk, level,
+                                                   final_round)
+            with trace.annotate("decode"):
+                correction = self.params.corrections[level]
+                decoded = codec.decode_batch(
+                    np.asarray(scaled.cpu()).reshape(len(cts), -1),
+                    scale=self.ckksCfg.scale, correction=correction,
+                    norm=self.norm,
+                )[:, : self.num_slots]
+                if dcs is not None:
+                    decoded = decoded + (
+                        np.asarray(dcs, dtype=np.float64)[:, None]
+                        / self.ckksCfg.scale * correction
+                    )
         return decoded.real if is_real else decoded
 
     # ------------------------------------------------------------------
@@ -1538,37 +1562,46 @@ class CkksEngine:
         (``parallel/sharded.make_mult_step``).  Otherwise (optionally)
         :meth:`rescale`, the tensor product (K5) into a
         :class:`CiphertextTriplet`, and (optionally) :meth:`relinearize`.
-        Leading batch dimensions of the data are carried."""
-        a, b = self.align_level(a, b)
-        if pre_rescale and post_relin and (evk is None or evk is self.evk):
-            if a.level + 1 >= self.num_levels:
-                raise errors.MaximumLevelError(level=a.level,
-                                               level_max=self.num_levels)
-            from tiberate_tpu_torch.parallel import sharded
+        Leading batch dimensions of the data are carried.  Traced as the
+        span ``cc_mult``; the fused route's host work before the step is
+        its child ``cc_mult.prepare``."""
+        fused = pre_rescale and post_relin and (evk is None
+                                                or evk is self.evk)
+        with trace.annotate("cc_mult"):
+            with trace.annotate("cc_mult.prepare"):
+                a, b = self.align_level(a, b)
+                if fused:
+                    if a.level + 1 >= self.num_levels:
+                        raise errors.MaximumLevelError(
+                            level=a.level, level_max=self.num_levels)
+                    from tiberate_tpu_torch.parallel import sharded
 
-            evk = self.evk
-            step = self._fused_mult_step(a.level)
-            ct0, ct1 = step(a.data[0], a.data[1], b.data[0], b.data[1],
-                            sharded.prepare_step_ksk(self, a.level, ksk=evk,
-                                                     rns_shard=False),
-                            sharded.mult_step_params(self, a.level, ksk=evk,
-                                                     rns_shard=False))
-            return Ciphertext(data=(ct0, ct1), level=a.level + 1,
-                              **self._meta())
-        x, y = (self.rescale(a), self.rescale(b)) if pre_rescale else (a, b)
-        level = x.level
-        d = _ccmult_tensor_core(x.data[0], x.data[1], y.data[0], y.data[1],
-                                self._lp(level, False))
-        ct_mult = CiphertextTriplet(
-            data=d,
-            flags=FLAGS.NTT_STATE | FLAGS.MONTGOMERY_STATE
-            | FLAGS.NEED_RELINERIZE,
-            level=level,
-            **self._meta(),
-        )
-        if post_relin:
-            ct_mult = self.relinearize(ct_mult, evk or self.evk)
-        return ct_mult
+                    evk = self.evk
+                    step = self._fused_mult_step(a.level)
+                    ksk = sharded.prepare_step_ksk(self, a.level, ksk=evk,
+                                                   rns_shard=False)
+                    prm = sharded.mult_step_params(self, a.level, ksk=evk,
+                                                   rns_shard=False)
+            if fused:
+                ct0, ct1 = step(a.data[0], a.data[1], b.data[0], b.data[1],
+                                ksk, prm)
+                return Ciphertext(data=(ct0, ct1), level=a.level + 1,
+                                  **self._meta())
+            x, y = ((self.rescale(a), self.rescale(b)) if pre_rescale
+                    else (a, b))
+            level = x.level
+            d = _ccmult_tensor_core(x.data[0], x.data[1], y.data[0],
+                                    y.data[1], self._lp(level, False))
+            ct_mult = CiphertextTriplet(
+                data=d,
+                flags=FLAGS.NTT_STATE | FLAGS.MONTGOMERY_STATE
+                | FLAGS.NEED_RELINERIZE,
+                level=level,
+                **self._meta(),
+            )
+            if post_relin:
+                ct_mult = self.relinearize(ct_mult, evk or self.evk)
+            return ct_mult
 
     def square(self, ct: Ciphertext, evk: EvaluationKey = None, *,
                pre_rescale=True, post_relin=True):
@@ -1613,16 +1646,19 @@ class CkksEngine:
     @_mesh_op("_switch_key_mesh")
     def switch_key(self, ct: Ciphertext, ksk: KeySwitchKey) -> Ciphertext:
         """Re-encrypt ``ct`` from ``ksk``'s source key to its target key
-        (``create_key_switching_key(sk_from, sk_to)``)."""
+        (``create_key_switching_key(sk_from, sk_to)``).  Traced as the
+        span ``switch_key``."""
         level = ct.level
-        ksk_parts, parts = self._ksk_args(ksk, level)
-        new0, new1 = _switch_key_core(
-            ct.data[0], ct.data[1], ksk_parts, parts,
-            self._lp(level, True), self._lp(level, False),
-            tuple(self.params.PiRs[level]), level,
-            self.ckksCfg.num_special_primes, ct.has_flag(FLAGS.NTT_STATE),
-            parts_fused=self._ksk_parts_fused(ksk, level),
-        )
+        with trace.annotate("switch_key"):
+            ksk_parts, parts = self._ksk_args(ksk, level)
+            new0, new1 = _switch_key_core(
+                ct.data[0], ct.data[1], ksk_parts, parts,
+                self._lp(level, True), self._lp(level, False),
+                tuple(self.params.PiRs[level]), level,
+                self.ckksCfg.num_special_primes,
+                ct.has_flag(FLAGS.NTT_STATE),
+                parts_fused=self._ksk_parts_fused(ksk, level),
+            )
         return Ciphertext(data=(new0, new1), flags=ct._flags, level=level,
                           **self._meta())
 
@@ -1706,12 +1742,15 @@ class CkksEngine:
                       post_key_switching=True) -> Ciphertext:
         """Rotate the slots by ``rotk.delta``: the Galois permutation of
         both polynomials, then (by default) the keyswitch back to the
-        engine's key."""
-        rotated = self._permute(
-            ct, codec.rotate_leap(rotk.delta, self.params.N))
-        if post_key_switching:
-            rotated = self.switch_key(rotated, rotk)
-        return rotated
+        engine's key.  Traced as the span ``rotate_single``, with the
+        children ``rotate.permute`` and ``switch_key``."""
+        with trace.annotate("rotate_single"):
+            with trace.annotate("rotate.permute"):
+                rotated = self._permute(
+                    ct, codec.rotate_leap(rotk.delta, self.params.N))
+            if post_key_switching:
+                rotated = self.switch_key(rotated, rotk)
+            return rotated
 
     def rotate_offset(self, ct: Ciphertext, offset: int,
                       return_decomposed_offsets=False) -> Ciphertext:
@@ -1958,7 +1997,9 @@ class CkksEngine:
         return ct
 
     def sum(self, ct: Ciphertext) -> Ciphertext:
-        return self._fold_slots(ct)
+        """Every slot the sum of all; traced as the span ``sum``."""
+        with trace.annotate("sum"):
+            return self._fold_slots(ct)
 
     def mean(self, ct: Ciphertext, *, alpha=1) -> Ciphertext:
         return self._fold_slots(self.mc_mult(

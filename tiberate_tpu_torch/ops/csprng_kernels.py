@@ -31,7 +31,7 @@ import torch
 
 from tiberate_tpu_torch.ops import cuda_build
 from tiberate_tpu_torch.ops import ntt_kernels as kern
-from tiberate_tpu_torch.ops.ntt_kernels import _on_cpu, _ptr, _stream
+from tiberate_tpu_torch.ops.ntt_kernels import _done, _on_cpu, _ptr, _stream
 from tiberate_tpu_torch.rng import csprng as rc
 from tiberate_tpu_torch.rng.chacha20 import M32, chacha20_block, step_counter
 
@@ -98,11 +98,8 @@ def _row_ptr(states, r0):
 
 def _launch(name, *args):
     """Call the C entry point ``tt_<name>``; raise on a failed launch,
-    count a good one."""
-    rc_ = getattr(cuda_build.lib(), "tt_" + name)(*args)
-    if rc_ != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc_}")
-    LAUNCHES[name] += 1
+    count a good one (``ntt_kernels._done``)."""
+    _done(getattr(cuda_build.lib(), "tt_" + name)(*args), name)
 
 
 # (device, values) -> a device tensor of them: the q chains and the

@@ -31,7 +31,12 @@ operands (R = 2^62) launch the 62-bit entry point, int32 operands
 (R = 2^30, the 30-bit mode) the ``_30`` one.  An operand whose dtype is
 not the pack's raises; nothing is converted.  Every launch adds one to
 :data:`LAUNCHES` under the wrapper's name, with ``_30`` appended for the
-30-bit lane.
+30-bit lane (:func:`_done`, where every kernel of the port counts).  Each
+wrapper here launches two CUDA kernels, the transform's strided and
+contiguous passes (``_PASSES``); the glue's and the CSPRNG's one.  While
+a span of :mod:`tiberate_tpu_torch.utils.trace` is open, those CUDA
+kernels, or on a CPU tensor those the plain version stands in for, are
+counted in the open spans, and the first stamps the root span.
 
 The kernels run the plain versions' butterflies, twiddles, operand order
 and lazy reductions, so their outputs are bit-identical to the plain
@@ -45,6 +50,7 @@ import torch
 
 from tiberate_tpu_torch.ops import cuda_build, mont
 from tiberate_tpu_torch.ops import ntt as ntt_ops
+from tiberate_tpu_torch.utils import trace
 
 WRAPPERS = ("ntt", "intt", "ntt_keymul", "ntt_keymul_accum", "intt_pdiv",
             "ntt_tensor", "ntt_keymul_parts")
@@ -53,6 +59,7 @@ LANES = {torch.int64: "", torch.int32: "_30"}
 LAUNCHES = dict.fromkeys(
     (name + sfx for sfx in LANES.values() for name in WRAPPERS), 0)
 
+_PASSES = 2  # CUDA kernels a launch of one of the WRAPPERS runs
 _INTT_EPILOGUES = {"mont": 0, "exit": 1, "exit_reduce": 2}
 _MAX_ROWS = 65535  # a launch's grid.y: one block row per polynomial row
 _EPI_PDIV = 3
@@ -68,8 +75,12 @@ def reset_launch_counts():
 # ----------------------------------------------------------------------
 
 
-def _on_cpu(x) -> bool:
+def _on_cpu(x, kernels=1) -> bool:
+    """True for a CPU tensor: the wrapper runs its plain version in the
+    place of ``kernels`` CUDA kernels, which the open trace spans count."""
     if x.device.type == "cpu":
+        if trace._root is not None:
+            trace._launched(kernels)
         return True
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device} (cpu or cuda)")
@@ -92,12 +103,15 @@ def _entry(name, pack):
     return getattr(cuda_build.lib(), name + _lane(pack))
 
 
-def _done(rc, name, pack):
-    """Raise on a failed launch; count a good one under the lane's key."""
-    key = name + _lane(pack)
+def _done(rc, name, pack=None):
+    """Raise on a failed launch; count a good one under ``name``, with the
+    lane's suffix where the kernel has lanes (``pack``)."""
+    key = name if pack is None else name + _lane(pack)
     if rc != 0:
         raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
     LAUNCHES[key] += 1
+    if trace._root is not None:
+        trace._launched(_PASSES if name in WRAPPERS else 1)
 
 
 def _check(device, dtype, **tensors):
@@ -152,7 +166,7 @@ def ntt_plain(x, lp, enter: bool):
 
 def ntt(x, lp, enter: bool):
     """Forward NTT of ``x`` [..., C, N] (``enter``: x R first)."""
-    if _on_cpu(x):
+    if _on_cpu(x, _PASSES):
         return ntt_plain(x, lp, enter)
     C = lp.num_channels
     rows, logN = _geometry(x, C)
@@ -186,7 +200,7 @@ def intt_plain(x, lp, epilogue: str):
 def intt(x, lp, epilogue: str):
     """Inverse NTT x N^-1 of ``x`` [..., C, N]; ``epilogue`` "mont" keeps
     R, "exit" strips it, "exit_reduce" also reduces to [0, q)."""
-    if _on_cpu(x):
+    if _on_cpu(x, _PASSES):
         return intt_plain(x, lp, epilogue)
     if epilogue not in _INTT_EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
@@ -217,7 +231,7 @@ def ntt_keymul_plain(x, lp, keys, enter: bool):
 def ntt_keymul(x, lp, keys, enter: bool):
     """``t_i = NTT(x) * keys[i] * R^-1`` for one or two ``[C, N]`` keys
     (NTT-domain, Montgomery form)."""
-    if _on_cpu(x):
+    if _on_cpu(x, _PASSES):
         return ntt_keymul_plain(x, lp, keys, enter)
     if len(keys) not in (1, 2):
         raise ValueError("ntt_keymul takes one or two keys")
@@ -279,7 +293,7 @@ def ntt_keymul_accum(x, lp, keys, acc, skip):
     stay as they were and are not transformed: the in-part shortcut, whose
     products the caller seeded into ``acc``.  Returns ``acc``.
     """
-    if _on_cpu(x):
+    if _on_cpu(x, _PASSES):
         return ntt_keymul_accum_plain(x, lp, keys, acc, skip)
     C = lp.num_channels
     rows, logN = _geometry(x, C)
@@ -346,7 +360,7 @@ def intt_pdiv(acc, p0, lp_ord, PiRs):
     ``lp_ord.pdc`` (see ``CkksParams``); the plain version runs the
     successive chain with ``PiRs``.  Both give the canonical residue.
     """
-    if _on_cpu(acc):
+    if _on_cpu(acc, _PASSES):
         return intt_pdiv_plain(acc, p0, lp_ord, PiRs)
     C = lp_ord.num_channels
     S = p0.shape[-2]
@@ -393,7 +407,7 @@ def ntt_tensor_plain(x0, x1, y0, y1, lp):
 
 def ntt_tensor(x0, x1, y0, y1, lp):
     """Enter-NTT all four and return ``(x0y0, x0y1 + x1y0, x1y1)``."""
-    if _on_cpu(x0):
+    if _on_cpu(x0, _PASSES):
         return ntt_tensor_plain(x0, x1, y0, y1, lp)
     C = lp.num_channels
     rows, logN = _geometry(x0, C)
@@ -490,7 +504,7 @@ def ntt_keymul_parts(st, ec, alphas, keys, lp_sp, tables=None):
     when None; callers that switch with one key many times cache them).
     Returns the two lazy accumulators, each [..., C_sp, N].
     """
-    if _on_cpu(st):
+    if _on_cpu(st, _PASSES):
         return ntt_keymul_parts_plain(st, ec, alphas, keys, lp_sp)
     C_sp = lp_sp.num_channels
     n_parts, amax, N = st.shape[-3:]

@@ -41,6 +41,7 @@ from tiberate_tpu_torch.ops import mont
 from tiberate_tpu_torch.ops import ntt_kernels as kern
 from tiberate_tpu_torch.parallel import coef_sharded as cs
 from tiberate_tpu_torch.parallel import mesh as meshlib
+from tiberate_tpu_torch.utils import trace
 
 
 def _rns_axis(eng, work_level):
@@ -227,7 +228,8 @@ def make_mult_step(eng, level: int = 0, pre_rescale: bool = True,
     result is at ``level + 1`` with ``pre_rescale``, else at ``level``.
     ``ksk_parts`` from :func:`prepare_step_ksk`; ``prm`` from
     :func:`mult_step_params`.  ``rns_shard=False`` forces the single-device
-    route.
+    route, traced as the spans ``step.rescale``, ``step.tensor`` and
+    ``step.relin``.
     """
     S = eng.ckksCfg.num_special_primes
     round_at = eng.params.q[level] // 2
@@ -240,13 +242,16 @@ def make_mult_step(eng, level: int = 0, pre_rescale: bool = True,
             lp = prm["lp_ord"]
             if pre_rescale:
                 rs = prm["rescale_scale"]
-                a0, a1, b0, b1 = (_rescale_core(x, rs, lp, round_at)
-                                  for x in (a0, a1, b0, b1))
-            d0, d1, d2 = _ccmult_tensor_core(a0, a1, b0, b1, lp)
-            return _relin_core(d0, d1, d2, ksk_parts, prm["parts"],
-                               prm["lp_sp"], lp, prm["PiRs"], work_level, S,
-                               inpart=prm["inpart"],
-                               parts_fused=prm["parts_fused"])
+                with trace.annotate("step.rescale"):
+                    a0, a1, b0, b1 = (_rescale_core(x, rs, lp, round_at)
+                                      for x in (a0, a1, b0, b1))
+            with trace.annotate("step.tensor"):
+                d0, d1, d2 = _ccmult_tensor_core(a0, a1, b0, b1, lp)
+            with trace.annotate("step.relin"):
+                return _relin_core(d0, d1, d2, ksk_parts, prm["parts"],
+                                   prm["lp_sp"], lp, prm["PiRs"], work_level,
+                                   S, inpart=prm["inpart"],
+                                   parts_fused=prm["parts_fused"])
         return step
 
     caxis = _coef_axis(eng)

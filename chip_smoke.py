@@ -24,7 +24,9 @@ Phases (any failure exits non-zero):
    the signed (negative) words of a rotated and of a conjugated secret
    key; and the SASS of the register-tiled core
    (``cuobjdump``): the instructions per butterfly of the inverse
-   contiguous pass and of K5's and K6's contiguous passes;
+   contiguous pass, of K5's and K6's contiguous passes and of the strided
+   passes of K1/K3, K5 and K6 at logN 15 and 17, and of one step of the
+   fold probe's REDC chain in each lane;
 2d. the ChaCha20 CSPRNG on the card against the same generator on the
    CPU, with the logN15 and the logN17 engine's channel model and one
    (seed, nonce): ``randbytes`` and ``randint`` over the full q chain,
@@ -733,35 +735,60 @@ def check_small(kern, mod, CkksParams, toy_config):
     return n
 
 
-# contiguous-pass kernel -> the butterflies one thread runs in the code its
-# SASS holds, per stage (4 at R = 8): the inverse pass one line; the K6
-# pass its part loop's body once (one part); the K5 pass its four lines
-CONTIG_SASS = {"inv_contig_k": 4, "parts_contig_k": 4, "tensor_contig_k": 16}
+# pass kernel -> the lines one thread runs in the code its SASS holds: the
+# contiguous passes (R = 8, 4 butterflies a stage) the inverse pass one
+# line, the K6 pass its part loop's body once (one part), the K5 pass its
+# four lines; the strided passes (R = 2^strided_rlog) one line, with the x
+# R entry (K1, K5) or the extension's first digit and one iteration of its
+# digit loop (K6) in the same code
+PASS_SASS = {"inv_contig_k": (False, 1), "parts_contig_k": (False, 1),
+             "tensor_contig_k": (False, 4), "fwd_strided_k": (True, 1),
+             "parts_strided_k": (True, 1), "tensor_strided_k": (True, 1)}
 
 
-def contig_sass(cuda_build):
+def strided_rlog(L1, TC):
+    """csrc/ntt.cuh's strided_rlog: TT_RLOG (3), or more where a block
+    of TC columns would exceed TT_MAX_THREADS (512)."""
+    r = min(3, L1)
+    while (TC << (L1 - r)) > 512:
+        r += 1
+    return r
+
+
+def pass_butterflies(name, lane, logN):
+    """The butterflies one thread runs in a pass kernel's SASS
+    (PASS_SASS)."""
+    strided, lines = PASS_SASS[name]
+    L1 = logN // 2
+    if not strided:
+        return lines * 4 * (logN - L1)
+    TC = min(1 << (logN - L1), 128 // (8 if lane == 62 else 4))
+    return lines * (1 << (strided_rlog(L1, TC) - 1)) * L1
+
+
+def pass_sass(cuda_build):
     """{(kernel, lane, logN): (IMAD-class, all, butterflies)} for the
-    contiguous passes of CONTIG_SASS at logN 15 and 17: their SASS
-    instructions (loads, twiddle table, every butterfly, the exchanges,
-    products and stores; NOP left out) and the butterflies one thread runs
-    in that code.  None without ``cuobjdump``."""
-    sass = cuda_build.sass(*(f"{k}I{w}Li{n}E" for k in CONTIG_SASS
+    passes of PASS_SASS at logN 15 and 17: their SASS instructions (loads,
+    twiddle table, every butterfly, the exchanges, products and stores; NOP
+    left out) and the butterflies one thread runs in that code.  None
+    without ``cuobjdump``."""
+    sass = cuda_build.sass(*(f"{k}I{w}Li{n}E" for k in PASS_SASS
                              for w in "xi" for n in (15, 17)))
     if sass is None:
         return None
     out = {}
     for block in sass.split("Function : ")[1:]:
-        m = re.match(r"\S*?(" + "|".join(CONTIG_SASS)
+        m = re.match(r"\S*?(" + "|".join(PASS_SASS)
                      + r")I([xi])Li(1[57])E", block)
         if not m:
             continue
         ops = [op for op in re.findall(
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
             block) if op != "NOP"]
-        logN = int(m.group(3))
-        out[(m.group(1), 62 if m.group(2) == "x" else 30, logN)] = (
+        lane, logN = (62 if m.group(2) == "x" else 30), int(m.group(3))
+        out[(m.group(1), lane, logN)] = (
             sum(op.startswith(("IMAD", "IMUL")) for op in ops), len(ops),
-            CONTIG_SASS[m.group(1)] * (logN - logN // 2))
+            pass_butterflies(m.group(1), lane, logN))
     return out
 
 
@@ -2813,14 +2840,20 @@ def main():
     log(f"logN 4, 7, 10: {n_small} cases of the ntt.cu entries, K5, K6 "
         f"and G1-G3, both lanes, byte-identical to their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
-    sass = contig_sass(cuda_build)
+    sass = pass_sass(cuda_build)
     if sass is None:
-        log("SASS of the contiguous passes: not measured (no cuobjdump)")
+        log("SASS of the NTT passes: not measured (no cuobjdump)")
     for (name, bits, logN), (imad, total, bfly) in sorted(
             (sass or {}).items()):
         log(f"SASS {name} {bits}-bit logN{logN}: {total} instructions, "
             f"{imad} IMAD-class, for {bfly} butterflies a thread: "
             f"{total / bfly:.1f} ({imad / bfly:.1f} IMAD-class) a butterfly")
+    for mode in ("fold_redc", "fold_redc_30"):
+        step = probe[mode]["sass_step"]
+        log(f"SASS {mode}: one chain step (a REDC, the loop's counter, "
+            f"compare and branch) " + ("not measured" if step is None else
+                                       f"{step[1]} instructions, {step[0]} "
+                                       f"IMAD-class"))
 
     # 2d. the CSPRNG on the card against the CPU, and its kernels against
     # their plain versions; 2e. the pinned digests

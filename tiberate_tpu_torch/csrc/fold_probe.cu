@@ -15,24 +15,25 @@
 //                    every product but w x and t q fits 64 bits, and those
 //                    two are wanted mod 2^64, so no wide product is needed.
 //                    Bit-identical to the u32-pair chain for x, q < 2^61.
-//   tt_fold_redc     redc(x, w) of csrc/mont.cuh in the i64 lane (R = 2^62):
-//   tt_fold_redc_30  and in the i32 lane (R = 2^30) - the same device
-//                    functions every NTT kernel here inlines, so their rate
-//                    is the compute term of the port's roofline
+//   tt_fold_redc     redc_by(x, w) of csrc/mont.cuh in the i64 lane (R =
+//   tt_fold_redc_30  2^62) and in the i32 lane (R = 2^30) - the product by
+//                    a constant that every butterfly here inlines, so their
+//                    rate is the compute term of the port's roofline
 //                    (ops/roofline.py).
 //
 // w, w' (or k) and q are kernel arguments, never compile-time constants, so
-// nvcc cannot strength-reduce the multiplies; every result is stored, so
-// the chain is not dead code.  The chain loop is not unrolled (#pragma
-// unroll 1): its SASS body is one fold plus the loop's counter, compare and
-// branch, which fold_microbench counts.  What bounds it: instruction issue
-// and the integer multiply-add pipe that the IMAD-class instructions share
-// (a chain step is 18 IMAD-class of 41 instructions in the i64 REDC, 6 of
-// 14 in the i32 one), once the chain is long enough that the 16 (i64) or
-// 8 (i32) bytes an element moves are hidden; the microbench takes the rate
-// from two chain lengths so that the bytes and the launch cancel.  Each
-// element's chain is dependent; the block's 8.4 M elements keep every SM
-// at full occupancy, so other warps hide the multiply latency.  A
+// nvcc cannot strength-reduce the multiplies; every result is stored, so the
+// chain is not dead code.  The chain loop is not unrolled (#pragma unroll
+// 1): its SASS body is one fold plus the loop's counter, compare and branch,
+// which fold_microbench counts.  What bounds it: instruction issue and the
+// integer multiply-add pipe that the IMAD-class instructions share (a chain
+// step is 18 IMAD-class of 33 instructions in the i64 REDC, 41 with the REDC
+// of signed 128-bit halves, 6 of 14 in the i32 one; 568.1 against 535.7
+// G-fold/s on the H100, PERF.md), once the chain is long enough that the 16
+// (i64) or 8 (i32) bytes an element moves are hidden; the microbench takes
+// the rate from two chain lengths so that the bytes and the launch cancel.
+// Each element's chain is dependent; the block's 8.4 M elements keep every
+// SM at full occupancy, so other warps hide the multiply latency.  A
 // grid-stride loop over the block, not tuned.
 #include <cuda_runtime.h>
 
@@ -71,7 +72,7 @@ __global__ void fold_redc_kernel(const W* __restrict__ x, W* __restrict__ out,
          i < n; i += stride) {
         W v = x[i];
 #pragma unroll 1
-        for (int j = 0; j < K; ++j) v = redc(v, w, q, k);
+        for (int j = 0; j < K; ++j) v = redc_by(v, w, q, k);
         out[i] = v;
     }
 }

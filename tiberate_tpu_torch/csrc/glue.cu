@@ -22,9 +22,11 @@
 //     rows in registers and replays the successive division on them,
 //     writing the row each division subtracts, in division order.
 //
-// Every REDC is mont.cuh's exact signed redc().  The plain versions'
-// half-word REDC (ops/mont.py) equals it while the operand stays below
-// 2^62 (62-bit lane) or 2^30 (30-bit lane) in magnitude; the glue's
+// Every REDC is mont.cuh's redc_by(): a signed difference or digit by a
+// constant of the program's tables (the rescale scales, Y, L and PiRs,
+// each in [0, q)), exact for every value of the first operand.  The plain
+// versions' half-word REDC (ops/mont.py) equals it while the operand stays
+// below 2^62 (62-bit lane) or 2^30 (30-bit lane) in magnitude; the glue's
 // operands are differences of canonical residues and the Garner digits'
 // lazy sums, a few q at most (tests/test_torch_glue.py bounds them for
 // every preset).  The lazy row sums of G2 and every difference are formed
@@ -93,7 +95,8 @@ rescale_k(const W* __restrict__ rows, long long rows_bs,
         const int ch = r0 + i;
         if (ch < c) {
             const W q = qv[ch];
-            const W d = redc(wrap_sub(v[i], r), scale[ch], (U)q, (U)kv[ch]);
+            const W d =
+                redc_by(wrap_sub(v[i], r), scale[ch], (U)q, (U)kv[ch]);
             o[(size_t)i * N] = canon(wrap_add(d, up), q);
         }
     }
@@ -128,14 +131,15 @@ digits_k(const W* __restrict__ a, long long a_bs, W* __restrict__ st,
 #pragma unroll
     for (int i = 0; i + 1 < M; ++i) {
         if (i + 1 < alpha) {
-            const W y = redc(wrap_sub(v[i + 1], rows[i + 1]), Y[i],
-                             (U)q[i + 1], (U)k[i + 1]);
+            const W y = redc_by(wrap_sub(v[i + 1], rows[i + 1]), Y[i],
+                                (U)q[i + 1], (U)k[i + 1]);
             rows[i + 1] = y;
 #pragma unroll
             for (int r = i + 2; r < M; ++r)
                 if (r < alpha)
                     rows[r] = wrap_add(
-                        rows[r], redc(y, L[i * M + r], (U)q[r], (U)k[r]));
+                        rows[r],
+                        redc_by(y, L[i * M + r], (U)q[r], (U)k[r]));
         }
     }
     W* o = st + ((size_t)b * n_parts + p) * amax * N + n;
@@ -184,8 +188,8 @@ pdiv_p0_k(const W* __restrict__ cur, long long cur_bs, W* __restrict__ p0,
 #pragma unroll
             for (int j = 0; j < M; ++j)
                 if (j < top)
-                    v[j] = redc(tile_sub(v[j], r, (W)(2 * q[j])), pi.c[i][j],
-                                (U)q[j], (U)k[j]);
+                    v[j] = redc_by(tile_sub(v[j], r, (W)(2 * q[j])),
+                                   pi.c[i][j], (U)q[j], (U)k[j]);
         }
     }
 }

@@ -12,7 +12,8 @@
 // output chunk loops over the parts itself, in part order 0, 1, ... - the
 // order of the plain version, so the sum is deterministic and
 // bit-identical.  The digits are signed (the mixed-radix differences of
-// _pre_extend): redc() multiplies signed operands exactly (mont.cuh).
+// _pre_extend): redc_by() multiplies a signed digit by its constant
+// exactly (mont.cuh).
 //
 // Two lanes: tt_ntt_keymul_parts over i64 words (R = 2^62) and
 // tt_ntt_keymul_parts_30 over i32 words (R = 2^30), the single-lane
@@ -62,10 +63,13 @@
 // PERF.md).  Measured on the H100 (cuobjdump of the sm_90a build,
 // chip_smoke.py phase 2c): pass 2 at logN15, whose part loop's body runs
 // one part's 32 butterflies a thread with its two key products and adds,
-// is 3736 SASS instructions (1678 IMAD-class) in the 62-bit lane, 116.8 a
-// butterfly against the transforms' 68.3, and 1046 (428) in the 30-bit
-// lane, 32.7 a butterfly against 22.6: the products, adds and key loads
-// add about half again.
+// is 3041 SASS instructions (1422 IMAD-class) in the 62-bit lane, 95.0 a
+// butterfly against the transforms' 56.5 (3687, 1632, 115.2 and 68.3 with
+// the REDC of signed 128-bit halves, mont.cuh), and 1045 (428) in the
+// 30-bit lane, 32.7 a butterfly against 22.6: the products, adds and key
+// loads add about two thirds again.  Pass 1 is 82.6 a butterfly at
+// logN15 (99.9 before), the extension's first digit and one iteration of
+// its digit loop included.
 #include "ntt.cuh"
 
 // st [B, n_parts, amax, N] digits; ec [n_parts, C_sp, amax] extension
@@ -89,15 +93,17 @@ parts_strided_k(const W* __restrict__ st, const W* __restrict__ ec,
     const W* cst = ec + ((size_t)p * C_sp + c) * amax;
     fwd_strided_tile<W, LOGN>(
         [&](W(&v)[SC::R], const int(&xo)[SC::R]) {
+            // the digits are signed; Rs and L_enter are in [0, q)
             const W c0 = cst[0];
 #pragma unroll
-            for (int i = 0; i < SC::R; ++i) v[i] = redc(dig[xo[i]], c0, q, k);
+            for (int i = 0; i < SC::R; ++i)
+                v[i] = redc_by(dig[xo[i]], c0, q, k);
             for (int a = 1; a < alpha; ++a) {
                 const W* d = dig + ((size_t)a << LOGN);
                 const W ca = cst[a];
 #pragma unroll
                 for (int i = 0; i < SC::R; ++i)
-                    v[i] = tile_add(v[i], redc(d[xo[i]], ca, q, k), q2);
+                    v[i] = tile_add(v[i], redc_by(d[xo[i]], ca, q, k), q2);
             }
         },
         tmp + ((size_t)row << LOGN), psi + ((size_t)c << LOGN), q, k);

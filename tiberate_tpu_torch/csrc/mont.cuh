@@ -10,8 +10,7 @@
 // a shift.  Every kernel is a template on the word type W:
 //
 //   W = i64, R = 2^62 (the 62-bit mode):
-//     redc(a, b) = (a*b + m*q) >> 62,  m = ((a*b) mod 2^62) * k mod 2^62,
-//     in 128 bits;
+//     redc(a, b) = (a*b + m*q) >> 62,  m = ((a*b) mod 2^62) * k mod 2^62;
 //   W = i32, R = 2^30 (the 30-bit mode, q < 2^28):
 //     redc(a, b) = (a*b + m*q) >> 30,  m = ((a*b) mod 2^30) * k mod 2^30,
 //     in 64 bits.
@@ -22,6 +21,48 @@
 // engine feeds, including the negative digits of the keyswitch basis
 // extension and the rescale differences, so the kernels are bit-identical
 // to the plain torch versions.
+//
+// The 62-bit REDC forms neither m q's low word nor a 128-bit sum.  With P
+// = a*b, lo = P mod 2^64 and k4 = 4k mod 2^64:
+//
+//   redc(a, b) = floor(P / 2^62) + umulhi(lo * k4, q) + [lo * k4 != 0]
+//
+// because P + m q = 0 (mod 2^62), so the low 62 bits of P and of m q sum
+// to 0 (m = 0) or to 2^62 (the carry); 4m = lo * k4 (mod 2^64) needs no
+// mask, and umulhi(4m, q) = floor(m q / 2^62).  The sign costs no
+// correction of the high word: the product is taken of the biased words
+// a' = a + 2^63 and b' = b + 2^63, both in [0, 2^64), where
+//
+//   a' b' = a b + 2^63 (a + b) + 2^126,
+//
+// so floor(a' b' / 2^62) = floor(P / 2^62) + 2 (a + b) (mod 2^64) and the
+// low 62 bits, hence m, are P's.  redc() subtracts 2 (a + b) at the end:
+// one unsigned 64 x 64 -> 128 product, one low and one high 64-bit
+// product, no branch, and the exact value for every pair of i64 words.
+// Where one operand is a constant of the program's own tables, c in
+// [0, 2^63), redc_by(x, c) biases x alone and subtracts 2c: the same
+// value, fewer instructions.  (cuobjdump of the sm_90a build, one step of
+// the fold probe's chain with its loop's counter, compare and branch:
+// redc_by 33 SASS instructions, 18 IMAD-class, where the REDC with two
+// signed 128-bit halves was 41, 18; chip_smoke.py phase 2b, PERF.md.)
+//
+// The form each call site takes (the constant's range is the reason):
+//
+//   site                                  form      constant, its range
+//   butterflies (ntt.cuh: K1-K6, chain)   redc_by   twiddle psi / ipsi, [0, q)
+//   x R entry (K1, K3, K5 pass 1)         redc_by   Rs, [0, q) (R on a
+//                                                   coef shard)
+//   K6 extension (parts_strided_k)        redc_by   Rs / L_enter, [0, q)
+//   K2 / K4 epilogue (inv_strided_k)      redc_by   N^-1 R (or R), 1, pdc,
+//                                                   [0, q)
+//   fold probe (fold_probe.cu)            redc_by   w, [0, 2q) (checked by
+//                                                   ops/fold_probe.py)
+//   G1-G3 (glue.cu)                       redc_by   rescale scales, Y, L,
+//                                                   PiRs, [0, q)
+//   key products (K3, K3 chain, K6)       redc      keys are data
+//   K5's products (tensor_contig_k)       redc      both data
+//
+// The 30-bit lane's redc_by is its redc, unchanged.
 #pragma once
 
 typedef long long i64;
@@ -34,22 +75,28 @@ template <typename W> struct Lane;
 template <> struct Lane<i64> { typedef u64 U; };
 template <> struct Lane<i32> { typedef u32 U; };
 
-#define TT_MASK62 ((1ULL << 62) - 1)
 #define TT_MASK30 ((1U << 30) - 1)
 
+#define TT_BIAS (1ULL << 63)
+
+// floor(x y / 2^62) + floor(m q / 2^62) + [m != 0] (mod 2^64) for x, y in
+// [0, 2^64), m = (x y mod 2^62) k mod 2^62: the REDC of x y, unsigned
+__device__ __forceinline__ u64 redc_u(u64 x, u64 y, u64 q, u64 k) {
+    const unsigned __int128 p = (unsigned __int128)x * y;
+    const u64 m4 = (u64)p * (k << 2);
+    const u64 t = (u64)(((unsigned __int128)m4 * q) >> 64);
+    return (u64)(p >> 62) + t + (m4 != 0 ? 1ULL : 0ULL);
+}
+
+// every a, b
 __device__ __forceinline__ i64 redc(i64 a, i64 b, u64 q, u64 k) {
-    u64 lo = (u64)a * (u64)b;
-    u64 hi = __umul64hi((u64)a, (u64)b);
-    // signed 128-bit product from the unsigned one
-    hi -= (u64)((a >> 63) & b);
-    hi -= (u64)((b >> 63) & a);
-    u64 m = (lo * k) & TT_MASK62;
-    u64 mlo = m * q;
-    u64 mhi = __umul64hi(m, q);
-    u64 slo = lo + mlo;
-    u64 shi = hi + mhi + (slo < lo ? 1ULL : 0ULL);
-    // low 64 bits of the arithmetic shift of (shi:slo) by 62
-    return (i64)((shi << 2) | (slo >> 62));
+    return (i64)(redc_u((u64)a ^ TT_BIAS, (u64)b ^ TT_BIAS, q, k) -
+                 (((u64)a + (u64)b) << 1));
+}
+
+// every x; c in [0, 2^63)
+__device__ __forceinline__ i64 redc_by(i64 x, i64 c, u64 q, u64 k) {
+    return (i64)(redc_u((u64)x ^ TT_BIAS, (u64)c, q, k) - ((u64)c << 1));
 }
 
 // |a*b| < 2^58 and m*q < 2^58 on every input the engine feeds (|a|, |b| <
@@ -58,6 +105,10 @@ __device__ __forceinline__ i32 redc(i32 a, i32 b, u32 q, u32 k) {
     const i64 p = (i64)a * (i64)b;
     const u32 m = ((u32)p * k) & TT_MASK30;
     return (i32)((p + (i64)m * (i64)q) >> 30);
+}
+
+__device__ __forceinline__ i32 redc_by(i32 x, i32 c, u32 q, u32 k) {
+    return redc(x, c, q, k);
 }
 
 // lazy [0, 2q) add / sub: the values of ops/mont.py's selects (a + b, less

@@ -29,11 +29,12 @@
 // store.  Outputs are byte-identical to the plain versions.
 //
 // What bounds it on the H100: not the bytes (each coefficient is read and
-// written twice) but the butterflies: a 62-bit REDC is one 64x64->128
-// multiply pair plus a 62-bit multiply (18 IMAD-class of 41 SASS
-// instructions in the fold probe's chain, csrc/fold_probe.cu), a 30-bit
-// one two 32x32->64 products (6 of 14), and a logN15 row needs 15 x 16384
-// of them.  A core that ran one shared-memory stage at a time reached a
+// written twice) but the butterflies: a 62-bit REDC is one unsigned
+// 64x64->128 product and a low and a high 64-bit product (mont.cuh; 18
+// IMAD-class of 33 SASS instructions in the fold probe's chain with its
+// loop, csrc/fold_probe.cu, where the REDC with signed 128-bit halves took
+// 41), a 30-bit one two 32x32->64 products (6 of 14), and a logN15 row
+// needs 15 x 16384 of them.  A core that ran one shared-memory stage at a time reached a
 // third of that REDC bound in the 62-bit lane and a quarter in the 30-bit
 // lane (ops/roofline.py, PERF.md): most of its time went around the
 // REDCs.  The register-tiled core (ntt.cuh, which also holds the strided
@@ -61,9 +62,11 @@
 // Measured on the H100 (cuobjdump of the sm_90a build, chip_smoke.py phase
 // 2c): the inverse contiguous pass at logN15, whose threads each run 32
 // butterflies and nothing else but loads, the twiddle table, two exchanges
-// and stores, is 2186 SASS instructions (909 IMAD-class) in the 62-bit
-// lane, 68.3 a butterfly against the 41 of a bare REDC, and 723 (253) in
-// the 30-bit lane, 22.6 a butterfly against 14.  The instructions beyond
+// and stores, is 1808 SASS instructions (767 IMAD-class) in the 62-bit
+// lane, 56.5 a butterfly against the 33 of a bare REDC (2186, 909 and 68.3
+// with the REDC of signed 128-bit halves), and 723 (253) in the 30-bit
+// lane, 22.6 a butterfly against 14; the forward strided pass is 71.4 a
+// butterfly at logN15 (85.7 before), its x R entry included.  The instructions beyond
 // the REDC (the lazy add and sub on two words, the twiddle's shared-memory
 // load, the exchanges) are what keeps the transforms at 46-64% of the
 // REDC bound in the 62-bit lane and 37-56% in the 30-bit lane (PERF.md).
@@ -210,19 +213,21 @@ inv_strided_k(W* buf, int C, const W* __restrict__ qv,
     __syncthreads();
     run_rounds<W, U, P::L1, P::RL1, false, false, 0>(
         v, t, T, T + P::N1, P::N1 * P::TC, ColLayout<P::TC>{col}, q, k, q2);
+    // N^-1 R mod q (R on a coef shard), 1 and pdc: constants below 2^63
     const W ninv = Ninv[c];
 #pragma unroll
     for (int i = 0; i < SC::R; ++i) {
         const size_t xo = (size_t)slot(t, i, LOL, P::RL1) << P::L2;
-        W w = redc(v[i], ninv, q, k);
-        if (epi == EPI_EXIT || epi == EPI_EXIT_REDUCE) w = redc(w, (W)1, q, k);
+        W w = redc_by(v[i], ninv, q, k);
+        if (epi == EPI_EXIT || epi == EPI_EXIT_REDUCE)
+            w = redc_by(w, (W)1, q, k);
         if (epi == EPI_EXIT_REDUCE) w = w < qw ? w : w - qw;
         if (epi == EPI_PDIV) {
             const W* cc = pdc + (size_t)c * (1 + S);
-            w = canon(redc(w, cc[0], q, k), qw);
+            w = canon(redc_by(w, cc[0], q, k), qw);
             for (int s = 0; s < S; ++s) {
                 const W p = p0[(((size_t)b * S + s) << LOGN) + x0 + xo];
-                w -= canon(redc(p, cc[1 + s], q, k), qw);
+                w -= canon(redc_by(p, cc[1 + s], q, k), qw);
                 w = w < 0 ? w + qw : w;
             }
         }

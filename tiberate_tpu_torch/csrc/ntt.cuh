@@ -164,13 +164,15 @@ __device__ __forceinline__ void butterflies(W (&v)[1 << RL], int t,
             const W S = T[(1 << (B - 1 - b)) + (slot(t, i, LO, RL) >> (b + 1))];
             const W U0 = v[i];
             if (FWD) {
-                const W V = redc(S, v[h], q, k);
+                // S: a twiddle of psi, [0, q)
+                const W V = redc_by(v[h], S, q, k);
                 v[i] = tile_add(U0, V, q2);
                 v[h] = tile_sub(U0, V, q2);
             } else {
                 const W V = v[h];
                 v[i] = tile_add(U0, V, q2);
-                v[h] = redc(S, tile_sub(U0, V, q2), q, k);
+                // S: a twiddle of ipsi, [0, q)
+                v[h] = redc_by(tile_sub(U0, V, q2), S, q, k);
             }
         }
     }
@@ -346,9 +348,10 @@ fwd_strided_k(const W* __restrict__ x, W* __restrict__ out, int C,
 #pragma unroll
             for (int i = 0; i < SC::R; ++i) v[i] = xr[xo[i]];
             if (Rs != nullptr) {
-                const W rs = Rs[c];
+                const W rs = Rs[c];  // R^2 mod q, or R on a coef shard
 #pragma unroll
-                for (int i = 0; i < SC::R; ++i) v[i] = redc(v[i], rs, q, k);
+                for (int i = 0; i < SC::R; ++i)
+                    v[i] = redc_by(v[i], rs, q, k);
             }
         },
         out + ((size_t)row << LOGN), psi + ((size_t)c << LOGN), q, k);

@@ -36,8 +36,10 @@
 // 256-512 threads a block, and one pass-1 launch, not four.  Measured on
 // the H100 (cuobjdump of the sm_90a build, chip_smoke.py phase 2c): pass
 // 2 at logN15, four lines of 32 butterflies a thread and the products, is
-// 9579 SASS instructions (3997 IMAD-class) in the 62-bit lane, 74.8 a
-// butterfly, and 2519 (956) in the 30-bit lane, 19.7.  In the 62-bit lane
+// 7744 SASS instructions (3514 IMAD-class) in the 62-bit lane, 60.5 a
+// butterfly (9579, 3997 and 74.8 with the REDC of signed 128-bit halves,
+// mont.cuh), and 2519 (956) in the 30-bit lane, 19.7; pass 1 is 72.3 a
+// butterfly with its x R entry (85.5 before).  In the 62-bit lane
 // the two lines kept beside the chunk hold pass 2 to two blocks an SM
 // (shared memory), where the transforms' contiguous pass runs four, and
 // it runs at about two thirds of their rate per REDC (PERF.md).
@@ -71,9 +73,9 @@ tensor_strided_k(Quad<W> in, W* __restrict__ tmp, int rows, int C,
         [&](W(&v)[SC::R], const int(&xo)[SC::R]) {
 #pragma unroll
             for (int i = 0; i < SC::R; ++i) v[i] = xr[xo[i]];
-            const W rs = Rs[c];
+            const W rs = Rs[c];  // R^2 mod q
 #pragma unroll
-            for (int i = 0; i < SC::R; ++i) v[i] = redc(v[i], rs, q, k);
+            for (int i = 0; i < SC::R; ++i) v[i] = redc_by(v[i], rs, q, k);
         },
         tmp + (((size_t)z * rows + row) << LOGN), psi + ((size_t)c << LOGN),
         q, k);

@@ -3,7 +3,9 @@ operation and its parameters; this module builds the cell's engine and
 inputs from the seed, drives one closed-loop request at a time, keeps the
 answers the check compares, and holds them to the reference.
 
-Operations (the mix's ``"op"``):
+Operations built in (the mix's ``"op"``; any other is the ``OP`` of
+``ops/<op>.py``, an :class:`Op` subclass that may use this module's
+helpers, found by ``harness.Bench.op``):
 
 * ``cc_mult``: ``CkksEngine.cc_mult(A, B)`` on two stacked batches of
   ``batch`` fresh ciphertexts at ``level``; the inputs are not consumed,

@@ -1,12 +1,13 @@
 """One run of one cell, found by name in ``BENCHMARK.json``.
 
 The cell names its configuration (``configs[].file``) and its traffic mix
-(``traffic/<mix>.json``); each metric is read by ``metrics/<name>.py``
-(a ``read(run)`` that returns a number, or None where it finds nothing
-to read).  A run builds the engine and the inputs from the seed, warms
-up, measures for ``seconds``, with ``trace`` profiles a fixed number of
-requests after that, then frees the program's state and holds the kept
-answers to the reference.
+(``traffic/<mix>.json``); the mix names its operation, one of
+``generator.OPS`` or the ``OP`` of ``ops/<op>.py``; each metric is read by
+``metrics/<name>.py`` (a ``read(run)`` that returns a number, or None
+where it finds nothing to read).  A run builds the engine and the inputs
+from the seed, warms up, measures for ``seconds``, with ``trace`` profiles
+a fixed number of requests after that, then frees the program's state and
+holds the kept answers to the reference.
 """
 
 import importlib.util
@@ -79,12 +80,29 @@ class Bench:
         while not os.path.exists(path) and "." in name:
             name = name.rsplit(".", 1)[0]
             path = os.path.join(self.here, "metrics", f"{name}.py")
-        spec = importlib.util.spec_from_file_location(
-            "fhebench_metric_" + name.replace(".", "_").replace("-", "_"),
-            path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return load(path, "fhebench_metric_", name).read
+
+    def op(self, name):
+        """The operation a mix names: ``generator.OPS[name]`` for the
+        three built in, else the ``OP`` (an ``Op`` subclass) of
+        ``ops/<name>.py``."""
+        if name in generator.OPS:
+            return generator.OPS[name]
+        path = os.path.join(self.here, "ops", f"{name}.py")
+        if not os.path.exists(path):
+            raise KeyError(f"no operation {name!r}: not one of "
+                           f"{sorted(generator.OPS)}, and no file {path}")
+        return load(path, "fhebench_op_", name).OP
+
+
+def load(path, prefix, name):
+    """The module of the source file ``path``, named ``prefix`` + ``name``
+    with its dots and dashes as underscores."""
+    spec = importlib.util.spec_from_file_location(
+        prefix + name.replace(".", "_").replace("-", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 class Run:
@@ -123,7 +141,7 @@ def run_cell(root, workload, seed, seconds, traced, device, t_start=None,
     # set-up: the kernels, the engine, keys and inputs, the warm-up
     if device.type == "cuda":
         cuda_build.lib()
-    op = generator.OPS[mix["op"]](config, mix, seed, device)
+    op = bench.op(mix["op"])(config, mix, seed, device)
     op.setup()
     sp = spanlib.Spans()
     for _ in range(int(mix["warmup"])):

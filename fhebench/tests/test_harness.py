@@ -3,6 +3,7 @@ skipped): every cell correct; a cell, configuration, mix and metric
 added as files only; each fault the cells can have, planted under the
 timed path, and the control, all read as not correct."""
 
+import hashlib
 import json
 import os
 import subprocess
@@ -12,7 +13,7 @@ import pytest
 import torch
 from tiberate_tpu_torch.engine import ckks_engine
 
-from fhebench import generator, harness
+from fhebench import harness
 from fhebench.tests import toy
 
 CELLS = ["logN17-mult8", "logN15-mult8", "logN15-rotsum8", "logN15-client8"]
@@ -90,26 +91,189 @@ def test_reader_falls_back_to_shorter_name(tmp_path):
     with pytest.raises(FileNotFoundError):
         bench.reader("no_such_metric.logN15")
 
+# an operation of its own file: a batch squared three times, each
+# product's residues held to the reference's chain, level by level
+SQUARE3 = '''
+from fhebench import generator
+from fhebench.reference import ckks as ref
+
+DEPTH = 3
+
+
+class Square3(generator.Op):
+    def setup(self):
+        super().setup()
+        self.keygen()
+        self.m1 = generator.messages(self.rng, self.batch, self.slots)
+        self.A = self.encrypt(self.m1)
+        self.outs = None
+
+    def request(self, spans):
+        with spans.span("square3"):
+            x, outs = self.A, []
+            for _ in range(DEPTH):
+                x = self.eng.cc_mult(x, x)
+                outs.append(x)
+        with spans.span("sync"):
+            generator.sync(self.device)
+        self.outs = outs
+        return {"hmult": self.batch * DEPTH}
+
+    def answers(self):
+        return dict(A=self.A.data, outs=[x.data for x in self.outs],
+                    sk=self.sk_rows(), evk=generator.key_rows(self.eng.evk))
+
+    def check(self, pr, raw, limits):
+        s, sk_bad = ref.secret(pr, raw["sk"])
+        x, checks = raw["A"], []
+        for i, out in enumerate(raw["outs"]):
+            x = ref.cc_mult(pr, *x, *x, raw["evk"], self.level + i)
+            checks.append((f"residue_mismatch.{i + 1}",
+                           generator.compare(out, x), limits["residues"]))
+        got = ref.decode(ref.decrypt(pr, *raw["outs"][0], s, self.level + 1,
+                                     ref.mult_scale(pr, self.level))[0])
+        return checks + [
+            ("decrypt_err", generator.err(got, self.m1 ** 2),
+             limits["mult"]),
+            ("sk_mismatch", sk_bad, limits["residues"]),
+        ]
+
+
+OP = Square3
+'''
+
+
+def tree_hashes(root):
+    """{path relative to ``root``: sha256} of every file under it."""
+    out = {}
+    for d, dirs, files in os.walk(root):
+        dirs[:] = [x for x in dirs if x != "__pycache__"]
+        for f in files:
+            path = os.path.join(d, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = hashlib.sha256(
+                    fh.read()).hexdigest()
+    return out
+
+
+# an operation file a checkout may already hold
+OTHER = """
+from fhebench import generator
+
+OP = generator.CcMult
+"""
+
+
+def add_file(root, rel, text):
+    path = os.path.join(root, rel)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def add_square3(tmp_path, others):
+    """A toy checkout, with the operation files ``others`` ({name: source})
+    among its own, to which the ``square3`` operation, its mix and its
+    cell are added as files and entries; (root, hashes before they
+    are)."""
+    root, bench = toy.make_root(tmp_path, client=False)
+    for name, text in others.items():
+        add_file(root, f"fhebench/ops/{name}.py", text)
+    made = tree_hashes(root)
+    add_file(root, "fhebench/ops/square3.py", SQUARE3)
+    toy.write(root, "fhebench/traffic/square3x2.json",
+              {"op": "square3", "batch": 2, "level": 0, "warmup": 1,
+               "profile_warmup": 1, "profile_requests": 1})
+    bench["workloads"].append({"name": "toy-square3", "config": "ckks-logN15",
+                               "traffic": "square3x2", "chips": 1,
+                               "why": "a test"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "hmult_per_s":
+            m["workloads"].append("toy-square3")
+    toy.write(root, "BENCHMARK.json", bench)
+    return root, made
+
+
+@pytest.mark.parametrize("others", [{}, {"other": OTHER}],
+                         ids=["first", "beside_another"])
+def test_operation_added_as_files_only(tmp_path, monkeypatch, others):
+    root, made = add_square3(tmp_path, others)
+    now = tree_hashes(root)
+    assert {p for p in made if now.get(p) != made[p]} == {"BENCHMARK.json"}
+    assert set(now) - set(made) == {"fhebench/ops/square3.py",
+                                    "fhebench/traffic/square3x2.json"}
+    res, checks = harness.run_cell(root, "toy-square3", SEED, 0.05, False,
+                                   "cpu", log=quiet)
+    assert res["correct"], checks
+    assert res["metrics"]["hmult_per_s"]["value"] > 0
+    assert {n for n, _, _ in checks} >= {"residue_mismatch.1",
+                                         "residue_mismatch.3"}
+    res, checks = harness.run_cell(root, "toy-square3", SEED, 0.05, True,
+                                   "cpu", log=quiet)
+    assert res["correct"], checks
+    # no card: the window is one idle gap, its middle in the request
+    assert [n for n, _ in res["breakdown"]["idle_gaps"]] == ["square3"]
+
+    def last_level(orig, _before):
+        def f(self, *args, **kwargs):
+            out = orig(self, *args, **kwargs)
+            if out.level == 3:
+                d = out.data[0]
+                d[0, 0, 0] = (d[0, 0, 0] + 1) % self.params.q[out.level]
+            return out
+        return f
+
+    at_window(monkeypatch, "cc_mult", last_level)
+    res, checks = harness.run_cell(root, "toy-square3", SEED, 0.05, False,
+                                   "cpu", log=quiet)
+    assert not res["correct"]
+    bad = {n for n, v, lim in checks if v > lim}
+    assert bad == {"residue_mismatch.3"}, checks
+
+
+def test_unknown_operation_names_its_file(tmp_path):
+    root, _ = toy.make_root(tmp_path, client=False)
+    toy.write(root, "fhebench/traffic/nothing.json",
+              {"op": "no_such_op", "batch": 1, "warmup": 1})
+    bench = harness.Bench(root)
+    with pytest.raises(KeyError, match=r"fhebench/ops/no_such_op\.py"):
+        bench.op(bench.mix("nothing")["op"])
+
+
 def at_window(monkeypatch, method, wrap):
-    """Break ``CkksEngine.<method>`` once the window opens."""
-    orig_start = generator.Op.start_window
+    """Break ``CkksEngine.<method>`` once the window opens, in whatever
+    operation the cell runs (built in or of ``ops/<op>.py``), after that
+    operation's own ``start_window``.  ``wrap(orig, before)`` makes the
+    broken method from the method and ``before``, a list that holds the
+    method's last output before the window."""
     orig = getattr(ckks_engine.CkksEngine, method)
+    before = []
 
-    def start(self):
-        orig_start(self)
-        monkeypatch.setattr(ckks_engine.CkksEngine, method, wrap(orig))
+    def record(self, *args, **kwargs):
+        before[:] = [orig(self, *args, **kwargs)]
+        return before[0]
 
-    for cls in generator.OPS.values():
-        monkeypatch.setattr(cls, "start_window", start)
+    monkeypatch.setattr(ckks_engine.CkksEngine, method, record)
+    find = harness.Bench.op
+
+    def op(bench, name):
+        class Broken(find(bench, name)):
+            def start_window(self):
+                super().start_window()
+                monkeypatch.setattr(ckks_engine.CkksEngine, method,
+                                    wrap(orig, before))
+        return Broken
+
+    monkeypatch.setattr(harness.Bench, "op", op)
 
 
-def unchanged(orig):
+def unchanged(orig, _before):
     def f(self, *args, **kwargs):
         return args[0]
     return f
 
 
-def half_batch(orig):
+def half_batch(orig, _before):
     def f(self, *args, **kwargs):
         out = orig(self, *args, **kwargs)
         for d in out.data:
@@ -118,7 +282,7 @@ def half_batch(orig):
     return f
 
 
-def altered(orig):
+def altered(orig, _before):
     def f(self, *args, **kwargs):
         out = orig(self, *args, **kwargs)
         d = out.data[0]
@@ -141,17 +305,17 @@ def test_fault_reads_not_correct(root, monkeypatch, cell, method, fault):
     assert not res["correct"], checks
 
 
-def client_unchanged(orig):
-    first = []
+def client_unchanged(orig, before):
+    """Every window request gets the ciphertexts that the last request
+    before the window got (another message of the pool)."""
+    stale = before[0]
 
     def f(self, ms, *args, **kwargs):
-        if not first:
-            first.append(orig(self, ms, *args, **kwargs))
-        return first[0]
+        return stale
     return f
 
 
-def client_half(orig):
+def client_half(orig, _before):
     def f(self, ms, *args, **kwargs):
         ms = list(ms)
         h = len(ms) // 2
@@ -159,7 +323,7 @@ def client_half(orig):
     return f
 
 
-def client_altered(orig):
+def client_altered(orig, _before):
     def f(self, ms, *args, **kwargs):
         cts = orig(self, ms, *args, **kwargs)
         d = cts[0].data[0]
@@ -168,7 +332,7 @@ def client_altered(orig):
     return f
 
 
-def decoded_altered(orig):
+def decoded_altered(orig, _before):
     def f(self, *args, **kwargs):
         out = orig(self, *args, **kwargs)
         out[0, 0] += 1e-3

@@ -58,6 +58,19 @@ def test_reference_imports_nothing_of_the_program():
         assert not names & set(harness.FORBIDDEN), path
 
 
+def test_operations_import_nothing_of_the_program(tmp_path):
+    """An operation file (``ops/<op>.py``) reaches the program only
+    through the engine that ``generator`` builds, so that its check
+    compares against the reference and not the program's own code."""
+    program = {"tiberate_tpu_torch", *harness.FORBIDDEN}
+    for path in sources("ops"):
+        assert not imported(path) & program, path
+    bad = tmp_path / "op.py"
+    bad.write_text("from fhebench import generator\n"
+                   "from tiberate_tpu_torch.engine import ckks_engine\n")
+    assert imported(str(bad)) & program == {"tiberate_tpu_torch"}
+
+
 def test_reference_loads_nothing_of_the_program():
     code = ("import sys; import fhebench.reference.ckks, "
             "fhebench.roofline.work; "

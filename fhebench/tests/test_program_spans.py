@@ -106,3 +106,23 @@ def test_program_without_records_reads_nothing(root, monkeypatch):
                               log=quiet)
     assert res["correct"]
     assert not NEW & set(res["metrics"])
+
+
+def test_launches_of_every_root_span(monkeypatch):
+    """A request that opens several root spans of several names (as a
+    circuit of ``cc_mult``s and ``mult_scalar``s does): torch's launches
+    are the kernels a request less the launches of all its roots."""
+    def rec(name, launches):
+        return types.SimpleNamespace(name=name, parent=None, t0=2.0,
+                                     t1=3.0, launches=launches)
+
+    request = [rec("cc_mult", 25), rec("cc_mult", 25),
+               rec("mult_scalar", 3)]
+    monkeypatch.setattr(program, "trace", types.SimpleNamespace(
+        spans=lambda: 2 * request))
+    run = types.SimpleNamespace(
+        trace=types.SimpleNamespace(kernels=2 * (53 + 12), requests=2),
+        requests=[types.SimpleNamespace(t1=1.0)])
+    assert program.torch_launches(run, 1) == 12
+    assert program.torch_launches(run, 3) == 4
+    assert len(program.roots(run, "cc_mult")) == 4

@@ -4,7 +4,8 @@
 which it discards, then ``active`` requests; the chrome trace is written
 into the temporary directory, read back and deleted.  The traced window
 runs from the first active request's start to the last one's end (the
-benchmark's ``request`` ranges).
+benchmark's ``request`` ranges).  The card's idle gaps are named by the
+benchmark spans that the active requests opened (``Request.spans``).
 """
 
 import json
@@ -12,9 +13,6 @@ import os
 import tempfile
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-# the benchmark's spans that name the card's idle gaps
-SPAN_NAMES = ("cc_mult", "sum", "encodecrypt_batch", "decryptcode_batch",
-              "sync")
 
 
 def short(name):
@@ -100,6 +98,7 @@ def capture(op, spans, warmup, active, counter):
         acts.append(ProfilerActivity.CUDA)
     spans.annotate = True
     before = None
+    names = set()
     try:
         with profile(activities=acts, schedule=schedule(
                 wait=0, warmup=warmup, active=active, repeat=1)) as prof:
@@ -109,7 +108,9 @@ def capture(op, spans, warmup, active, counter):
                 spans.begin()
                 with record_function("request"):
                     work = op.request(spans)
-                spans.end(work)
+                req = spans.end(work)
+                if i >= warmup:
+                    names |= set(req.spans)
                 prof.step()
         after = counter()
     finally:
@@ -124,4 +125,4 @@ def capture(op, spans, warmup, active, counter):
         os.remove(path)
     launches = {k: after[k] - before.get(k, 0) for k in after
                 if after[k] - before.get(k, 0)}
-    return Trace(events, SPAN_NAMES, active, launches)
+    return Trace(events, names, active, launches)

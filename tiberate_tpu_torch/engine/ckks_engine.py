@@ -272,9 +272,10 @@ def _mont_scalar_core(d, scalar_col, lp):
 
 
 def _add_scalar_core(ct0, scalar_col, lp):
-    """Add one value per channel ([C, 1]) to coefficient 0."""
+    """Add one value per channel ([C, 1], or [B, C, 1]: one column per
+    stacked ciphertext) to coefficient 0."""
     out = ct0.clone()
-    out[..., 0] += scalar_col[:, 0]
+    out[..., 0] += scalar_col[..., 0]
     return mont.reduce_2q(out, lp.pack)
 
 
@@ -1556,7 +1557,9 @@ class CkksEngine:
     def cc_mult(self, a: Ciphertext, b: Ciphertext,
                 evk: EvaluationKey = None, *, pre_rescale=True,
                 post_relin=True):
-        """The operands are first brought to one level (:meth:`align_level`).
+        """The operands are first brought to one level (:meth:`align_level`);
+        one unstacked operand against a stack is repeated along the
+        stack's leading dims (a copy).
         With both flags and the engine's evk: rescale -> tensor product ->
         relinearize through the fused step
         (``parallel/sharded.make_mult_step``).  Otherwise (optionally)
@@ -1569,7 +1572,7 @@ class CkksEngine:
                                                 or evk is self.evk)
         with trace.annotate("cc_mult"):
             with trace.annotate("cc_mult.prepare"):
-                a, b = self.align_level(a, b)
+                a, b = _broadcast_pair(*self.align_level(a, b))
                 if fused:
                     if a.level + 1 >= self.num_levels:
                         raise errors.MaximumLevelError(
@@ -1929,11 +1932,23 @@ class CkksEngine:
 
     def _scalar_col(self, values_per_prime, level):
         """One value per ordinary channel from ``level`` on: [C, 1] on the
-        device."""
-        return self._to_dev(np.array(
-            [values_per_prime[i] for i in range(level, self.params.P)],
-            dtype=self.ckksCfg.numpy_dtype,
-        ).reshape(-1, 1))
+        device; [B, C, 1] for a list of B such lists (one a stacked
+        ciphertext)."""
+        values = np.array(values_per_prime, dtype=self.ckksCfg.numpy_dtype)
+        return self._to_dev(values[..., level:self.params.P, None])
+
+    @staticmethod
+    def _per_row(ct, scalar, values):
+        """``values(scalar)``; for a sequence of scalars, one per stacked
+        ciphertext of ``ct`` (its data's leading dim), the list of each
+        one's ``values``."""
+        if np.ndim(scalar) == 0:
+            return values(scalar)
+        shape = tuple(ct.data[0].shape)
+        if np.ndim(scalar) != 1 or len(shape) != 3 or len(scalar) != shape[0]:
+            raise ValueError(f"scalars of shape {np.shape(scalar)} for "
+                             f"ciphertext data of shape {shape}")
+        return [values(x) for x in scalar]
 
     @_mesh_op("_mult_mont_scalar_mesh")
     def _mult_mont_scalar(self, ct: Ciphertext, mont_scalar) -> Ciphertext:
@@ -1950,19 +1965,26 @@ class CkksEngine:
             ct, [(int(scalar) * R) % qi for qi in self.params.q])
 
     def mult_scalar(self, ct: Ciphertext, scalar) -> Ciphertext:
-        """ct * scalar at the scale, then :meth:`rescale`."""
+        """ct * scalar at the scale, then :meth:`rescale`.  ``scalar`` may
+        be one value per stacked ciphertext ([B, C, N] data, B values):
+        row i is then the call on row i alone with ``scalar[i]``."""
         R = self.montCtx.R
-        scaled_scalar = int(
-            scalar * self.ckksCfg.scale
-            * np.sqrt(self.params.deviations[ct.level + 1]) + 0.5
-        )
+        root = np.sqrt(self.params.deviations[ct.level + 1])
+
+        def mont_values(x):
+            scaled_scalar = int(x * self.ckksCfg.scale * root + 0.5)
+            return [(scaled_scalar * R) % qi for qi in self.params.q]
+
         new_ct = self._mult_mont_scalar(
-            ct, [(scaled_scalar * R) % qi for qi in self.params.q])
+            ct, self._per_row(ct, scalar, mont_values))
         return self.rescale(new_ct)
 
     @_mesh_op("_add_scalar_mesh")
     def add_scalar(self, ct: Ciphertext, scalar) -> Ciphertext:
-        col = self._scalar_col(self._add_scalar_values(ct, scalar), ct.level)
+        """ct + scalar; one value per stacked ciphertext as in
+        :meth:`mult_scalar`."""
+        col = self._scalar_col(self._per_row(
+            ct, scalar, lambda x: self._add_scalar_values(ct, x)), ct.level)
         new0 = _add_scalar_core(ct.data[0], col, self._lp(ct.level, False))
         return Ciphertext(data=(new0, ct.data[1]), flags=ct._flags,
                           level=ct.level, **self._meta())
@@ -2085,6 +2107,33 @@ class CkksEngine:
             post_relin=False) -> Ciphertext:
         ct_var = self.var(ct, evk or self.evk, post_relin=post_relin)
         return self.sqrt(ct_var, evk or self.evk)
+
+    def layer_norm(self, gamma, beta, **kwargs):
+        """The feature-wise encrypted LayerNorm on this engine:
+        :class:`tiberate_tpu_torch.extension.nn.HELayerNormFeatureWise`
+        (``kwargs``: ``eps``, ``var_range``, ``iters``), which takes a list
+        of feature ciphertexts or one stack of them."""
+        from tiberate_tpu_torch.extension.nn import HELayerNormFeatureWise
+
+        return HELayerNormFeatureWise(gamma, beta, self, **kwargs)
+
+
+def _broadcast_pair(a, b):
+    """(a, b) with an unstacked operand ([C, N] data) against a stacked one
+    ([B, C, N]) repeated along the stack's leading dims; equal shapes as
+    they are."""
+    sa, sb = a.data[0].shape, b.data[0].shape
+    if sa == sb:
+        return a, b
+
+    def rep(ct, shape):
+        return type(ct)(data=tuple(d.expand(shape).contiguous()
+                                   for d in ct.data),
+                        flags=ct._flags, level=ct.level, **ct.misc)
+
+    if len(sa) < len(sb):
+        return rep(a, sb), b
+    return a, rep(b, sa)
 
 
 def stack_ciphertexts(cts) -> Ciphertext:

@@ -13,19 +13,72 @@ not parameters with gradients, and nothing here trains.
   their per-level encode cache.
 * :class:`HELayerNormFeatureWise`: LayerNorm over feature-wise packed
   inputs (one ciphertext per feature, samples in the slots), with a
-  Newton reciprocal square root; depth 3 + 3 * iters + 2 levels.
+  Newton reciprocal square root; depth 3 + 3 * iters + 2 levels, one
+  more with gamma.  It takes a list of ciphertexts or one stacked
+  ciphertext ``[F, ...]``.
 """
 
 import math
 
 import numpy as np
+import torch
 
 from tiberate_tpu_torch.extension.packing import (
     FeatureWisePacking,
     PackedCT,
     PackingMetadata,
 )
-from tiberate_tpu_torch.typing import Plaintext
+from tiberate_tpu_torch.typing import Ciphertext, Plaintext
+from tiberate_tpu_torch.utils.trace import annotate
+
+# The stacked LayerNorm runs its per-feature work in chunks of the stack,
+# so that what a chunk holds in flight stays under STEP_BUDGET_BYTES.  A
+# chunk's pass holds at most STEP_TRANSIENT_CTS times the bytes of its
+# ciphertexts at the centred level beyond its inputs and outputs (torch's
+# peak allocation over the pass, on an H100 at logN15, stacks of 32 to
+# 128): the centring (level_up to 1, cc_sub) 84 MiB a feature, 10.5 times
+# a level-1 ciphertext; the fused cc_mult step at level 1 76.5 MiB, 9.6
+# times; at level 13 6 times its smaller input.
+STEP_BUDGET_BYTES = 8 << 30
+STEP_TRANSIENT_CTS = 11
+
+
+def stack_chunk(engine, level: int) -> int:
+    """Stacked ciphertexts a chunk centred at ``level``: the transients of
+    one, STEP_TRANSIENT_CTS times a ciphertext's bytes there, into
+    STEP_BUDGET_BYTES (93 at logN15, level 1)."""
+    cfg = engine.ckksCfg
+    word = np.dtype(cfg.numpy_dtype).itemsize
+    ct_bytes = 2 * (engine.params.P - level) * cfg.N * word
+    return max(1, STEP_BUDGET_BYTES // (STEP_TRANSIENT_CTS * ct_bytes))
+
+
+def _rows(ct, start, stop):
+    """Stacked ciphertexts ``start:stop`` of ``ct`` (views)."""
+    return Ciphertext(data=tuple(d[start:stop] for d in ct.data),
+                      level=ct.level, **ct.misc)
+
+
+def _cat(cts):
+    """One stack of the stacked ciphertexts ``cts``, in order."""
+    if len(cts) == 1:
+        return cts[0]
+    return Ciphertext(data=tuple(torch.cat([c.data[i] for c in cts])
+                                 for i in (0, 1)),
+                      level=cts[0].level, **cts[0].misc)
+
+
+def tree_sum(engine, ct):
+    """The sum of a stack's ciphertexts by a halving tree of ``cc_add``s
+    (exact in [0, q): the residues of the sequential sum), unstacked."""
+    n = ct.data[0].shape[0]
+    while n > 1:
+        h = n // 2
+        s = engine.cc_add(_rows(ct, 0, h), _rows(ct, h, 2 * h))
+        ct = _cat([s, _rows(ct, 2 * h, n)]) if n % 2 else s
+        n = h + n % 2
+    return Ciphertext(data=tuple(d[0] for d in ct.data), level=ct.level,
+                      **ct.misc)
 
 
 class HEModule:
@@ -50,8 +103,8 @@ class HELayerNorm(HEModule):
 class HELayerNormFeatureWise(HELayerNorm):
     """Encrypted LayerNorm over feature-wise packed inputs: samples fill
     the slot axis, features are separate ciphertexts (one list entry per
-    feature), so every reduction is a ciphertext add and no rotation is
-    needed.
+    feature, or one row of a stacked ciphertext), so every reduction is a
+    ciphertext add and no rotation is needed.
 
         out_f = gamma_f * (x_f - mu) * rsqrt(var + eps) + beta_f
 
@@ -62,7 +115,19 @@ class HELayerNormFeatureWise(HELayerNorm):
     seeded with the two-point linear fit of 1/sqrt(v) over the declared
     variance range ``var_range``.
 
-    Multiplicative depth: 3 + 3*iters + 2 levels.
+    Multiplicative depth: 3 + 3*iters + 2 levels, one more with gamma
+    (its ``mult_scalar`` rescales).
+
+    A stacked input ``[F, 2-tuple of [C, N]]`` gives a stacked output
+    whose row f has the residues of the list forward's feature f: the
+    feature sums are halving trees of ``cc_add`` (exact), ``mu`` and
+    ``y`` are broadcast against the stack, the per-feature work runs in
+    chunks of :func:`stack_chunk` features, gamma and beta are one
+    per-row ``mult_scalar`` and ``add_scalar``; the Newton chain on the
+    single ``v`` and ``y`` is the list forward's.  Traced as the span
+    ``layernorm`` with the children ``layernorm.mean``,
+    ``layernorm.center``, ``layernorm.square``, ``layernorm.var``,
+    ``layernorm.rsqrt`` and ``layernorm.out``.
     """
 
     def __init__(self, gamma, beta, engine, eps: float = 1e-3,
@@ -84,27 +149,56 @@ class HELayerNormFeatureWise(HELayerNorm):
         self._y0_a, self._y0_b = a, b
 
     def forward(self, fcts, **kwargs):
-        """fcts: list of F ciphertexts (one per feature, same level).
-        Returns the normalized list (all at a deeper common level)."""
+        """fcts: list of F ciphertexts (one per feature, same level), or
+        one stacked ciphertext of F rows.  Returns the normalized list, or
+        stack (all at a deeper common level)."""
+        if isinstance(fcts, Ciphertext):
+            return self._forward_stacked(fcts)
         eng = self.engine
         F = len(fcts)
 
-        # mean over the feature axis (ciphertext adds + one scalar mult)
-        s = fcts[0]
-        for f in range(1, F):
-            s = eng.cc_add(s, fcts[f])
-        mu = eng.mult_scalar(s, 1.0 / F)
+        with annotate("layernorm"):
+            # mean over the feature axis (ciphertext adds + one scalar
+            # mult)
+            with annotate("layernorm.mean"):
+                s = fcts[0]
+                for f in range(1, F):
+                    s = eng.cc_add(s, fcts[f])
+                mu = eng.mult_scalar(s, 1.0 / F)
 
-        # centered features and variance
-        d = [eng.cc_sub(eng.level_up(x, mu.level), mu) for x in fcts]
-        sq = [eng.cc_mult(df, df) for df in d]
-        v = sq[0]
-        for f in range(1, F):
-            v = eng.cc_add(v, sq[f])
-        v = eng.mult_scalar(v, 1.0 / F)
-        v = eng.add_scalar(v, self.eps)
+            # centered features and variance
+            with annotate("layernorm.center"):
+                d = [eng.cc_sub(eng.level_up(x, mu.level), mu) for x in fcts]
+            with annotate("layernorm.square"):
+                sq = [eng.cc_mult(df, df) for df in d]
+                v = sq[0]
+                for f in range(1, F):
+                    v = eng.cc_add(v, sq[f])
+            with annotate("layernorm.var"):
+                v = self._var(v, F)
 
-        # y ~= rsqrt(v): linear seed, then Newton
+            with annotate("layernorm.rsqrt"):
+                y = self._rsqrt(v)
+
+            with annotate("layernorm.out"):
+                out = []
+                for f in range(F):
+                    z = eng.cc_mult(eng.level_up(d[f], y.level), y)
+                    if self.gamma is not None:
+                        z = eng.mult_scalar(z, float(self.gamma[f]))
+                    if self.beta is not None:
+                        z = eng.add_scalar(z, float(self.beta[f]))
+                    out.append(z)
+        return out
+
+    def _var(self, sum_sq, F):
+        eng = self.engine
+        v = eng.mult_scalar(sum_sq, 1.0 / F)
+        return eng.add_scalar(v, self.eps)
+
+    def _rsqrt(self, v):
+        """y ~= rsqrt(v): linear seed, then Newton (one ciphertext)."""
+        eng = self.engine
         y = eng.add_scalar(eng.mult_scalar(v, self._y0_b), self._y0_a)
         vh = eng.mult_scalar(v, 0.5)
         for _ in range(self.iters):
@@ -112,16 +206,45 @@ class HELayerNormFeatureWise(HELayerNorm):
             p = eng.cc_mult(eng.level_up(vh, y2.level), y2)
             w = eng.add_scalar(eng.negate(p), 1.5)
             y = eng.cc_mult(eng.level_up(y, w.level), w)
+        return y
 
-        out = []
-        for f in range(F):
-            z = eng.cc_mult(eng.level_up(d[f], y.level), y)
-            if self.gamma is not None:
-                z = eng.mult_scalar(z, float(self.gamma[f]))
-            if self.beta is not None:
-                z = eng.add_scalar(z, float(self.beta[f]))
-            out.append(z)
-        return out
+    def _forward_stacked(self, x):
+        eng = self.engine
+        F = x.data[0].shape[0]
+
+        with annotate("layernorm"):
+            with annotate("layernorm.mean"):
+                mu = eng.mult_scalar(tree_sum(eng, x), 1.0 / F)
+
+            n = stack_chunk(eng, mu.level)
+            with annotate("layernorm.center"):
+                d = [eng.cc_sub(eng.level_up(_rows(x, i, i + n), mu.level),
+                                mu) for i in range(0, F, n)]
+
+            # the squares' sum: each chunk's by a tree, then chunk by
+            # chunk (exact, so the list forward's residues)
+            with annotate("layernorm.square"):
+                v = None
+                for dc in d:
+                    part = tree_sum(eng, eng.cc_mult(dc, dc))
+                    v = part if v is None else eng.cc_add(v, part)
+            with annotate("layernorm.var"):
+                v = self._var(v, F)
+
+            with annotate("layernorm.rsqrt"):
+                y = self._rsqrt(v)
+
+            with annotate("layernorm.out"):
+                z = []
+                while d:   # each chunk of d freed once it is used
+                    z.append(eng.cc_mult(eng.level_up(d.pop(0), y.level),
+                                         y))
+                z = _cat(z)
+                if self.gamma is not None:
+                    z = eng.mult_scalar(z, self.gamma)
+                if self.beta is not None:
+                    z = eng.add_scalar(z, self.beta)
+        return z
 
 
 class HELinearFeatureWise(HELinear):

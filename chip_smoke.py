@@ -57,7 +57,8 @@ Phases (any failure exits non-zero):
    version by its one comparison call); K1 without entry, K2's "mont" and
    "exit" epilogues and K3 with one key are compared too.  The glue
    kernels G1-G3 (the rescale, the keyswitch digits, the P-division's
-   special rows) run here too, timed beside their bytes bound, and are
+   special rows) and G4 (the engine's modular product by a column, add
+   and subtract) run here too, timed beside their bytes bound, and are
    then compared on adversarial residues read through views: every kept
    row below a rescaler of q - 1, rows at 0 and q - 1, rescalers at
    round_at and either side of it, both roundings, a part's rows of the
@@ -135,7 +136,8 @@ Phases (any failure exits non-zero):
     kernel, error below 1e-2, the JAX package's 30-bit bound), which must
     launch only ``_30`` kernels; the keys and the step on one pair equal
     to the CPU's; the evaluation path cut to ``rotate_offset`` by 2,
-    ``add_scalar`` and ``sum`` (within 5e-3, the JAX package's 30-bit
+    ``add_scalar``, ``cc_sub``, ``mult_scalar`` and ``sum`` (within 5e-3,
+    the JAX package's 30-bit
     preset bound, and ``sum`` 200x that), ``_30`` kernels only; step
     times with the kernels and
     the plain versions, printed beside phase 5's 62-bit logN15 step; the
@@ -255,6 +257,9 @@ _SOURCES = {
 # Each replaces the JAX function named here, in both lanes.
 _GLUE = {"rescale": 527, "parts_digits": 236, "pdiv_p0": 279}
 GLUE = tuple(_GLUE)
+# G4 (csrc/glue.cu) replaces the JAX engine's elementwise cores, which the
+# step does not run (the evaluation and extension paths do)
+_MODEW = {"mont_scalar": 602, "mod_add": 544, "mod_sub": 549}
 KERNELS = {
     **{name + sfx: (f"tiberate_tpu_torch/csrc/{src}",
                     f"{_PALLAS}:{line30 if sfx else line}")
@@ -262,7 +267,8 @@ KERNELS = {
        for name, (src, line, line30) in _SOURCES.items()},
     **{name + sfx: ("tiberate_tpu_torch/csrc/glue.cu",
                     f"tiberate_tpu/engine/ckks_engine.py:{line}")
-       for sfx in ("", "_30") for name, line in _GLUE.items()},
+       for sfx in ("", "_30")
+       for name, line in (_GLUE | _MODEW).items()},
 }
 # The CSPRNG's kernels (R1-R4, csrc/csprng.cu; one lane) have no Pallas
 # counterpart either: XLA fuses the JAX package's jitted block function
@@ -371,7 +377,7 @@ def part_keys(kern, gen, q0, n_parts, N, level=1):
 
 
 def glue_adversarial(eng, glue, gen):
-    """{case: (kernel output, plain output)} of G1-G3 at the step's
+    """{case: (kernel output, plain output)} of G1-G4 at the step's
     shapes on adversarial residues: every kept row below a rescaler of
     q - 1, rows at 0 and q - 1, rescalers at round_at and either side of
     it, both roundings; digits and special rows at 0 and q - 1.  Each
@@ -413,6 +419,23 @@ def glue_adversarial(eng, glue, gen):
             glue.parts_digits(*args), glue.parts_digits_plain(*args))
     args = (acc[:, C:], lp_sp[C:], eng.params.PiRs[1], C, S)
     cases["pdiv_p0"] = (glue.pdiv_p0(*args), glue.pdiv_p0_plain(*args))
+    # G4: every pair of the add and subtract operands 0, q - 1, q, 2q - 1
+    # (one ciphertext against the batch too), and level_up's view of kept
+    # rows by a column a ciphertext holding 0 and q - 1
+    edges = torch.stack([torch.zeros_like(q1), q1 - 1, q1, 2 * q1 - 1], -1)
+    e1, e2 = (uniform(gen, 2 * q1, (BATCH, C, N)) for _ in range(2))
+    e1[..., :16] = edges.repeat(1, 4)
+    e2[..., :16] = edges.repeat_interleave(4, -1)
+    cases["mod_add edges"] = (glue.mod_add(e1, e2, lp1),
+                              glue.mod_add_plain(e1, e2, lp1))
+    cases["mod_sub edges, one against the batch"] = (
+        glue.mod_sub(e1, e2[0], lp1), glue.mod_sub_plain(e1, e2[0], lp1))
+    col = uniform(gen, q1, (BATCH, C, 1))
+    col[0, :, 0] = q1 - 1
+    col[1, :, 0] = 0
+    cases["mont_scalar rows view, a column a ciphertext"] = (
+        glue.mont_scalar(d[:, 1:], col, lp1),
+        glue.mont_scalar_plain(d[:, 1:], col, lp1))
     return cases
 
 
@@ -420,7 +443,7 @@ def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
     """Every kernel against its plain version at the step shapes of
     ``eng`` (batch 8, work level 1), in the lane of its storage dtype; the
     chain kernel with no skip range and with one part's range; the glue
-    kernels G1-G3 on random residues, then on adversarial ones
+    kernels G1-G4 on random residues, then on adversarial ones
     (:func:`glue_adversarial`), compared only.  ``loops``
     = (reps, inner) of cuda_ms for the kernels; each plain version, which
     repeats the kernel's arithmetic in torch ops and is no yardstick of
@@ -462,6 +485,7 @@ def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
     d0 = uniform(gen, q0, (BATCH, C + 1, N))
     rs, round_at = eng.params.rescale_scales[0], eng.params.q[0] // 2
     cur = uniform(gen, q_sp[C:], (BATCH, S, N))
+    col = uniform(gen, q_ord, (C, 1))
     lp_spec = lp_sp[C:]
     part_list = [p.alpha for p in parts]
     word = x.element_size()
@@ -515,6 +539,12 @@ def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
         "pdiv_p0": (
             lambda: glue.pdiv_p0(cur, lp_spec, PiRs, C, S),
             lambda: glue.pdiv_p0_plain(cur, lp_spec, PiRs, C, S)),
+        "mont_scalar": (lambda: glue.mont_scalar(x, col, lp_ord),
+                        lambda: glue.mont_scalar_plain(x, col, lp_ord)),
+        "mod_add": (lambda: glue.mod_add(x, x4[0], lp_ord),
+                    lambda: glue.mod_add_plain(x, x4[0], lp_ord)),
+        "mod_sub": (lambda: glue.mod_sub(x, x4[1][0], lp_ord),
+                    lambda: glue.mod_sub_plain(x, x4[1][0], lp_ord)),
     }
     consts = (lp_ord.pack.q, lp_ord.pack.k)
     # bytes each call must move: inputs read once, outputs written once
@@ -537,6 +567,10 @@ def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
             BATCH, part_list, amax, N, word,
             glue.digits_table(parts, lp_ord).numel()),
         "pdiv_p0": roofline.pdiv_p0_bytes(BATCH, S, N, word),
+        "mont_scalar": roofline.mont_scalar_bytes(BATCH, C, N, word),
+        "mod_add": roofline.mod_add_bytes(BATCH, C, N, word),
+        # one ciphertext against the batch: batch stride 0
+        "mod_sub": roofline.mod_add_bytes(BATCH, C, N, word, b_batch=1),
     }
     # REDCs each call's kernel performs (ops/roofline.py)
     redc = {
@@ -554,13 +588,16 @@ def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
         "rescale": roofline.rescale(BATCH * C, N),
         "parts_digits": roofline.parts_digits(BATCH, part_list, N),
         "pdiv_p0": roofline.pdiv_p0(BATCH, S, N),
+        "mont_scalar": roofline.mont_scalar(BATCH * C, N),
+        "mod_add": 0, "mod_sub": 0,
     }
     shapes = {"ntt": [BATCH, C, N], "intt": [BATCH, C, N],
               "ntt_keymul": [BATCH, C + 1, N], "intt_pdiv": [BATCH, C_sp, N],
               "ntt_tensor": [BATCH, C, N],
               "ntt_keymul_parts": [BATCH, n_parts, amax, N],
               "rescale": [BATCH, C + 1, N], "parts_digits": [BATCH, C, N],
-              "pdiv_p0": [BATCH, S, N]}
+              "pdiv_p0": [BATCH, S, N], "mont_scalar": [BATCH, C, N],
+              "mod_add": [BATCH, C, N], "mod_sub": [BATCH, C, N]}
     results = {}
     for name, (kfn, pfn) in cases.items():
         got = kfn()
@@ -648,7 +685,7 @@ def signed_key_rows(kern, mod, tp):
 
 def check_small(kern, mod, CkksParams, toy_config):
     """Phase 2c: every entry of the two ntt.cu transforms, K5 (tensor.cu),
-    K6 (keyswitch.cu) and the glue's G1-G3 (glue.cu) at logN 4, 7 and 10
+    K6 (keyswitch.cu) and the glue's G1-G4 (glue.cu) at logN 4, 7 and 10
     (odd and even logN: both splits L1 = L2 and L1 + 1 = L2), in both
     lanes, on a toy parameter set at batch 2, against its plain version
     byte for byte; K1 without entry also on the signed rows of a rotated
@@ -684,6 +721,10 @@ def check_small(kern, mod, CkksParams, toy_config):
                     tp.q[0] // 2)
             digits = (x, tp.parts[1], lp, ec.shape[-1])
             spec = (p0, lp_sp[C:], tp.PiRs[1], C, tp.S)
+            col = uniform(gen, q, (2, C, 1))
+            flat = torch.empty(2 * C * N + 1, dtype=x.dtype, device="cuda")
+            shifted = flat[1:].view(2, C, N)    # G4's one-word path
+            shifted.copy_(x)
 
             def accum(skip):
                 a = tuple(uniform(gen, 2 * q_sp, (2, C_sp, N))
@@ -723,6 +764,15 @@ def check_small(kern, mod, CkksParams, toy_config):
                 "parts_digits": (glue.parts_digits(*digits),
                                  glue.parts_digits_plain(*digits)),
                 "pdiv_p0": (glue.pdiv_p0(*spec), glue.pdiv_p0_plain(*spec)),
+                "mont_scalar": (glue.mont_scalar(x, col, lp),
+                                glue.mont_scalar_plain(x, col, lp)),
+                "mod_add": (glue.mod_add(x, x4[0], lp),
+                            glue.mod_add_plain(x, x4[0], lp)),
+                "mod_sub against one": (glue.mod_sub(x, x4[1][0], lp),
+                                        glue.mod_sub_plain(x, x4[1][0], lp)),
+                "mod_sub misaligned": (glue.mod_sub(shifted, x4[2], lp),
+                                       glue.mod_sub_plain(shifted, x4[2],
+                                                          lp)),
             }
             torch.cuda.synchronize()
             for name, (got, want) in cases.items():
@@ -1905,8 +1955,8 @@ def evaluate15(eng, eng_cpu, kern, stack, unstack, A, B, out, smi):
 def evaluate_light(eng, kern, stack, unstack, A, tol, sfx, tag, large):
     """The evaluation path cut for the other presets, on the batch of 8
     with the launch counts set to 0 before and read after.  ``large``
-    False (logN15_30): ``rotate_offset`` by 2, ``add_scalar`` and ``sum``
-    (its 14 keys made on first use); True (logN17, logN17_30): the
+    False (logN15_30): ``rotate_offset`` by 2, ``add_scalar``, ``cc_sub``,
+    ``mult_scalar`` and ``sum`` (its 14 keys made on first use); True (logN17, logN17_30): the
     rotation key for delta 1 and the conjugation key, one
     ``rotate_offset(., 1)`` and one ``conjugate``, each one K6 and two K4,
     and the device memory the keys hold before and after that first use.
@@ -1932,6 +1982,9 @@ def evaluate_light(eng, kern, stack, unstack, A, tol, sfx, tag, large):
             "rotate_offset 2": (lambda: eng.rotate_offset(A, 2),
                                 np.roll(m1, 2, -1), 1),
             "add_scalar 0.5": (lambda: eng.add_scalar(A, 0.5), m1 + 0.5, 0),
+            "cc_sub": (lambda: eng.cc_sub(A, A), 0 * m1, 0),
+            "mult_scalar -1.5": (lambda: eng.mult_scalar(A, -1.5),
+                                 -1.5 * m1, 0),
             "sum": (lambda: eng.sum(A), row, eng.ckksCfg.logN - 1),
         }
     res = {}
@@ -2838,7 +2891,7 @@ def main():
     t0 = time.perf_counter()
     n_small = check_small(kern, mod, CkksParams, toy_config)
     log(f"logN 4, 7, 10: {n_small} cases of the ntt.cu entries, K5, K6 "
-        f"and G1-G3, both lanes, byte-identical to their plain versions "
+        f"and G1-G4, both lanes, byte-identical to their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
     sass = pass_sass(cuda_build)
     if sass is None:

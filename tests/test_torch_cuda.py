@@ -9,7 +9,10 @@ versions, K1 without entry on the signed rows of a rotated or conjugated
 secret key, and the CSPRNG, keygen, the batch encrypt and decrypt forms,
 the rotation and conjugation keys, rotations and ``pc_mult`` on the card
 against the CPU's, the step's glue kernels (G1-G3) against their plain
-versions on random and adversarial inputs and on views, the CSPRNG's
+versions on random and adversarial inputs and on views, G4 (the
+engine's modular add, subtract and product by a column) against its
+plain version at logN15's shapes and views, with no torch kernel in the
+engine's cores that call it, the CSPRNG's
 kernels (R1-R4) against their plain versions on edge counters in their
 single and batch forms, and the mesh engine with every shard on the card
 against the single-device engine on the CPU.  The file imports no jax, so it also
@@ -22,6 +25,8 @@ each kernel must equal its plain torch version byte for byte, lazy
 outputs included, and the engine's step on the card must equal the same
 step on CPU tensors.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -39,6 +44,7 @@ from tiberate_tpu_torch.parallel import sharded
 from tiberate_tpu_torch.rng.csprng import Csprng
 from tiberate_tpu_torch.typing import Ciphertext, Plaintext
 from tiberate_tpu_torch.utils import encoding as codec
+from tiberate_tpu_torch.utils import trace
 
 LEVEL = 1
 BATCH = 2
@@ -384,6 +390,155 @@ def test_glue_wrappers_refuse_bad_operands(card):
         with pytest.raises(err):
             call()
     assert sum(K.LAUNCHES.values()) == 0
+
+
+# G4's cases at logN15: MODEW_CASES maps a case to (level of the
+# operands' pack, op); _modew_operands makes its operands (x, y) from a
+# uniform draw, q, C and N
+MODEW_CHUNK = 93   # the LayerNorm's centring chunk at logN15, level 1
+
+
+def _modew_operands(case, uni, q, C, N):
+    lazy = 2 * q
+    if case == "centring sub":
+        return uni(lazy, (MODEW_CHUNK, C, N)), uni(lazy, (C, N))
+    if case == "centring scalar":
+        return uni(q, (MODEW_CHUNK, C, N)), uni(q, (C, 1))
+    if case in ("level_up [C, 1]", "level_up [B, C, 1]"):
+        # a rescaled chunk at level 2 ([93, 15, N]) to level 13: its last
+        # C = 4 rows
+        d = uni(q[:1].repeat(15), (MODEW_CHUNK, 15, N))
+        d[..., 15 - C:, :] = uni(q, (MODEW_CHUNK, C, N))
+        col = (uni(q, (C, 1)) if case.endswith("[C, 1]")
+               else uni(q, (MODEW_CHUNK, C, 1)))
+        return d[..., 15 - C:, :], col
+    if case == "rotsum add":
+        return uni(lazy, (8, C, N)), uni(lazy, (8, C, N))
+    if case == "edges add" or case == "edges sub":
+        edges = torch.stack([torch.zeros_like(q), q - 1, q, lazy - 1], -1)
+        x = uni(lazy, (2, C, N))
+        y = uni(lazy, (2, C, N))
+        x[0, :, :16] = edges.repeat(1, 4)
+        y[0, :, :16] = edges.repeat_interleave(4, -1)
+        return x, y
+    if case == "edges scalar":
+        x = uni(q, (2, C, N))
+        x[0, :, ::2] = (q - 1)[:, None]
+        x[1, :, ::3] = 0
+        col = uni(q, (2, C, 1))
+        col[0, :2, 0] = torch.stack([torch.zeros_like(q[0]), q[1] - 1])
+        return x, col
+    if case == "misaligned sub":
+        flat = torch.empty(8 * C * N + 1, dtype=q.dtype, device=q.device)
+        x = flat[1:].view(8, C, N)
+        x.copy_(uni(lazy, (8, C, N)))
+        return x, uni(lazy, (C, N))
+    raise KeyError(case)
+
+
+MODEW_CASES = {"centring sub": (1, "mod_sub"),
+               "centring scalar": (1, "mont_scalar"),
+               "level_up [C, 1]": (13, "mont_scalar"),
+               "level_up [B, C, 1]": (13, "mont_scalar"),
+               "rotsum add": (0, "mod_add"),
+               "edges add": (1, "mod_add"), "edges sub": (1, "mod_sub"),
+               "edges scalar": (1, "mont_scalar"),
+               "misaligned sub": (1, "mod_sub")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", sorted(LANES))
+@pytest.mark.parametrize("case", sorted(MODEW_CASES))
+def test_modew_matches_plain_on_card(card, lane, case):
+    """G4 against its plain version, byte for byte, at logN15's shapes as
+    the engine hands them over: the centring's subtract of one unstacked
+    mean from a chunk of 93 level-1 ciphertexts (batch stride 0) and its
+    product by a column; ``level_up``'s row range of a rescaled chunk by a
+    [C, 1] and a [B, C, 1] column; a rotsum ``cc_add`` on [8, 17, N];
+    edge operands (0, q - 1, q, 2q - 1; 0 and q - 1 for a product); a
+    misaligned view, which takes the one-word path.  One launch."""
+    tp = CkksParams(_cfg(15, lane, num_scales=16), card)
+    level, op = MODEW_CASES[case]
+    lp = tp.lp(level, False)
+    q = lp.pack.q
+    gen = torch.Generator(device=card).manual_seed(300 + level)
+
+    def uni(hi, shape):
+        x = torch.randint(0, 1 << 62, shape, generator=gen, device=card)
+        return (x % hi.long()[:, None]).to(tp.dtype)
+
+    x, y = _modew_operands(case, uni, q, lp.num_channels, tp.N)
+    K.reset_launch_counts()
+    got = getattr(G, op)(x, y, lp)
+    want = getattr(G, op + "_plain")(x, y, lp)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+        op + LANES[lane][1]: 1}
+    assert got.dtype == tp.dtype and got.is_contiguous()
+    assert torch.equal(got, want)
+    assert bool(((got >= 0) & (got < q[:, None])).all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_modew_cores_launch_no_torch_kernel(card, tmp_path):
+    """On the card ``_cc_add_core``, ``_cc_sub_core`` and
+    ``_mont_scalar_core`` each launch one G4 kernel and no torch kernel:
+    the chrome trace of the three holds three kernels, all ``modew_k``."""
+    tp = CkksParams(_cfg(10), card)
+    lp = tp.lp(1, False)
+    q = lp.pack.q
+    gen = torch.Generator(device=card).manual_seed(7)
+    a, b = (torch.randint(0, 1 << 40, (4, lp.num_channels, tp.N),
+                          generator=gen, device=card) % q[:, None]
+            for _ in range(2))
+    col = q[:, None] - 1
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    with trace.profile(str(tmp_path)) as path:
+        teng._cc_add_core(a, b, lp)
+        teng._cc_sub_core(a, b[0], lp)
+        teng._mont_scalar_core(a, col, lp)
+        torch.cuda.synchronize()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert len(kernels) == 3 and all("modew_k" in k for k in kernels), \
+        kernels
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+        "mod_add": 1, "mod_sub": 1, "mont_scalar": 1}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_modew_refuses_bad_operands_on_card(card):
+    """What G4 does not read raises before a launch on the card: another
+    dtype, an operand on the CPU, strides that do not fold, a column of
+    another shape."""
+    tp = CkksParams(_cfg(7), card)
+    lp = tp.lp(1, False)
+    C, N = lp.num_channels, tp.N
+    a = torch.zeros((BATCH, C, N), dtype=tp.dtype, device=card)
+    col = torch.zeros((C, 1), dtype=tp.dtype, device=card)
+    bad = [
+        (TypeError, lambda: G.mod_add(a, a.int(), lp)),
+        (ValueError, lambda: G.mod_sub(a, a.cpu(), lp)),
+        (ValueError, lambda: G.mont_scalar(a, col.cpu(), lp)),
+        (ValueError, lambda: G.mod_add(a.transpose(-1, -2).contiguous()
+                                       .transpose(-1, -2), a, lp)),
+        (ValueError, lambda: G.mod_add(
+            torch.zeros((2, BATCH, C, N), dtype=tp.dtype,
+                        device=card).transpose(0, 1), a, lp)),
+        (ValueError, lambda: G.mont_scalar(a, col[:, 0], lp)),
+        (ValueError, lambda: G.mont_scalar(
+            a, col[None].repeat(BATCH + 1, 1, 1), lp)),
+    ]
+    K.reset_launch_counts()
+    for err, call in bad:
+        with pytest.raises(err):
+            call()
+    assert sum(K.LAUNCHES.values()) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

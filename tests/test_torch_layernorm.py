@@ -277,8 +277,9 @@ def test_stacked_spans(deep, monkeypatch):
     """The ``layernorm`` root holds its six phases in order, one
     ``cc_mult`` a chunk in the squares and in the outputs, 3 iters in the
     Newton chain; every launch of the forward is counted in a phase, and
-    each phase's in its children (plus the G1 rescales of its own
-    ``level_up`` and ``mult_scalar`` calls)."""
+    each phase's in its children, plus its own calls' kernels: one a
+    polynomial for each rescale (G1) and for each ``cc_add``, ``cc_sub``
+    and product by a column in ``level_up`` and ``mult_scalar`` (G4)."""
     eng, _, gamma, beta, X = deep
     ln = eng.layer_norm(gamma, beta, eps=BERT_EPS, var_range=VAR_RANGE,
                         iters=3)
@@ -307,11 +308,23 @@ def test_stacked_spans(deep, monkeypatch):
         assert [c.name for c in kids(ph[name])] == ["cc_mult"] * n, name
     step = kids(ph["layernorm.square"])[0].launches
     assert step > 0
-    assert ph["layernorm.square"].launches == chunks * step
-    assert ph["layernorm.center"].launches == chunks * 2
-    assert ph["layernorm.mean"].launches == ph["layernorm.var"].launches == 2
+    F = X.data[0].shape[0]
+
+    def tree_adds(n):   # tree_sum's cc_add calls: one a halving
+        return 0 if n <= 1 else 1 + tree_adds(n // 2 + n % 2)
+
+    # each chunk's tree, then the sum over the chunks
+    adds = sum(tree_adds(min(3, F - i)) for i in range(0, F, 3))
+    assert ph["layernorm.square"].launches == (chunks * step
+                                               + 2 * (adds + chunks - 1))
+    # a chunk's level_up (G1, G4) and cc_sub (G4)
+    assert ph["layernorm.center"].launches == chunks * 6
+    # the tree, then mult_scalar (G4, G1)
+    assert ph["layernorm.mean"].launches == 2 * tree_adds(F) + 4
+    assert ph["layernorm.var"].launches == 4
     out_mults = sum(c.launches for c in kids(ph["layernorm.out"]))
-    assert ph["layernorm.out"].launches == out_mults + chunks * 2 + 2
+    # a chunk's level_up (G1, G4), then gamma's mult_scalar (G4, G1)
+    assert ph["layernorm.out"].launches == out_mults + chunks * 4 + 4
     # the engine's spans nest inside: no cc_mult is a root
     assert all(by[r.root].name == "layernorm" for r in recs)
     trace.clear()

@@ -9,8 +9,9 @@ compute, each plain version runs at toy_config(logN=7, num_scales=4,
 num_special_primes=2) in both lanes (three parts at level 1: alpha 1, 2,
 1), and the count must equal the formula — exactly.
 
-The step's glue (G1-G3, ``ops/glue_kernels.py``) is counted the same
-way: its plain versions run the kernels' REDCs one for one.
+The step's glue (G1-G3, ``ops/glue_kernels.py``) and G4's product by a
+column are counted the same way: their plain versions run the kernels'
+REDCs one for one; G4's add and subtract run none.
 
 K4 is the exception: its plain version runs the successive P-division
 chain (``intt_pdiv_plain``: exit, enter, S x (enter P0, multiply), exit),
@@ -116,6 +117,9 @@ def _case(tp, name):
         "pdiv_p0": (lambda: G.pdiv_p0_plain(cur, lp_sp[C:], tp.PiRs[LEVEL],
                                             C, tp.S),
                     roofline.pdiv_p0(BATCH, tp.S, N)),
+        "mont_scalar": (lambda: G.mont_scalar_plain(
+            x, _uniform(gen, lp.pack.q, (BATCH, C, 1)), lp),
+            roofline.mont_scalar(BATCH * C, N)),
     }
     cases = {
         **glue,
@@ -146,7 +150,7 @@ def _case(tp, name):
     "ntt_keymul[1 key, enter]", "ntt_keymul[2 keys]",
     "ntt_keymul_accum:none", "ntt_keymul_accum:0", "ntt_keymul_accum:1",
     "ntt_keymul_accum:2", "ntt_tensor", "ntt_keymul_parts", "rescale",
-    "parts_digits", "pdiv_p0",
+    "parts_digits", "pdiv_p0", "mont_scalar",
 ])
 def test_redc_count_equals_plain_version(tp, redc_count, name):
     run, formula = _case(tp, name)
@@ -197,6 +201,45 @@ def test_glue_shapes_counts():
         b = roofline.bound(nbytes, redc, 510e9)
         assert b["bound_by"] == ("operations" if name == "pdiv_p0"
                                  else "bytes"), name
+
+
+@pytest.mark.parametrize("op", ["mod_add", "mod_sub"])
+def test_modew_add_and_sub_do_no_redc(tp, redc_count, op):
+    """G4's add and subtract reduce by selects alone: their plain versions
+    run no REDC, and ``roofline`` counts none (only their bytes)."""
+    lp = tp.lp(LEVEL, False)
+    gen = torch.Generator().manual_seed(8)
+    a, b = (_uniform(gen, 2 * lp.pack.q, (BATCH, lp.num_channels, 1 << LOGN))
+            for _ in range(2))
+    redc_count[0] = 0
+    getattr(G, op + "_plain")(a, b, lp)
+    assert redc_count[0] == 0
+
+
+def test_modew_shapes_counts():
+    """G4's formulas at logN15's shapes, reckoned by hand: the LayerNorm's
+    centring (a chunk of 93 level-1 ciphertexts, 16 rows, less one
+    unstacked mean: 187 row sets; its product by a [C, 1] column), the
+    outputs' level_up (4 rows, a [B, C, 1] column) and a rotsum add on [8,
+    17, N].  At the 62-bit REDC rate the probe measured (510-535 G/s,
+    PERF.md) each is bound by bytes."""
+    N = 1 << 15
+    cases = {
+        "centring sub": (roofline.mod_add_bytes(93, 16, N, 8, b_batch=1), 0,
+                         8 * (187 * 16 * N + 16), 0),
+        "centring scalar": (roofline.mont_scalar_bytes(93, 16, N, 8),
+                            roofline.mont_scalar(93 * 16, N),
+                            8 * (186 * 16 * N + 48), 93 * 16 * N),
+        "level_up per row": (roofline.mont_scalar_bytes(93, 4, N, 8,
+                                                        col_batch=93),
+                             roofline.mont_scalar(93 * 4, N),
+                             8 * (186 * 4 * N + 95 * 4), 93 * 4 * N),
+        "rotsum add": (roofline.mod_add_bytes(8, 17, N, 8), 0,
+                       8 * (24 * 17 * N + 17), 0),
+    }
+    for name, (nbytes, redc, want_bytes, want_redc) in cases.items():
+        assert (nbytes, redc) == (want_bytes, want_redc), name
+        assert roofline.bound(nbytes, redc, 510e9)["bound_by"] == "bytes"
 
 
 def test_bound_takes_the_larger_term():

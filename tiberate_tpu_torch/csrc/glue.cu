@@ -1,5 +1,6 @@
 // The elementwise glue of the cc_mult step (G1-G3): rescale, keyswitch
-// digits, and the special-row phase of the P-division.
+// digits, and the special-row phase of the P-division; and the engine's
+// lazy-modular elementwise ops (G4): add, subtract, product by a column.
 //
 // The TPU runs the step as one jax.jit (tiberate_tpu/parallel/sharded.py:
 // 173-240), so XLA fuses this glue into a few fusions around the Pallas
@@ -46,6 +47,27 @@
 // 8-byte words, every word is read once and written once, and nothing
 // goes through shared memory.
 //
+// G4 modew_k replaces three engine cores (tiberate_tpu_torch/engine/
+// ckks_engine.py): _mont_scalar_core (reduce_2q(mont_mult(d, col))),
+// _cc_add_core and _cc_sub_core (reduce_2q(mont_add / mont_sub(a, b))).
+// It replaces no TPU kernel: the JAX package runs these ops inside its
+// jitted code, where XLA fuses each into one loop; the port ran them as
+// torch ops, about 46 passes over the operand for the product and 8 for
+// an add.  Bytes bound it (one REDC at most per word), so its design is
+// that of a copy: a thread moves 16-byte words (two i64 or four i32
+// residues) where every operand's base, batch stride and row length
+// allow, one word at a time otherwise; the grid is (coefficient blocks,
+// rows, batch), so a block's channel constants (q, k and the column's
+// value) are loaded once per thread; each input word is read once and
+// each output word written once, and nothing goes through shared memory.
+// The ops are the plain versions' selects, in the lane's wrapping
+// arithmetic, so the output is theirs for every input of their contract
+// (operands in [0, 2q) for add and sub; d and the column, constants of
+// the program's tables, in [0, q) for the product): canonical in [0, q).
+// The second operand may have batch stride 0 (one ciphertext against a
+// stack), and the column one value per row ([C, 1], col_bs 0) or per row
+// and batch element ([B, C, 1], col_bs C).
+//
 // Two lanes: tt_*(62-bit, i64 words) and tt_*_30 (30-bit, i32 words); the
 // build compiles this file once per lane (TT_LANE).
 #include "ntt.cuh"
@@ -54,6 +76,8 @@
 #define TT_GLUE_RR 8     // rows a rescale thread walks
 #define TT_GLUE_MAXA 8   // most digits a keyswitch part has
 #define TT_GLUE_MAXS 8   // most special primes
+#define TT_MODEW_T 256   // G4's threads a block
+#define TT_MODEW_ITEMS 2 // 16-byte (or one-word) accesses a thread makes
 // G2's constants per part, words of W: lo, alpha, q[M], k[M], Y[M],
 // L[M][M] (M = TT_GLUE_MAXA; ops/glue_kernels.py builds the table)
 #define TT_GLUE_PART (2 + 3 * TT_GLUE_MAXA + TT_GLUE_MAXA * TT_GLUE_MAXA)
@@ -194,6 +218,88 @@ pdiv_p0_k(const W* __restrict__ cur, long long cur_bs, W* __restrict__ p0,
     }
 }
 
+// G4's ops
+enum { TT_MONT_SCALAR = 0, TT_MOD_ADD = 1, TT_MOD_SUB = 2 };
+
+// 16 bytes of a lane's words, as one vector access
+template <typename W> struct Vec16;
+template <> struct Vec16<i64> { typedef longlong2 T; };
+template <> struct Vec16<i32> { typedef int4 T; };
+
+template <typename W, int V> struct Words {
+    typedef typename Vec16<W>::T T;
+    union {
+        T v;
+        W w[16 / sizeof(W)];
+    } u;
+    __device__ __forceinline__ void load(const W* p) {
+        if (V == 1)
+            u.w[0] = *p;
+        else
+            u.v = *reinterpret_cast<const T*>(p);
+    }
+    __device__ __forceinline__ void store(W* p) const {
+        if (V == 1)
+            *p = u.w[0];
+        else
+            *reinterpret_cast<T*>(p) = u.v;
+    }
+};
+
+// [0, 2q) -> [0, q): ops/mont.py's reduce_2q
+template <typename W>
+__device__ __forceinline__ W reduce_2q(W a, W q) {
+    return a < q ? a : a - q;
+}
+
+// a [B, rows, N] (batch stride a_bs), b likewise (b_bs, 0 for one operand
+// against the batch; unread by the product) -> out [B, rows, N]; V words a
+// vector access (16 / sizeof(W), or 1), N a multiple of V.
+template <typename W, int OP, int V>
+__global__ void __launch_bounds__(TT_MODEW_T)
+modew_k(const W* __restrict__ a, long long a_bs, const W* __restrict__ b,
+        long long b_bs, W* __restrict__ out, int N,
+        const W* __restrict__ col, long long col_bs,
+        const W* __restrict__ qv, const W* __restrict__ kv) {
+    typedef typename Lane<W>::U U;
+    const int r = blockIdx.y, bz = blockIdx.z;
+    const W q = qv[r];
+    const W q2 = wrap_add(q, q);
+    W c = 0;
+    U k = 0;
+    if (OP == TT_MONT_SCALAR) {
+        c = col[bz * col_bs + r];
+        k = (U)kv[r];
+    }
+    const W* x = a + bz * a_bs + (size_t)r * N;
+    const W* y = b + bz * b_bs + (size_t)r * N;
+    W* o = out + ((size_t)bz * gridDim.y + r) * N;
+    const int n0 = (blockIdx.x * TT_MODEW_ITEMS * TT_MODEW_T + threadIdx.x) * V;
+#pragma unroll
+    for (int it = 0; it < TT_MODEW_ITEMS; ++it) {
+        const int n = n0 + it * TT_MODEW_T * V;
+        if (n < N) {
+            Words<W, V> s, t;
+            s.load(x + n);
+            if (OP != TT_MONT_SCALAR) t.load(y + n);
+#pragma unroll
+            for (int i = 0; i < V; ++i) {
+                W v;
+                if (OP == TT_MONT_SCALAR) {
+                    v = redc_by(s.u.w[i], c, (U)q, k);
+                } else {
+                    v = OP == TT_MOD_ADD
+                            ? wrap_add(s.u.w[i], t.u.w[i])
+                            : wrap_sub(wrap_add(s.u.w[i], q2), t.u.w[i]);
+                    v = v < q2 ? v : wrap_sub(v, q2);
+                }
+                s.u.w[i] = reduce_2q(v, q);
+            }
+            s.store(o + n);
+        }
+    }
+}
+
 static bool glue_grid_ok(int B, int ys, int N) {
     return B >= 1 && B <= 65535 && ys >= 1 && ys <= 65535 && N >= 1;
 }
@@ -248,6 +354,66 @@ static int pdiv_p0(const W* cur, long long cur_bs, W* p0, int B, int S,
     return 0;
 }
 
+// 16-byte accesses (vec) or one word at a time
+template <typename W, int OP>
+static void modew_launch(bool vec, const W* a, long long a_bs, const W* b,
+                         long long b_bs, W* out, int B, int rows, int N,
+                         const W* col, long long col_bs, const W* q,
+                         const W* k, void* stream) {
+    constexpr int V = 16 / sizeof(W);
+    const int per = TT_MODEW_ITEMS * TT_MODEW_T * (vec ? V : 1);
+    const dim3 grid((N + per - 1) / per, rows, B);
+    if (vec)
+        modew_k<W, OP, V><<<grid, TT_MODEW_T, 0, (cudaStream_t)stream>>>(
+            a, a_bs, b, b_bs, out, N, col, col_bs, q, k);
+    else
+        modew_k<W, OP, 1><<<grid, TT_MODEW_T, 0, (cudaStream_t)stream>>>(
+            a, a_bs, b, b_bs, out, N, col, col_bs, q, k);
+}
+
+static bool aligned16(const void* p, long long words, int word) {
+    return ((unsigned long long)p % 16) == 0 && (words * word) % 16 == 0;
+}
+
+// op TT_MONT_SCALAR: out = reduce_2q(REDC(a, col)), col [B or 1, rows]
+// (batch stride col_bs, 0 or rows), b unread; TT_MOD_ADD / TT_MOD_SUB: out
+// = reduce_2q of the lazy a + b / a - b.  a, b [B, rows, N] (batch strides
+// a_bs, b_bs; rows N words apart) -> out [B, rows, N] contiguous; q, k:
+// [rows].  16-byte accesses where a, b and out start on 16 bytes and their
+// batch strides and rows are whole 16-byte words.
+template <typename W>
+static int modew(int op, const W* a, long long a_bs, const W* b,
+                 long long b_bs, W* out, int B, int rows, int N,
+                 const W* col, long long col_bs, const W* q, const W* k,
+                 void* stream) {
+    if (!glue_grid_ok(B, rows, N)) return (int)cudaErrorInvalidValue;
+    const int w = (int)sizeof(W);
+    const bool scalar = op == TT_MONT_SCALAR;
+    if (scalar ? col == nullptr : b == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const bool vec = aligned16(a, a_bs, w) && aligned16(out, 0, w) &&
+                     (scalar || aligned16(b, b_bs, w)) &&
+                     ((long long)N * w) % 16 == 0;
+    switch (op) {
+    case TT_MONT_SCALAR:
+        modew_launch<W, TT_MONT_SCALAR>(vec, a, a_bs, b, b_bs, out, B, rows,
+                                        N, col, col_bs, q, k, stream);
+        break;
+    case TT_MOD_ADD:
+        modew_launch<W, TT_MOD_ADD>(vec, a, a_bs, b, b_bs, out, B, rows, N,
+                                    col, col_bs, q, k, stream);
+        break;
+    case TT_MOD_SUB:
+        modew_launch<W, TT_MOD_SUB>(vec, a, a_bs, b, b_bs, out, B, rows, N,
+                                    col, col_bs, q, k, stream);
+        break;
+    default:
+        return (int)cudaErrorInvalidValue;
+    }
+    TT_CHECK();
+    return 0;
+}
+
 #define TT_GLUE_ENTRIES(SFX, W)                                              \
     extern "C" int tt_rescale##SFX(                                          \
         const W* rows, long long rows_bs, const W* resc, long long resc_bs,  \
@@ -267,6 +433,14 @@ static int pdiv_p0(const W* cur, long long cur_bs, W* p0, int B, int S,
                                    const unsigned long long* pi, const W* q, \
                                    const W* k, void* stream) {               \
         return pdiv_p0(cur, cur_bs, p0, B, S, N, pi, q, k, stream);          \
+    }                                                                        \
+    extern "C" int tt_modew##SFX(int op, const W* a, long long a_bs,         \
+                                 const W* b, long long b_bs, W* out, int B,  \
+                                 int rows, int N, const W* col,              \
+                                 long long col_bs, const W* q, const W* k,   \
+                                 void* stream) {                             \
+        return modew(op, a, a_bs, b, b_bs, out, B, rows, N, col, col_bs, q,  \
+                     k, stream);                                             \
     }
 
 #if TT_I64

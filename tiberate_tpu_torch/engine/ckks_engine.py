@@ -17,7 +17,9 @@ The NTTs, the tensor product, the keyswitch (all parts in one kernel,
 ``ntt_keymul_parts``, at every logN) and the P-division go through the
 kernel wrappers of :mod:`tiberate_tpu_torch.ops.ntt_kernels`, and the
 step's glue between them (the rescale, the keyswitch digits and the
-special rows of the P-division) through those of
+special rows of the P-division), and the modular add, subtract and
+product by a column of ``cc_add``, ``cc_sub``, ``level_up`` and the
+scalar products, through those of
 :mod:`tiberate_tpu_torch.ops.glue_kernels`: one code path, which
 launches the Hopper kernels for CUDA tensors and runs their plain
 versions for CPU tensors.  Outputs are bit-identical to the JAX
@@ -220,11 +222,13 @@ def _ccmult_tensor_core(x0, x1, y0, y1, lp):
 
 
 def _cc_add_core(a, b, lp):
-    return mont.reduce_2q(mont.mont_add(a, b, lp.pack), lp.pack)
+    """(a + b) mod q in [0, q): one G4 kernel (``glue_kernels.mod_add``)."""
+    return glue.mod_add(a, b, lp)
 
 
 def _cc_sub_core(a, b, lp):
-    return mont.reduce_2q(mont.mont_sub(a, b, lp.pack), lp.pack)
+    """(a - b) mod q in [0, q): one G4 kernel (``glue_kernels.mod_sub``)."""
+    return glue.mod_sub(a, b, lp)
 
 
 def _perm_core(d, src, sign):
@@ -268,7 +272,9 @@ def _pc_mult_core(pt_ntt, ct0, ct1, lp):
 
 
 def _mont_scalar_core(d, scalar_col, lp):
-    return mont.reduce_2q(mont.mont_mult(d, scalar_col, lp.pack), lp.pack)
+    """d times a column (REDC), in [0, q): one G4 kernel
+    (``glue_kernels.mont_scalar``), which reads ``d`` in place."""
+    return glue.mont_scalar(d, scalar_col, lp)
 
 
 def _add_scalar_core(ct0, scalar_col, lp):

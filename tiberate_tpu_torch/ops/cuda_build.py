@@ -57,6 +57,8 @@ _LANED = {
     "tt_rescale": [_P, _L, _P, _L, _P, _I, _I, _I, _P, _P, _P, _L, _I, _P],
     "tt_parts_digits": [_P, _L, _P, _I, _I, _I, _I, _P, _I, _P],
     "tt_pdiv_p0": [_P, _L, _P, _I, _I, _I, _P, _P, _P, _P],
+    # the engine's elementwise ops (G4): op, then as the glue's
+    "tt_modew": [_I, _P, _L, _P, _L, _P, _I, _I, _I, _P, _L, _P, _P, _P],
 }
 # Every C entry point -> argument types.  The fold-rate probe takes its
 # constants by value in its lane's word, and its Shoup fold has no 30-bit

@@ -1,7 +1,8 @@
-"""The cc_mult step's glue as Hopper kernels: wrappers and plain versions.
+"""The cc_mult step's glue and the engine's elementwise ops as Hopper
+kernels: wrappers and plain versions.
 
 The elementwise work around the NTT kernels, which XLA fuses inside the
-JAX package's jitted step, runs here as one kernel each (``csrc/glue.cu``):
+JAX package's jitted code, runs here as one kernel each (``csrc/glue.cu``):
 
 ====  ====================  ==============================================
 G1    :func:`rescale`       drop the top channel: ``_rescale_core``
@@ -9,6 +10,10 @@ G2    :func:`parts_digits`  every keyswitch part's mixed-radix digits,
                             zero-padded (K6's operand): ``_pre_extend``
 G3    :func:`pdiv_p0`       the special rows each P-division subtracts:
                             the special-row phase of ``_pdiv_fused``
+G4    :func:`mont_scalar`   the product by one constant a channel, then
+                            ``reduce_2q``: ``_mont_scalar_core``
+      :func:`mod_add`,      the lazy add / subtract, then ``reduce_2q``:
+      :func:`mod_sub`       ``_cc_add_core``, ``_cc_sub_core``
 ====  ====================  ==============================================
 
 As in :mod:`~tiberate_tpu_torch.ops.ntt_kernels`: a CPU tensor runs the
@@ -20,9 +25,12 @@ port) under the wrapper's name, ``_30`` appended in the 30-bit lane.
 Inputs may be views: each is ``[..., rows, N]`` with contiguous
 coefficients, its rows N words apart and its leading dimensions one
 stride (``x.view(-1, rows, N)`` must not copy), as ``d[..., 1:, :]`` or a
-shard's row block is.  Outputs are new contiguous tensors.  The kernels
-run the plain versions' REDCs in the same order on the same operands, so
-their outputs are bit-identical.
+shard's row block is.  G4's two operands broadcast along their leading
+dimensions (one ciphertext against a stack: batch stride 0), and G4
+checks its operands on every device, so that a CPU run refuses what the
+kernel would.  Outputs are new contiguous tensors.  The kernels run the
+plain versions' REDCs and selects in the same order on the same
+operands, so their outputs are bit-identical.
 """
 
 import ctypes
@@ -41,7 +49,8 @@ from tiberate_tpu_torch.ops.ntt_kernels import (
     _stream,
 )
 
-WRAPPERS = ("rescale", "parts_digits", "pdiv_p0")
+WRAPPERS = ("rescale", "parts_digits", "pdiv_p0", "mont_scalar", "mod_add",
+            "mod_sub")
 LAUNCHES = kern.LAUNCHES
 LAUNCHES.update(dict.fromkeys(
     (name + sfx for sfx in LANES.values() for name in WRAPPERS), 0))
@@ -305,3 +314,113 @@ def pdiv_p0(cur, lp_spec, PiRs, C, S):
     )
     _done(rc, "pdiv_p0", pack)
     return p0
+
+
+# ----------------------------------------------------------------------
+# G4 — the engine's modular add, subtract and product by a column.
+# ----------------------------------------------------------------------
+
+_MODEW_OPS = {"mont_scalar": 0, "mod_add": 1, "mod_sub": 2}  # TT_MONT_SCALAR..
+
+
+def mont_scalar_plain(d, col, lp):
+    return mont.reduce_2q(mont.mont_mult(d, col, lp.pack), lp.pack)
+
+
+def mod_add_plain(a, b, lp):
+    return mont.reduce_2q(mont.mont_add(a, b, lp.pack), lp.pack)
+
+
+def mod_sub_plain(a, b, lp):
+    return mont.reduce_2q(mont.mont_sub(a, b, lp.pack), lp.pack)
+
+
+def _broadcast_leading(x, y):
+    """The shape two operands of shapes ``x`` and ``y`` [..., C, N]
+    broadcast to along their leading dimensions (torch's rule; C and N
+    must agree)."""
+    if len(x) < 2 or x[-2:] != y[-2:]:
+        raise ValueError(f"a {x} and b {y}: only leading dimensions "
+                         f"broadcast")
+    n = max(len(x), len(y))
+    lead = []
+    for i, j in zip((1,) * (n - len(x)) + x[:-2], (1,) * (n - len(y)) + y[:-2]):
+        if i != j and 1 not in (i, j):
+            raise ValueError(f"a {x} and b {y} do not broadcast")
+        lead.append(j if i == 1 else i)
+    return (*lead, *x[-2:])
+
+
+def _modew_geometry(pack, a, b=None, col=None):
+    """G4's operands, checked on any device: (output shape, B, batch
+    strides of ``a``, ``b`` and ``col``).  ``a`` and ``b`` are [..., C, N]
+    (C the pack's channels) and broadcast along their leading dimensions;
+    each, broadcast to the output, must fold into [B, C, N] with one batch
+    stride, 0 where it repeats.  ``col`` is [C, 1], or [B, C, 1] for ``a``
+    [B, C, N]."""
+    C = pack.num_channels
+    dev = a.device
+    _check_views(dev, pack.dtype, a=a,
+                 **{n: t for n, t in (("b", b), ("col", col))
+                    if t is not None})
+    _check(dev, pack.dtype, q=pack.q, k=pack.k)
+    shape = tuple(a.shape)
+    if b is not None and tuple(b.shape) != shape:
+        shape = _broadcast_leading(shape, tuple(b.shape))
+    B, a_bs = _rows_view(a if a.shape == shape else a.expand(shape), C, "a")
+    b_bs = 0
+    if b is not None:
+        b_bs = _rows_view(b if b.shape == shape else b.expand(shape), C,
+                          "b")[1]
+    col_bs = 0
+    if col is not None:
+        if tuple(col.shape) == (C, 1):
+            col_bs = 0
+        elif len(shape) == 3 and tuple(col.shape) == (B, C, 1):
+            col_bs = C
+        else:
+            raise ValueError(f"col shape {tuple(col.shape)}: want {(C, 1)}"
+                             f" or [B, {C}, 1] for a [B, {C}, N]")
+    return shape, B, a_bs, b_bs, col_bs
+
+
+def _modew(op, pack, a, b, col, geometry):
+    shape, B, a_bs, b_bs, col_bs = geometry
+    if col is not None:
+        col = col.contiguous()
+    out = torch.empty(shape, dtype=a.dtype, device=a.device)
+    rc = _entry("tt_modew", pack)(
+        _MODEW_OPS[op], _ptr(a), a_bs, _ptr(b), b_bs, _ptr(out), B,
+        pack.num_channels, shape[-1], _ptr(col), col_bs, _ptr(pack.q),
+        _ptr(pack.k), _stream(a.device),
+    )
+    _done(rc, op, pack)
+    return out
+
+
+def mont_scalar(d, col, lp):
+    """``d`` [..., C, N] in [0, q) times ``col`` (REDC), canonical in [0,
+    q): one constant in [0, q) a channel ([C, 1]), or a channel and
+    stacked ciphertext ([B, C, 1] for ``d`` [B, C, N])."""
+    geometry = _modew_geometry(lp.pack, d, col=col)
+    if _on_cpu(d):
+        return mont_scalar_plain(d, col, lp)
+    return _modew("mont_scalar", lp.pack, d, None, col, geometry)
+
+
+def mod_add(a, b, lp):
+    """``a + b`` mod q, canonical in [0, q), for ``a`` and ``b`` [..., C,
+    N] in [0, 2q), broadcast along their leading dimensions."""
+    geometry = _modew_geometry(lp.pack, a, b)
+    if _on_cpu(a):
+        return mod_add_plain(a, b, lp)
+    return _modew("mod_add", lp.pack, a, b, None, geometry)
+
+
+def mod_sub(a, b, lp):
+    """``a - b`` mod q, canonical in [0, q), for ``a`` and ``b`` [..., C,
+    N] in [0, 2q), broadcast along their leading dimensions."""
+    geometry = _modew_geometry(lp.pack, a, b)
+    if _on_cpu(a):
+        return mod_sub_plain(a, b, lp)
+    return _modew("mod_sub", lp.pack, a, b, None, geometry)

@@ -114,8 +114,14 @@ def pdiv_p0(batch: int, S: int, N: int) -> int:
     return batch * N * S * (S - 1) // 2
 
 
+def mont_scalar(rows: int, N: int) -> int:
+    """G4's product by a column over ``rows`` = B x C rows: one REDC per
+    coefficient (``modew_k``, glue.cu).  Its add and subtract do none."""
+    return rows * N
+
+
 # The glue's bytes, in words of ``word`` bytes: every input read once and
-# every output written once (G1-G3 are bound by these).
+# every output written once (G1-G4 are bound by these).
 
 
 def rescale_bytes(batch: int, c: int, N: int, word: int) -> int:
@@ -136,6 +142,24 @@ def pdiv_p0_bytes(batch: int, S: int, N: int, word: int) -> int:
     """G3: S special rows read and S written; the S - 1 division columns
     and each row's q and k."""
     return word * (2 * batch * S * N + (S - 1) * S + 2 * S)
+
+
+def mont_scalar_bytes(batch: int, C: int, N: int, word: int,
+                      col_batch: int = 1) -> int:
+    """G4's product: B x C rows read and written; each row's q and k, and
+    the column's ``col_batch`` x C words (1 for [C, 1], B for [B, C,
+    1])."""
+    return word * (2 * batch * C * N + (2 + col_batch) * C)
+
+
+def mod_add_bytes(batch: int, C: int, N: int, word: int,
+                  b_batch: int | None = None) -> int:
+    """G4's add or subtract: B x C rows of the first operand read and of
+    the output written; the second operand's ``b_batch`` x C rows read
+    once (B, the default, or 1 for one ciphertext against a stack, batch
+    stride 0); each row's q."""
+    b_batch = batch if b_batch is None else b_batch
+    return word * ((2 * batch + b_batch) * C * N + C)
 
 
 def bound(nbytes: float, redc: int, redc_per_s: float) -> dict:

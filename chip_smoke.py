@@ -84,8 +84,7 @@ Phases (any failure exits non-zero):
    step on one pair and ``rescale`` must equal the card's;
 5. time the logN15 step (median of 3 loops after a warm-up), the same step
    with every wrapper (K1-K6, G1-G3) swapped for its plain version (torch
-   ops on the card), and the step through the per-part keyswitch chain
-   instead of the all-parts kernel (byte-identical); profile one step with
+   ops on the card); profile one step with
    torch.profiler: device time by kernel, and the device's busy share of
    that profiled step's wall time (the profiler slows the host, so this
    share is lower than an unprofiled step's); a seed-expanded evk
@@ -126,9 +125,7 @@ Phases (any failure exits non-zero):
    and two K4, within 1e-4; the device memory the keys hold before and
    after their first use (the K6 key form adds only its pointer tables);
 9. logN17 timing: the step with the kernels and with the plain versions,
-   the route A/B (the per-part chain with its in-part shortcut against
-   the all-parts kernel, byte-identical, with each run's peak device
-   memory), one profiled step, and the CSPRNG's share of keygen and of
+   one profiled step, and the CSPRNG's share of keygen and of
    ``encodecrypt_batch``;
 10. the 30-bit mode (int32 residues, R = 2^30) at "logN15_30" (19 primes):
     every 30-bit kernel (the ``_30`` lane) against its plain version at the
@@ -140,14 +137,14 @@ Phases (any failure exits non-zero):
     the JAX package's 30-bit
     preset bound, and ``sum`` 200x that), ``_30`` kernels only; step
     times with the kernels and
-    the plain versions, printed beside phase 5's 62-bit logN15 step; the
-    route A/B; one profiled step; the CSPRNG's share of keygen and of
+    the plain versions, printed beside phase 5's 62-bit logN15 step; one
+    profiled step; the CSPRNG's share of keygen and of
     ``encodecrypt_batch``;
 11. "logN17_30" (17 primes): the 30-bit kernels at the step's shapes; the
     main path through the all-parts kernel (one ``ntt_keymul_parts_30``
     launch, no chain launch; error below 1e-2); the evaluation as in 8b,
-    within 5e-3; the step equal to the plain-version step; the route A/B
-    with peak memory; one profiled step; the CSPRNG's share as in 10;
+    within 5e-3; the step equal to the plain-version step; one profiled
+    step; the CSPRNG's share as in 10;
 11b. Preset.logN16 (4 special primes): keygen, ``encodecrypt_batch`` of
     8 twice, the fused step through the all-parts kernel (launches
     counted from 0), its decrypt error below 1e-6, its time and peak
@@ -295,8 +292,8 @@ PROBE = {
 PATH_15 = ("ntt", "intt", "ntt_keymul", "intt_pdiv", "ntt_tensor",
            "ntt_keymul_parts", *GLUE)
 STEP_15 = ("intt", "intt_pdiv", "ntt_tensor", "ntt_keymul_parts", *GLUE)
-# every preset keyswitches through K6; the per-part chain runs on the mesh
-# paths (phase 13) and on the route A/B's chain route
+# every preset keyswitches through K6; the per-part chain runs only on the
+# mesh paths (phase 13)
 PATH_17 = PATH_15
 STEP_17 = STEP_15
 # the kernels the logN15 evaluation path launches (phase 5b): keys (K1, K2),
@@ -1659,59 +1656,6 @@ def time_step(eng, kern, A, B, tag, smi, loops, plain_reps):
     return step_ms, plain_step_ms
 
 
-def route_ab(eng, kern, sharded, A, B, tag, loops):
-    """The same step through the per-part chain (its ``prm`` built here:
-    no all-parts key form, the in-part shortcut's cache) and through the
-    all-parts kernel (the engine's default ``prm``): byte-identical
-    outputs, each route's time, launches and peak device memory.  Returns
-    (results, the chain route's launches, counted from 0)."""
-    sfx = kern.LANES[eng.params.dtype]
-    step = eng._fused_mult_step(A.level)
-    ksk = sharded.prepare_step_ksk(eng, A.level)
-    prm = sharded.mult_step_params(eng, A.level)
-    routes = {
-        "chain": dict(prm, parts_fused=None,
-                      inpart=eng._ksk_inpart(eng.evk, A.level + 1)),
-        "parts_kernel": prm,
-    }
-    outs, res, chain_counts = {}, {}, None
-    for name, p in routes.items():
-        def run(p=p):
-            return step(A.data[0], A.data[1], B.data[0], B.data[1], ksk, p)
-
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        outs[name], counts = count_launches(kern, run)
-        peak = torch.cuda.max_memory_allocated()
-        if name == "chain":
-            chain_counts = counts
-        ms = cuda_ms(run, *loops)
-        res[name] = dict(ms=ms, peak_bytes=peak, resident_bytes=base,
-                         accum=counts["ntt_keymul_accum" + sfx],
-                         parts=counts["ntt_keymul_parts" + sfx])
-        log(f"{tag} route {name}: {ms:.3f} ms/step, peak device memory "
-            f"{peak / 2**30:.3f} GiB (resident before the step "
-            f"{base / 2**30:.3f} GiB), ntt_keymul_accum{sfx} x"
-            f"{res[name]['accum']}, ntt_keymul_parts{sfx} x"
-            f"{res[name]['parts']}")
-    n_parts = len(eng.params.parts[A.level + 1])
-    if (res["chain"]["accum"], res["chain"]["parts"]) != (n_parts, 0) or (
-            res["parts_kernel"]["accum"], res["parts_kernel"]["parts"]) != (
-            0, 1):
-        raise AssertionError(f"{tag} route A/B took the wrong kernels")
-    same = all(torch.equal(c, k)
-               for c, k in zip(outs["chain"], outs["parts_kernel"]))
-    log(f"{tag} route A/B: chain == all-parts kernel byte for byte: {same}; "
-        f"all-parts kernel / chain: {res['parts_kernel']['ms']:.3f} / "
-        f"{res['chain']['ms']:.3f} ms/step, peak "
-        f"{res['parts_kernel']['peak_bytes'] / 2**30:.3f} / "
-        f"{res['chain']['peak_bytes'] / 2**30:.3f} GiB")
-    if not same:
-        raise AssertionError(f"{tag} the two keyswitch routes differ")
-    return res, chain_counts
-
-
 def switch_key_17(eng, kern, stack, unstack):
     """A batch of ciphertexts under a second secret key, switched to the
     engine's key; launches counted from 0.  Returns (err, counts)."""
@@ -2853,7 +2797,6 @@ def main():
     from tiberate_tpu_torch.engine import ckks_engine as mod
     from tiberate_tpu_torch.ops import cuda_build, fold_probe, mont, roofline
     from tiberate_tpu_torch.ops import ntt_kernels as kern
-    from tiberate_tpu_torch.parallel import sharded
     from tiberate_tpu_torch.rng.csprng import Csprng
 
     # 1. the card
@@ -2932,10 +2875,9 @@ def main():
     eng_cpu = check_against_cpu(eng, CkksEngine, Preset.logN15, A, B, out,
                                 "logN15")
 
-    # 5. logN15 timing, route A/B, profile
+    # 5. logN15 timing, profile
     step_ms, plain_step_ms = time_step(eng, kern, A, B, "logN15", smi,
                                        (3, 3), 3)
-    ab15, chain15 = route_ab(eng, kern, sharded, A, B, "logN15", (3, 3))
     profile_step(lambda: eng.cc_mult(A, B), "logN15")
     compressed_keys(eng, ttyping, mont)
 
@@ -2977,10 +2919,9 @@ def main():
         DECRYPT_TOL_17, "", "logN17", large=True)
 
     # 9. logN17 timing (3 single-step loops; one for the plain versions,
-    # whose step takes seconds), route A/B, profile
+    # whose step takes seconds), profile
     step17_ms, plain_step17_ms = time_step(eng17, kern, A, B, "logN17", smi,
                                            (3, 1), 1)
-    ab17, chain17 = route_ab(eng17, kern, sharded, A, B, "logN17", (3, 1))
     profile_step(lambda: eng17.cc_mult(A, B), "logN17", top=16)
     share17 = draw_share(eng17, msgs(eng17)[0], "logN17")
 
@@ -2994,7 +2935,7 @@ def main():
     release_engines(ttyping)
 
     # 10. the 30-bit mode at logN15_30: kernels, the main path (all parts in
-    # one kernel), the CPU comparison, timing, route A/B, profile
+    # one kernel), the CPU comparison, timing, profile
     eng_k = CkksEngine("logN15_30", device="cuda", seed=SEED)
     results15_30 = check_kernels(eng_k, kern, mod, roofline, "logN15_30",
                                  (3, 3), rate30)
@@ -3016,15 +2957,13 @@ def main():
     log(f"logN15 fused step, batch {BATCH}, same call: 62-bit "
         f"{step_ms:.3f} ms/step, 30-bit (logN15_30) {step15_30_ms:.3f} "
         f"ms/step ({smi})")
-    ab15_30, chain15_30 = route_ab(eng, kern, sharded, A, B, "logN15_30",
-                                   (3, 3))
     profile_step(lambda: eng.cc_mult(A, B), "logN15_30")
     share15_30 = draw_share(eng, msgs(eng)[0], "logN15_30")
     del eng, A, B, out
     release_engines(ttyping)
 
     # 11. logN17_30: kernels, the main path through the all-parts kernel,
-    # the plain-version step, route A/B with peak memory, profile
+    # the plain-version step, profile
     t0 = time.perf_counter()
     eng = CkksEngine("logN17_30", device="cuda", seed=SEED)
     n_parts = len(eng.params.parts[1])
@@ -3044,8 +2983,6 @@ def main():
         DECRYPT_TOL_30_OP, "_30", "logN17_30", large=True)
     step17_30_ms, plain_step17_30_ms = time_step(
         eng, kern, A, B, "logN17_30", smi, (3, 1), 1)
-    ab17_30, chain17_30 = route_ab(eng, kern, sharded, A, B, "logN17_30",
-                                   (3, 1))
     profile_step(lambda: eng.cc_mult(A, B), "logN17_30", top=16)
     share17_30 = draw_share(eng, msgs(eng)[0], "logN17_30")
     del eng, A, B, out
@@ -3070,14 +3007,16 @@ def main():
     multihost = multihost_phase()
 
     # the driven paths: the main paths, switch_key, the evaluation,
-    # extension and mesh paths, the logN16 step, and the route A/B's
-    # chain route (the per-part chain, each run counted from 0)
+    # extension and mesh paths, the logN16 step.  K3 accum runs only in the
+    # mesh switcher, which phase 13 drives in the 62-bit lane; phases 2c
+    # and 3 hold it to its plain version in both lanes
     paths = (launches15, launches17, sw_counts, launches15_30,
              launches17_30, eval15, eval17, eval15_30, eval17_30, ext15,
-             mesh15, step16, chain15, chain17, chain15_30, chain17_30, draws)
+             mesh15, step16, draws)
     counts = {k: sum(p[k] for p in paths) for k in KERNELS}
     counts.update(probe_counts)
-    require(counts, [*KERNELS, *PROBE], "the driven paths")
+    require(counts, [*(k for k in KERNELS if k != "ntt_keymul_accum_30"),
+                     *PROBE], "the driven paths")
     # the CSPRNG's kernels join the 62-bit main paths' ranking at their
     # logN15 and logN17 draws
     kernels15, kernels17 = ({k: csprng_k[t][k] for k in CSPRNG}
@@ -3096,12 +3035,6 @@ def main():
             (results17_30, eval17_30, "_30", "logN17_30")):
         rank(res, launches, sfx, f"{tag} evaluation path:")
     rank(results15, ext15, "", "logN15 extension path:")
-    for res, launches, sfx, tag in (
-            (results15, chain15, "", "logN15"),
-            (results17, chain17, "", "logN17"),
-            (results15_30, chain15_30, "_30", "logN15_30"),
-            (results17_30, chain17_30, "_30", "logN17_30")):
-        rank(res, launches, sfx, f"{tag} route A/B, chain route:")
     rank(results15, mesh15, "", "logN15 mesh paths (every shard on one "
          "card):")
     measured = {"": (results17, results15, "logN17", "logN15"),
@@ -3137,7 +3070,7 @@ def main():
         "native_oracle": oracle,
         "logN15": {"step_ms": step_ms, "step_ms_per_ct": step_ms / BATCH,
                    "plain_step_ms": plain_step_ms,
-                   "decrypt_max_err": err15, "route_ab": ab15,
+                   "decrypt_max_err": err15,
                    "csprng_share": share15,
                    "evaluation": {"ops": evalres15, "ms": evaltimes15,
                                   "keys": evalkeys15}, **info15},
@@ -3146,19 +3079,19 @@ def main():
                    "plain_step_ms": plain_step17_ms,
                    "decrypt_max_err": err17,
                    "switch_key_decrypt_max_err": err_sw,
-                   "route_ab": ab17, "csprng_share": share17,
+                   "csprng_share": share17,
                    "evaluation": {"ops": evalres17, "keys": evalkeys17},
                    **info17},
         "logN15_30": {"step_ms": step15_30_ms,
                       "step_ms_per_ct": step15_30_ms / BATCH,
                       "plain_step_ms": plain_step15_30_ms,
-                      "decrypt_max_err": err15_30, "route_ab": ab15_30,
+                      "decrypt_max_err": err15_30,
                       "csprng_share": share15_30,
                       "evaluation": {"ops": evalres15_30}, **info15_30},
         "logN17_30": {"step_ms": step17_30_ms,
                       "step_ms_per_ct": step17_30_ms / BATCH,
                       "plain_step_ms": plain_step17_30_ms,
-                      "decrypt_max_err": err17_30, "route_ab": ab17_30,
+                      "decrypt_max_err": err17_30,
                       "csprng_share": share17_30,
                       "evaluation": {"ops": evalres17_30,
                                      "keys": evalkeys17_30},

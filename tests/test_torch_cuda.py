@@ -2,8 +2,8 @@
 
 Every test here needs a GPU and skips without one: the kernels against
 their plain versions (the keyswitch-chain kernel with and without a skip
-range), the chain step against the all-parts step, each in both lanes (the
-62-bit int64 lane and the 30-bit int32 lane), the card's step against
+range), each in both lanes (the 62-bit int64 lane and the 30-bit int32
+lane), the card's step against
 the CPU's, the fold-rate probe's three kernels against their plain
 versions, K1 without entry on the signed rows of a rotated or conjugated
 secret key, and the CSPRNG, keygen, the batch encrypt and decrypt forms,
@@ -40,9 +40,8 @@ from tiberate_tpu_torch.ops import fold_probe as fp
 from tiberate_tpu_torch.ops import glue_kernels as G
 from tiberate_tpu_torch.ops import ntt as ntt_ops
 from tiberate_tpu_torch.ops import ntt_kernels as K
-from tiberate_tpu_torch.parallel import sharded
 from tiberate_tpu_torch.rng.csprng import Csprng
-from tiberate_tpu_torch.typing import Ciphertext, Plaintext
+from tiberate_tpu_torch.typing import Plaintext
 from tiberate_tpu_torch.utils import encoding as codec
 from tiberate_tpu_torch.utils import trace
 
@@ -167,45 +166,6 @@ def test_ntt_keymul_accum_matches_plain_on_card(card, logN, lane):
             if skip is not None:
                 assert torch.equal(g[..., skip[0] : skip[1], :],
                                    b[..., skip[0] : skip[1], :])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("lane", sorted(LANES))
-def test_chain_step_equals_parts_kernel_step_on_card(card, lane):
-    """The fused step through the per-part chain with its in-part
-    shortcut (13 parts at logN17, 4 here; its ``prm`` built explicitly:
-    the engine's default is the all-parts kernel) equals the step through
-    the all-parts kernel, byte for byte; each route launches only its own
-    keyswitch kernel, in the lane of the engine's storage dtype."""
-    eng = teng.CkksEngine(_cfg(10, lane, num_scales=14,
-                               num_special_primes=6), device=card, seed=6)
-    sfx = LANES[lane][1]
-    rng = np.random.default_rng(4)
-    m1, m2 = (rng.uniform(-1, 1, (BATCH, eng.num_slots)) for _ in range(2))
-    a = teng.stack_ciphertexts([eng.encodecrypt(m) for m in m1])
-    b = teng.stack_ciphertexts([eng.encodecrypt(m) for m in m2])
-    step = eng._fused_mult_step(0)
-    ksk = sharded.prepare_step_ksk(eng, 0)
-    prm = sharded.mult_step_params(eng, 0)
-    outs = []
-    chain = dict(prm, parts_fused=None, inpart=eng._ksk_inpart(eng.evk, 1))
-    for route in (prm, chain):
-        K.reset_launch_counts()
-        outs.append(step(a.data[0], a.data[1], b.data[0], b.data[1], ksk,
-                         route))
-        torch.cuda.synchronize()
-        chain = route["parts_fused"] is None
-        assert K.LAUNCHES["ntt_keymul_accum" + sfx] == (4 if chain else 0)
-        assert K.LAUNCHES["ntt_keymul_parts" + sfx] == (0 if chain else 1)
-        other_lane = [k for k, v in K.LAUNCHES.items()
-                      if v and k.endswith("_30") != (lane == 30)]
-        assert not other_lane
-    for k6, ch in zip(*outs):
-        assert torch.equal(k6, ch)
-    out = Ciphertext(data=outs[1], level=1)
-    dec = np.stack([eng.decryptcode(ct, is_real=True)
-                    for ct in teng.unstack_ciphertext(out)])
-    assert np.abs(dec - m1 * m2).max() < (5e-5 if lane == 62 else 1e-2)
 
 
 @pytest.mark.cuda

@@ -1,18 +1,20 @@
-"""The per-part keyswitch chain of tiberate_tpu_torch against the JAX package.
+"""The keyswitch of tiberate_tpu_torch against the JAX package.
 
 At ``toy_config(logN=7, num_scales=14, num_special_primes=6)`` the parts at
 level 1 are (lo, hi) = (0, 5), (5, 11), (11, 13), (13, 14): the logN17
 pattern (alpha 5, then 6, then short tail parts) in small.
 
-* ``ntt_keymul_accum_plain`` against the jnp chain ``ntt`` -> ``mont_mult``
-  -> ``mont_add``, with the skipped channels passed through;
-* the port's ``_extend`` against the JAX ``_extend``;
-* the port's ``_switcher_body`` (per-part chain with and without the in-part
-  shortcut, and the all-parts kernel) against the JAX ``_switcher_body``,
-  which on the CPU runs its jnp branch;
+* ``ntt_keymul_accum_plain`` (K3 accum, one part of the mesh switcher's
+  per-part chain) against the jnp chain ``ntt`` -> ``mont_mult`` ->
+  ``mont_add``, with the skipped channels passed through;
+* the port's ``_extend`` (the mesh switcher's basis extension) against the
+  JAX ``_extend``;
+* the port's ``_switcher_body`` (the all-parts kernel, the one route on one
+  device) against the JAX ``_switcher_body``, which on the CPU runs its
+  jnp branch;
 * ``create_switcher`` on an NTT-domain input against the same;
 * ``switch_key`` on a JAX ciphertext and key-switching key carried across
-  with ``interop.from_jax``, through both keyswitch routes;
+  with ``interop.from_jax``;
 * ``CkksParams.part_lp`` at each part against the JAX package's;
 * the all-parts key form reads the key's rows in place (no stacked copy,
   pointer tables beside the views), and ``switch_key`` / ``relinearize``
@@ -38,7 +40,7 @@ from tiberate_tpu_torch.config.toy import toy_config
 from tiberate_tpu_torch.engine import CkksEngine as TorchEngine
 from tiberate_tpu_torch.engine import ckks_engine as teng
 from tiberate_tpu_torch.ops import ntt_kernels as K
-from tiberate_tpu_torch.typing import FLAGS, Ciphertext, KeySwitchKey
+from tiberate_tpu_torch.typing import FLAGS, KeySwitchKey
 
 torch.set_num_threads(1)
 
@@ -141,7 +143,7 @@ def test_extend_matches_jax(params, part_id):
         assert _eq(want, got[b])
 
 
-# (c) the switcher body, three routes ---------------------------------
+# (c) the switcher body ------------------------------------------------
 
 
 @pytest.fixture(scope="module")
@@ -174,33 +176,17 @@ def switch_case(params):
     return ksk, torch.from_numpy(a), torch.from_numpy(a_ntt), want
 
 
-@pytest.mark.parametrize("route", ["chain_inpart", "chain", "parts_kernel"])
-def test_switcher_body_matches_jax(params, switch_case, route):
+def test_switcher_body_matches_jax(params, switch_case):
     _, eng = params
-    ksk, a, a_ntt, want = switch_case
-    ksk_parts, parts = eng._ksk_args(ksk, LEVEL)
-    kw = {}
-    if route == "chain_inpart":
-        kw = dict(a_ntt=a_ntt, inpart=eng._ksk_inpart(ksk, LEVEL))
-    elif route == "parts_kernel":
-        kw = dict(parts_fused=eng._ksk_parts_fused(ksk, LEVEL))
+    ksk, a, _, want = switch_case
     K.reset_launch_counts()
     got = teng._switcher_body(
-        a, ksk_parts, parts, eng._lp(LEVEL, True), eng._lp(LEVEL, False),
-        tuple(eng.params.PiRs[LEVEL]), LEVEL, eng.params.S, False, **kw)
+        a, eng._ksk_parts_fused(ksk, LEVEL), tuple(eng.params.parts[LEVEL]),
+        eng._lp(LEVEL, True), eng._lp(LEVEL, False),
+        tuple(eng.params.PiRs[LEVEL]), eng.params.S, False)
     assert all(v == 0 for v in K.LAUNCHES.values())  # CPU: plain versions
     for b, (w0, w1) in enumerate(want):
         assert _eq(w0, got[0][b]) and _eq(w1, got[1][b])
-
-
-def test_inpart_diag_keys_are_each_channels_part_key(params, switch_case):
-    _, eng = params
-    ksk = switch_case[0]
-    (d0, d1), skips = eng._ksk_inpart(ksk, LEVEL)
-    assert skips == ((0, 5), (5, 11), (11, 13), (13, 14))
-    for (lo, hi), g in zip(skips, eng.params.parts_alloc[LEVEL]):
-        for d, k in zip((d0, d1), ksk.data[g]):
-            assert torch.equal(d[lo:hi], k[LEVEL + lo : LEVEL + hi])
 
 
 # (d) switch_key on JAX objects -----------------------------------------
@@ -219,26 +205,16 @@ def jax_switch():
     return jeng_, ct, ksk, jeng_.switch_key(ct, ksk), m
 
 
-@pytest.mark.parametrize("route", ["default", "chain"])
-def test_switch_key_matches_jax(jax_switch, route):
+def test_switch_key_matches_jax(jax_switch):
     jeng_, jct, jksk, want, m = jax_switch
     eng = TorchEngine(jeng_.ckksCfg, device="cpu", seed=0)
     eng.sk = interop.from_jax(jeng_.sk, device="cpu")
     ct, ksk = interop.from_jax(jct, device="cpu"), interop.from_jax(jksk, device="cpu")
-    if route == "default":
-        got = eng.switch_key(ct, ksk)
-        assert got.level == want.level and got._flags == ct._flags
-        got = got.data
-    else:
-        ksk_parts, parts = eng._ksk_args(ksk, ct.level)
-        got = teng._switch_key_core(
-            ct.data[0], ct.data[1], ksk_parts, parts, eng._lp(0, True),
-            eng._lp(0, False), tuple(eng.params.PiRs[0]), 0, eng.params.S,
-            False, parts_fused=None)
-    for w, g in zip(want.data, got):
+    got = eng.switch_key(ct, ksk)
+    assert got.level == want.level and got._flags == ct._flags
+    for w, g in zip(want.data, got.data):
         assert _eq(w, g)
-    out = eng.decryptcode(Ciphertext(data=tuple(got), level=ct.level),
-                          is_real=True)
+    out = eng.decryptcode(got, is_real=True)
     assert np.abs(out - m).max() < 5e-5
 
 
@@ -343,8 +319,7 @@ def test_keyswitch_runs_the_parts_kernel_and_matches_jax(jax_pair, op,
                                                         monkeypatch):
     """``switch_key`` and ``relinearize`` on JAX objects: one
     ``ntt_keymul_parts`` call each (its plain version on the CPU, fed the
-    key's rows in place), no chain kernel, the JAX package's bytes; the
-    relinearization builds no in-part cache on the evk."""
+    key's rows in place), no chain kernel, the JAX package's bytes."""
     _, j, t, (ct2, ksk, trip) = jax_pair
     calls = {"parts": 0, "chain": 0}
     parts_plain, accum_plain = (K.ntt_keymul_parts_plain,
@@ -368,7 +343,6 @@ def test_keyswitch_runs_the_parts_kernel_and_matches_jax(jax_pair, op,
         want = j.relinearize(trip, j.evk)
         tksk = t.evk
         got = t.relinearize(interop.from_jax(trip, device="cpu"))
-        assert "_inpart" not in tksk.misc
     assert calls == {"parts": 1, "chain": 0}
     assert "_parts_tables" in tksk.misc
     assert got.level == want.level

@@ -10,7 +10,12 @@ tests/test_parallel.py::test_rns_sharded_keyswitch) and its 30-bit twin:
   and scattered, and at rns 2 x coef 2, gives the bytes of the JAX
   engine's unsharded ``create_switcher`` (the JAX package's mesh test
   proves its own sharded switcher equals that), with one all_gather a
-  switch, two with scattered special rows;
+  switch, two with scattered special rows; so does its per-part loop
+  (``_pre_extend``, ``_extend``, ``ntt_keymul``, ``ntt_keymul_accum``)
+  over parts of unequal alpha, at the logN17-pattern toy
+  (``toy_config(logN=7, num_scales=14, num_special_primes=6,
+  scale_bits=30)``) at level 1: 14 ordinary channels, parts (0, 5),
+  (5, 11), (11, 13), (13, 14), at rns 2 and rns 2 x coef 2;
 * the (batch 2, rns 2) mesh step on B = 4 gives the single-device step's
   bytes per ciphertext, with one all_gather in all.
 
@@ -72,31 +77,40 @@ def test_coef_sharded_ntt_matches_jax(case):
         assert mesh.counts["all_gather"] == 0
 
 
-@pytest.fixture(scope="module", params=sorted(TOYS))
-def switch_case(request):
-    """(JAX c0, c1 of create_switcher, port engine carrying the JAX evk,
-    the input a) at level 0: C_ord = 4, so 2 and 4 divide it."""
-    cfg = TOYS[request.param]()
+def _switch_case(cfg, level):
+    """(JAX c0, c1 of create_switcher at ``level``, port engine carrying the
+    JAX evk, the input a: two rows of the level's ordinary channels)."""
     jeng = JaxEngine(cfg, seed=5, nonce=2)
-    C = jeng.params.P
+    q = jeng.params.q[level:jeng.params.P]
     rng = np.random.default_rng(0)
-    a = np.stack([rng.integers(0, q, (2, jeng.params.N))
-                  for q in jeng.params.q[:C]], axis=1).astype(cfg.numpy_dtype)
+    a = np.stack([rng.integers(0, p, (2, jeng.params.N)) for p in q],
+                 axis=1).astype(cfg.numpy_dtype)
     want = [np.stack([np.asarray(c) for c in jeng.create_switcher(
-        jnp.asarray(row), jeng.evk, level=0)]) for row in a]
+        jnp.asarray(row), jeng.evk, level=level)]) for row in a]
     teng = TorchEngine(cfg, device="cpu", seed=5)
     teng.evk = interop.from_jax(jeng.evk, device="cpu")
     return np.stack(want, axis=1), teng, torch.from_numpy(a)
 
 
-@pytest.mark.parametrize("rns,coef,scatter", [
-    (2, 1, False), (4, 1, False), (2, 1, True), (4, 1, True),
-    (2, 2, False)])
-def test_rns_switcher_matches_jax(switch_case, rns, coef, scatter):
-    want, teng, a = switch_case
+@pytest.fixture(scope="module", params=sorted(TOYS))
+def switch_case(request):
+    """``_switch_case`` at level 0: C_ord = 4, so 2 and 4 divide it."""
+    return _switch_case(TOYS[request.param](), 0)
+
+
+@pytest.fixture(scope="module")
+def switch_case_s6():
+    """``_switch_case`` at the logN17-pattern toy, level 1."""
+    cfg = toy_config(logN=7, num_scales=14, num_special_primes=6,
+                     scale_bits=30)
+    return _switch_case(cfg, 1)
+
+
+def _check_switcher(case, level, rns, coef, scatter):
+    want, teng, a = case
     mesh = _cpu_mesh(rns=rns, coef=coef)
     sw = rns_sharded.make_rns_sharded_switcher(
-        teng, 0, mesh, scatter_special=scatter, coef_axis="coef")
+        teng, level, mesh, scatter_special=scatter, coef_axis="coef")
     x = meshlib.ShardedArray.from_tensor(
         a, mesh, (None, "rns", "coef" if coef > 1 else None))
     mesh.reset_counts()
@@ -105,14 +119,35 @@ def test_rns_switcher_matches_jax(switch_case, rns, coef, scatter):
         assert g.spec == x.spec
         assert np.array_equal(g.gather().numpy(), w)
     # one all_gather of the ordinary channels a switch; scattered special
-    # rows add one of their canonical rows
-    assert mesh.counts["all_gather"] == (2 if scatter else 1)
-    assert mesh.counts["ppermute"] == (0 if coef == 1 else 4)
+    # rows (not with a coef axis) add one of their canonical rows
+    assert mesh.counts["all_gather"] == (2 if scatter and coef == 1 else 1)
+    # coef 2: one cross stage a part forward, one for the inverse
+    n_parts = len(teng.params.parts[level])
+    assert mesh.counts["ppermute"] == (0 if coef == 1 else n_parts + 1)
     # the prepared key form gives the same bytes
     rksk = sw.prepare_ksk(teng.evk.data)
     assert isinstance(rksk, rns_sharded.RnsKsk)
     for w, g in zip(want, sw(x, rksk)):
         assert np.array_equal(g.gather().numpy(), w)
+
+
+@pytest.mark.parametrize("rns,coef,scatter", [
+    (2, 1, False), (4, 1, False), (2, 1, True), (4, 1, True),
+    (2, 2, False)])
+def test_rns_switcher_matches_jax(switch_case, rns, coef, scatter):
+    _check_switcher(switch_case, 0, rns, coef, scatter)
+
+
+@pytest.mark.parametrize("rns,coef,scatter", [
+    (2, 1, False), (2, 1, True), (2, 2, False), (2, 2, True)])
+def test_rns_switcher_over_unequal_parts_matches_jax(switch_case_s6, rns,
+                                                     coef, scatter):
+    """The mesh switcher's per-part loop over parts of alpha 5, 6, 2 and 1
+    (rns 4 does not divide the 14 channels)."""
+    teng = switch_case_s6[1]
+    assert [(p.lo, p.hi) for p in teng.params.parts[1]] == [
+        (0, 5), (5, 11), (11, 13), (13, 14)]
+    _check_switcher(switch_case_s6, 1, rns, coef, scatter)
 
 
 def test_batch_rns_mesh_step_matches_single_device_step():

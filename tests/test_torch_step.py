@@ -3,13 +3,12 @@
 The JAX engine makes the keys and ciphertexts; ``interop.from_jax`` carries
 its evk and ciphertexts into the port, and both ``make_mult_step`` steps
 (rescale -> tensor product -> relinearize) run on them.  The port's step
-runs through both keyswitch routes: the all-parts kernel (its default at
-every logN; the JAX package's from logN17 up is the chain) and the
-per-part chain, with and without the in-part shortcut (forced by
-``parts_fused=None`` in ``prm``, the shortcut by ``prm["inpart"]``).  Both outputs are canonical [0, q)
-residues, so the tolerance is none: byte-identical.  The decrypt error of
-the port's result stays under the bound of the JAX package's own tests for
-that size.
+keyswitches through the all-parts kernel, its one route on one device at
+every logN (the JAX package's from logN17 up is the per-part chain), with
+the key form ``prepare_step_ksk`` returns.  Both outputs are canonical
+[0, q) residues, so the tolerance is none: byte-identical.  The decrypt
+error of the port's result stays under the bound of the JAX package's own
+tests for that size.
 """
 
 import jax
@@ -69,21 +68,14 @@ def test_port_step_matches_jax_step(case):
     teng.evk = interop.from_jax(jeng.evk, device="cpu")
     ta, tb = interop.from_jax(ca, device="cpu"), interop.from_jax(cb, device="cpu")
     step = tsharded.make_mult_step(teng, 0)
-    prm = tsharded.mult_step_params(teng, 0)
-    assert prm["parts_fused"] is not None  # the all-parts kernel
-    assert prm["inpart"] is None  # only the chain reads it
-    chain = dict(prm, parts_fused=None)
-    routes = (prm, chain,
-              lambda: dict(chain, inpart=teng._ksk_inpart(teng.evk, 1)))
-    for route in routes:
-        route = route() if callable(route) else route
-        got = step(ta.data[0], ta.data[1], tb.data[0], tb.data[1],
-                   tsharded.prepare_step_ksk(teng, 0), route)
-        for w, g in zip(want, got):
-            assert g.dtype == teng.params.dtype
-            assert np.array_equal(np.asarray(w), g.numpy())
-        if route is prm:  # the all-parts route built no chain key form
-            assert "_inpart" not in teng.evk.misc
+    ksk = tsharded.prepare_step_ksk(teng, 0)
+    # the all-parts key form at the work level, cached on the evk
+    assert ksk[1] is teng._ksk_parts_fused(teng.evk, 1)[1]
+    got = step(ta.data[0], ta.data[1], tb.data[0], tb.data[1], ksk,
+               tsharded.mult_step_params(teng, 0))
+    for w, g in zip(want, got):
+        assert g.dtype == teng.params.dtype
+        assert np.array_equal(np.asarray(w), g.numpy())
 
     out = teng.decryptcode(teng.cc_mult(ta, tb), is_real=True)
     assert np.abs(out - m1 * m2).max() < tol

@@ -30,9 +30,9 @@ switches keys at logN17 and above through the per-part chain
 (``tiberate_tpu/engine/ckks_engine.py:908-912``), because its Pallas
 all-parts kernel keeps the part sums in VMEM scratch and that working set
 does not fit at logN17.  The H100 kernel keeps them in registers, so here
-every logN takes the all-parts kernel; both routes give the same bytes.
-The per-part chain stays for the mesh paths and for a caller that asks
-for it (``parts_fused=None``).
+every logN takes the all-parts kernel, the one keyswitch route on one
+device; both routes give the same bytes.  The per-part chain lives on only
+in the mesh switcher (:mod:`tiberate_tpu_torch.parallel.rns_sharded`).
 """
 
 import functools
@@ -370,86 +370,47 @@ def _parts_consts(params, level):
     return ec.contiguous(), alphas
 
 
-def _switcher_body(a, ksk_parts, parts, lp_sp, lp_ord, PiRs, lvl, S,
-                   exit_ntt, a_ntt=None, inpart=None, parts_fused=None):
+def _switcher_body(a, ksk, parts, lp_sp, lp_ord, PiRs, S, exit_ntt):
     """Key switching of ``a`` [..., C, N] (coefficient domain, [0, q); NTT
     domain with ``exit_ntt``): returns (c0, c1) canonical ordinary rows.
 
-    ``parts_fused`` = (keys, tables, ec, alphas) from
+    ``ksk`` = (keys, tables, ec, alphas) from
     :meth:`CkksEngine._ksk_parts_fused`: every part's digits go to ONE
     ``ntt_keymul_parts`` call, which extends, transforms, multiplies by
     both evk components (read in place through ``tables``) and sums the
     parts.
-
-    ``parts_fused`` None: the per-part chain over ``ksk_parts`` (each
-    part's (k0, k1) evk rows at the level, :meth:`CkksEngine._ksk_args`):
-    per part ``_pre_extend`` + ``_extend``, then one ``ntt_keymul_accum``
-    that adds both key products into the running accumulators in place.
-    ``a_ntt`` + ``inpart`` (= (diag_keys, skips), see
-    :meth:`CkksEngine._ksk_inpart`) enable the in-part shortcut: the
-    extension is the identity on a part's own channels, so with the NTT
-    form of ``a`` at hand (relinearize: the tensor product's d2) those
-    rows' key products seed the accumulators and each part transforms only
-    its out-of-part rows.  Without the shortcut the first part has no
-    accumulator yet and runs the plain two-key ``ntt_keymul``.
     """
     if exit_ntt:
         a = kern.intt(a, lp_ord, "exit_reduce")
-    if parts_fused is not None:
-        keys, tables, ec, alphas = parts_fused
-        st = _parts_digits(a, parts, lp_ord, ec.shape[-1])
-        acc = kern.ntt_keymul_parts(st, ec, alphas, keys, lp_sp, tables)
-    else:
-        acc = None
-        skips = (None,) * len(parts)
-        if a_ntt is not None and inpart is not None:
-            diag_keys, skips = inpart
-            zeros = a_ntt.new_zeros(
-                (*a_ntt.shape[:-2], lp_sp.num_channels - lp_ord.num_channels,
-                 a_ntt.shape[-1]))
-            acc = tuple(
-                torch.cat([mont.mont_mult(a_ntt, dk, lp_ord.pack), zeros],
-                          dim=-2)
-                for dk in diag_keys
-            )
-        for part, skip, keys in zip(parts, skips, ksk_parts):
-            state = _pre_extend(a[..., part.lo : part.hi, :], part,
-                                lp_ord[part.lo : part.hi])
-            ext = _extend(state, part, lp_sp, lvl)
-            if acc is None:
-                acc = kern.ntt_keymul(ext, lp_sp, keys, enter=False)
-            else:
-                kern.ntt_keymul_accum(ext, lp_sp, keys, acc, skip)
+    keys, tables, ec, alphas = ksk
+    st = _parts_digits(a, parts, lp_ord, ec.shape[-1])
+    acc = kern.ntt_keymul_parts(st, ec, alphas, keys, lp_sp, tables)
     c0 = _pdiv_fused(acc[0], lp_sp, lp_ord, PiRs, S)
     c1 = _pdiv_fused(acc[1], lp_sp, lp_ord, PiRs, S)
     return c0, c1
 
 
-def _switch_key_core(ct0, a, ksk_parts, parts, lp_sp, lp_ord, PiRs, lvl, S,
-                     exit_ntt, parts_fused=None):
+def _switch_key_core(ct0, a, ksk, parts, lp_sp, lp_ord, PiRs, S, exit_ntt):
     """switch_key: new ct0 = ct0 + c0, new ct1 = c1 (the spans
     ``keyswitch`` and ``switch_key.close``)."""
     with trace.annotate("keyswitch"):
-        c0, c1 = _switcher_body(a, ksk_parts, parts, lp_sp, lp_ord, PiRs,
-                                lvl, S, exit_ntt, parts_fused=parts_fused)
+        c0, c1 = _switcher_body(a, ksk, parts, lp_sp, lp_ord, PiRs, S,
+                                exit_ntt)
     with trace.annotate("switch_key.close"):
         new0 = mont.reduce_2q(mont.mont_add(ct0, c0, lp_ord.pack),
                               lp_ord.pack)
     return new0, c1
 
 
-def _relin_core(d0, d1, d2, ksk_parts, parts, lp_sp, lp_ord, PiRs, lvl, S,
-                inpart=None, parts_fused=None):
+def _relin_core(d0, d1, d2, ksk, parts, lp_sp, lp_ord, PiRs, S):
     """relinearize a triplet in the NTT domain -> (ct0, ct1) (the spans
     ``keyswitch`` and ``relin.close``, the closing adds)."""
-    d2_ntt = d2
     d0 = kern.intt(d0, lp_ord, "exit_reduce")
     d1 = kern.intt(d1, lp_ord, "exit_reduce")
     d2 = kern.intt(d2, lp_ord, "exit_reduce")
     with trace.annotate("keyswitch"):
-        c0, c1 = _switcher_body(d2, ksk_parts, parts, lp_sp, lp_ord, PiRs,
-                                lvl, S, False, a_ntt=d2_ntt, inpart=inpart,
-                                parts_fused=parts_fused)
+        c0, c1 = _switcher_body(d2, ksk, parts, lp_sp, lp_ord, PiRs, S,
+                                False)
     with trace.annotate("relin.close"):
         ct0 = mont.reduce_2q(d0 + c0, lp_ord.pack)
         ct1 = mont.reduce_2q(d1 + c1, lp_ord.pack)
@@ -1144,7 +1105,7 @@ class CkksEngine:
         if key.misc.get("a_seed") is None:
             raise ValueError("only keys created with a_seed= are "
                              "compressible")
-        # the key-form caches (_parts_tables, _inpart) hold the a halves
+        # the key-form caches (_parts_tables, _rns_ksk) hold the a halves
         misc = {k: v for k, v in key.misc.items() if not k.startswith("_")}
         return dict(misc, compressed=True)
 
@@ -1205,15 +1166,6 @@ class CkksEngine:
             self._consts[level] = _parts_consts(self.params, level)
         return self._consts[level]
 
-    def _ksk_args(self, ksk: KeySwitchKey, level: int):
-        """(ksk_parts, parts) at ``level``: each live part's (k0, k1) evk
-        rows ``[level:]`` ([C_sp, N] views), in ``parts_alloc`` order."""
-        ksk_parts = tuple(
-            tuple(_t(k)[level:] for k in ksk.data[g])
-            for g in self.params.parts_alloc[level]
-        )
-        return ksk_parts, tuple(self.params.parts[level])
-
     @staticmethod
     def _key_cache(ksk: KeySwitchKey, name: str) -> dict:
         cache = ksk.misc.get(name)
@@ -1222,34 +1174,20 @@ class CkksEngine:
         return cache
 
     def _ksk_parts_fused(self, ksk: KeySwitchKey, level: int):
-        """(keys, tables, ec, alphas) for ``ntt_keymul_parts`` at
-        ``level``: the live parts' (k0, k1) evk rows as views into the
-        key (:meth:`_ksk_args`, no copy), their pointer tables
-        (``ntt_kernels.key_tables``; cached on the key beside the views
-        they point into) and :meth:`_parts_consts`."""
+        """The key form every single-device keyswitch reads at ``level``:
+        (keys, tables, ec, alphas) for ``ntt_keymul_parts``.  ``keys``
+        holds each live part's (k0, k1) evk rows ``[level:]`` ([C_sp, N]
+        views into the key, no copy), in ``parts_alloc`` order; ``tables``
+        their pointer tables (``ntt_kernels.key_tables``; cached on the key
+        beside the views they point into); then :meth:`_parts_consts`."""
         cache = self._key_cache(ksk, "_parts_tables")
         if level not in cache:
-            keys, _ = self._ksk_args(ksk, level)
+            keys = tuple(
+                tuple(_t(k)[level:] for k in ksk.data[g])
+                for g in self.params.parts_alloc[level]
+            )
             cache[level] = (keys, kern.key_tables(keys))
         return (*cache[level], *self._parts_consts(level))
-
-    def _ksk_inpart(self, ksk: KeySwitchKey, level: int):
-        """(diag_keys, skips) for the per-part chain's in-part shortcut:
-        ``diag_keys[i]`` [C, N] holds in row j row j of part(j)'s evk
-        component i (the key the identity extension row multiplies), and
-        ``skips`` each part's own channel range (lo, hi).  Cached on the
-        key."""
-        cache = self._key_cache(ksk, "_inpart")
-        if level not in cache:
-            ksk_parts, parts = self._ksk_args(ksk, level)
-            diag_keys = tuple(
-                torch.cat([kp[i][pt.lo : pt.hi]
-                           for kp, pt in zip(ksk_parts, parts)])
-                for i in range(2)
-            )
-            cache[level] = (diag_keys,
-                            tuple((pt.lo, pt.hi) for pt in parts))
-        return cache[level]
 
     # ------------------------------------------------------------------
     # Encode / decode (host codec).
@@ -1589,7 +1527,7 @@ class CkksEngine:
                     step = self._fused_mult_step(a.level)
                     ksk = sharded.prepare_step_ksk(self, a.level, ksk=evk,
                                                    rns_shard=False)
-                    prm = sharded.mult_step_params(self, a.level, ksk=evk,
+                    prm = sharded.mult_step_params(self, a.level,
                                                    rns_shard=False)
             if fused:
                 ct0, ct1 = step(a.data[0], a.data[1], b.data[0], b.data[1],
@@ -1626,12 +1564,11 @@ class CkksEngine:
         evk = evk or self.evk
         _check_ntt_mont_state(ct_triplet)
         level = ct_triplet.level
-        ksk_parts, parts = self._ksk_args(evk, level)
         ct0, ct1 = _relin_core(
-            *ct_triplet.data, ksk_parts, parts, self._lp(level, True),
-            self._lp(level, False), tuple(self.params.PiRs[level]), level,
+            *ct_triplet.data, self._ksk_parts_fused(evk, level),
+            tuple(self.params.parts[level]), self._lp(level, True),
+            self._lp(level, False), tuple(self.params.PiRs[level]),
             self.ckksCfg.num_special_primes,
-            parts_fused=self._ksk_parts_fused(evk, level),
         )
         return Ciphertext(data=(ct0, ct1), level=level, **self._meta())
 
@@ -1644,12 +1581,11 @@ class CkksEngine:
                         exit_ntt: bool = False):
         """Key-switch ``a`` [..., C, N] at ``level``: (c0, c1) with
         c0 + c1 s_to = a s_from (approximately)."""
-        ksk_parts, parts = self._ksk_args(ksk, level)
         return _switcher_body(
-            a, ksk_parts, parts, self._lp(level, True),
-            self._lp(level, False), tuple(self.params.PiRs[level]), level,
+            a, self._ksk_parts_fused(ksk, level),
+            tuple(self.params.parts[level]), self._lp(level, True),
+            self._lp(level, False), tuple(self.params.PiRs[level]),
             self.ckksCfg.num_special_primes, exit_ntt,
-            parts_fused=self._ksk_parts_fused(ksk, level),
         )
 
     @_mesh_op("_switch_key_mesh")
@@ -1659,14 +1595,12 @@ class CkksEngine:
         span ``switch_key``."""
         level = ct.level
         with trace.annotate("switch_key"):
-            ksk_parts, parts = self._ksk_args(ksk, level)
             new0, new1 = _switch_key_core(
-                ct.data[0], ct.data[1], ksk_parts, parts,
-                self._lp(level, True), self._lp(level, False),
-                tuple(self.params.PiRs[level]), level,
+                ct.data[0], ct.data[1], self._ksk_parts_fused(ksk, level),
+                tuple(self.params.parts[level]), self._lp(level, True),
+                self._lp(level, False), tuple(self.params.PiRs[level]),
                 self.ckksCfg.num_special_primes,
                 ct.has_flag(FLAGS.NTT_STATE),
-                parts_fused=self._ksk_parts_fused(ksk, level),
             )
         return Ciphertext(data=(new0, new1), flags=ct._flags, level=level,
                           **self._meta())

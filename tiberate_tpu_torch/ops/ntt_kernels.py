@@ -10,7 +10,7 @@ K1        :func:`ntt`            forward NTT, optional x R entry
 K2        :func:`intt`           inverse NTT x N^-1, "mont"/"exit"/
                                  "exit_reduce"
 K3        :func:`ntt_keymul`     forward NTT, then one or two key products
-K3 accum  :func:`ntt_keymul_accum` one part of the keyswitch chain: forward
+K3 accum  :func:`ntt_keymul_accum` one part of the mesh's chain: forward
                                  NTT, both key products added in place
                                  into two accumulators, a skip range of
                                  channels passed through
@@ -283,15 +283,16 @@ def ntt_keymul_accum_plain(x, lp, keys, acc, skip):
 
 
 def ntt_keymul_accum(x, lp, keys, acc, skip):
-    """One part of the per-part keyswitch chain.
+    """One part of the per-part keyswitch chain (the mesh switcher's,
+    :mod:`tiberate_tpu_torch.parallel.rns_sharded`).
 
     ``x`` [..., C, N] the part's basis extension (Montgomery form, no x R
     entry); ``keys`` the part's two evk rows, each [C, N]; ``acc`` two
     lazy [0, 2q) accumulators shaped like ``x``, updated IN PLACE:
     ``acc_i = acc_i (+) REDC(NTT(x) * k_i)`` on every channel outside
     ``skip`` = (lo, hi) (None: all channels).  The skipped channels' rows
-    stay as they were and are not transformed: the in-part shortcut, whose
-    products the caller seeded into ``acc``.  Returns ``acc``.
+    stay as they were and are not transformed, for a caller that seeded
+    those rows' products into ``acc`` itself.  Returns ``acc``.
     """
     if _on_cpu(x, _PASSES):
         return ntt_keymul_accum_plain(x, lp, keys, acc, skip)

@@ -4,13 +4,13 @@ The torch counterpart of ``tiberate_tpu/parallel/sharded.py``
 (``make_mult_step`` / ``mult_step_params`` / ``prepare_step_ksk``).  A
 batch of ciphertexts is the leading dimension of the step's operands.
 
-Single device: ``prm["parts_fused"]`` runs all keyswitch parts in one
-``ntt_keymul_parts`` kernel at every logN (the JAX package takes its
-per-part chain from logN17 up, a VMEM limit of its Pallas kernel that the
-H100 kernel does not have; both give the same bytes).  A caller forces
-the per-part chain by setting ``parts_fused`` to None in ``prm``, and
-enables its in-part shortcut by setting ``prm["inpart"]`` to
-``eng._ksk_inpart(ksk, work_level)``.
+Single device: the step's key argument is the K6 key form,
+:func:`prepare_step_ksk`'s ``eng._ksk_parts_fused(ksk, work_level)``, and
+all keyswitch parts run in one ``ntt_keymul_parts`` kernel at every logN
+(the JAX package takes its per-part chain from logN17 up, a VMEM limit of
+its Pallas kernel that the H100 kernel does not have; both give the same
+bytes).  ``prm`` holds only the work level's constants, as in the JAX
+package's split.
 
 On an engine mesh (``CkksEngine(mesh=)``) whose ``rns`` axis divides the
 work level's ordinary channels, the step runs per shard: each shard
@@ -179,29 +179,28 @@ def rns_ksk(eng, ksk, level):
 
 def prepare_step_ksk(eng, level: int = 0, pre_rescale: bool = True,
                      ksk=None, rns_shard=None):
-    """The ksk argument for :func:`make_mult_step`'s step function.
+    """The ksk argument for :func:`make_mult_step`'s step function, from
+    ``ksk`` (default: the engine's evk), cached on the key.
 
     Engine-mesh rns mode: the key laid out for the sharded switcher
-    (:class:`rns_sharded.RnsKsk`).  Otherwise the evk's per-part (k0, k1)
-    rows at the work level, which the per-part chain reads (the all-parts
-    route reads the same rows in place through ``prm["parts_fused"]``)."""
+    (:class:`rns_sharded.RnsKsk`).  Otherwise the all-parts key form the
+    step's keyswitch reads (``eng._ksk_parts_fused`` at the work
+    level)."""
     work_level = level + 1 if pre_rescale else level
     ksk = ksk or eng.evk
     if rns_shard in (None, True) and _rns_axis(eng, work_level):
         return rns_ksk(eng, ksk, work_level)
-    return eng._ksk_args(ksk, work_level)[0]
+    return eng._ksk_parts_fused(ksk, work_level)
 
 
 def mult_step_params(eng, level: int = 0, pre_rescale: bool = True,
                      ksk=None, rns_shard=None):
-    """The parameter dict for :func:`make_mult_step`'s step function; the
-    all-parts key form ``parts_fused`` comes from ``ksk`` (default: the
-    engine's evk) and is cached on it; ``inpart``, which only the per-part
-    chain reads, is None.  On the engine mesh (rns mode), ``rns_tables``
-    holds the sharded switcher's per-shard tables and the single-device
-    key form is not built."""
+    """The parameter dict for :func:`make_mult_step`'s step function: the
+    work level's constants, no key form (that is :func:`prepare_step_ksk`;
+    ``ksk`` is taken for the JAX package's signature and not read).  On
+    the engine mesh (rns mode), ``rns_tables`` holds the sharded switcher's
+    per-shard tables."""
     work_level = level + 1 if pre_rescale else level
-    ksk = ksk or eng.evk
     axis = (_rns_axis(eng, work_level)
             if rns_shard in (None, True) else None)
     return dict(
@@ -211,8 +210,6 @@ def mult_step_params(eng, level: int = 0, pre_rescale: bool = True,
         lp_sp=eng._lp(work_level, True),
         parts=tuple(eng.params.parts[work_level]),
         PiRs=tuple(eng.params.PiRs[work_level]),
-        inpart=None,
-        parts_fused=None if axis else eng._ksk_parts_fused(ksk, work_level),
         rns_tables=(_rns_switcher(eng, work_level, axis,
                                   _coef_axis(eng)).tables
                     if axis else None),
@@ -221,12 +218,12 @@ def mult_step_params(eng, level: int = 0, pre_rescale: bool = True,
 
 def make_mult_step(eng, level: int = 0, pre_rescale: bool = True,
                    rns_shard=None):
-    """Returns step_fn(a0, a1, b0, b1, ksk_parts, prm) -> (ct0, ct1).
+    """Returns step_fn(a0, a1, b0, b1, ksk, prm) -> (ct0, ct1).
 
     ``a*``/``b*``: [..., C, N] ciphertext rows at ``level`` (ShardedArrays
     on an engine mesh in rns mode; plain tensors are laid out first); the
     result is at ``level + 1`` with ``pre_rescale``, else at ``level``.
-    ``ksk_parts`` from :func:`prepare_step_ksk`; ``prm`` from
+    ``ksk`` from :func:`prepare_step_ksk`; ``prm`` from
     :func:`mult_step_params`.  ``rns_shard=False`` forces the single-device
     route, traced as the spans ``step.rescale``, ``step.tensor`` and
     ``step.relin``.
@@ -238,7 +235,7 @@ def make_mult_step(eng, level: int = 0, pre_rescale: bool = True,
             if rns_shard in (None, True) else None)
 
     if axis is None:
-        def step(a0, a1, b0, b1, ksk_parts, prm):
+        def step(a0, a1, b0, b1, ksk, prm):
             lp = prm["lp_ord"]
             if pre_rescale:
                 rs = prm["rescale_scale"]
@@ -248,16 +245,14 @@ def make_mult_step(eng, level: int = 0, pre_rescale: bool = True,
             with trace.annotate("step.tensor"):
                 d0, d1, d2 = _ccmult_tensor_core(a0, a1, b0, b1, lp)
             with trace.annotate("step.relin"):
-                return _relin_core(d0, d1, d2, ksk_parts, prm["parts"],
-                                   prm["lp_sp"], lp, prm["PiRs"], work_level,
-                                   S, inpart=prm["inpart"],
-                                   parts_fused=prm["parts_fused"])
+                return _relin_core(d0, d1, d2, ksk, prm["parts"],
+                                   prm["lp_sp"], lp, prm["PiRs"], S)
         return step
 
     caxis = _coef_axis(eng)
     mesh = eng.mesh
 
-    def mesh_step(a0, a1, b0, b1, ksk_parts, prm):
+    def mesh_step(a0, a1, b0, b1, ksk, prm):
         xs = [eng._as_sharded(x) for x in (a0, a1, b0, b1)]
         spec = _spec(xs[0], axis, caxis)
         if pre_rescale:
@@ -281,8 +276,8 @@ def make_mult_step(eng, level: int = 0, pre_rescale: bool = True,
         d0, d1, d2 = (meshlib.ShardedArray({c: v[i] for c, v in d.items()},
                                            mesh, spec, shape, xs[0].dtype)
                       for i in range(3))
-        return relin_sharded(eng, d0, d1, d2, work_level, ksk_parts, axis,
-                             caxis, prm["rns_tables"])
+        return relin_sharded(eng, d0, d1, d2, work_level, ksk, axis, caxis,
+                             prm["rns_tables"])
 
     return mesh_step
 

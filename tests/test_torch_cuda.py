@@ -23,9 +23,13 @@ runs on a machine that has only torch:
 (``--noconftest``: the suite's conftest imports jax).  Tolerance: none —
 each kernel must equal its plain torch version byte for byte, lazy
 outputs included, and the engine's step on the card must equal the same
-step on CPU tensors.
+step on CPU tensors.  K6's 62-bit lane sums its products exactly and
+reduces each sum once, so its lazy accumulators equal the plain
+version's residue for residue and lie in [0, 2q); everything canonical
+after them stays byte for byte.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -122,14 +126,133 @@ def test_kernels_match_plain_on_card(card, logN, lane):
     }
     if logN == 17:
         cases = {k: cases[k] for k in ("ntt_tensor", "ntt_keymul_parts")}
-    pairs = [case() for case in cases.values()]
+    pairs = {name: case() for name, case in cases.items()}
     torch.cuda.synchronize()
-    for got, want in pairs:
+    for name, (got, want) in pairs.items():
+        if name == "ntt_keymul_parts":
+            _parts_agree(got, want, lp_sp)
+            continue
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         for g, w in zip(got, want):
             assert g.dtype == tp.dtype
             assert torch.equal(g, w)
+
+
+def _parts_agree(got, want, lp_sp):
+    """K6 against its plain version: byte for byte in the 30-bit lane; in
+    the 62-bit lane residue for residue, every word in [0, 2q)."""
+    q = lp_sp.pack.q.long()[:, None]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == lp_sp.pack.dtype
+        if g.dtype == torch.int32:
+            assert torch.equal(g, w)
+            continue
+        assert bool(((g >= 0) & (g < 2 * q)).all())
+        assert torch.equal(g % q, w % q)
+
+
+def _adversarial_digits(st, tp, level, gen):
+    """Every digit row a part has at +-(q_i - 1) / 2 of its prime, in a
+    pattern from ``gen``: the largest magnitudes the digits take, of both
+    signs, in every part at its alpha."""
+    lp_ord = tp.lp(level, False)
+    for p, part in enumerate(tp.parts[level]):
+        for a in range(part.alpha):
+            half = (int(lp_ord.pack.q[part.lo + a]) - 1) // 2
+            sign = torch.randint(0, 2, st[:, p, a].shape, generator=gen,
+                                 device="cpu") * 2 - 1
+            st[:, p, a] = (sign * half).to(st.device, st.dtype)
+    return st
+
+
+def _parts_inputs(tp, level, seed, adversarial, card):
+    """K6's operands at ``level`` of ``tp``: the digits of random
+    residues and random keys, or, ``adversarial``, every digit at +-(q_i
+    - 1) / 2 and both keys at q - 1."""
+    lp_ord, lp_sp = tp.lp(level, False), tp.lp(level, True)
+    gen = torch.Generator().manual_seed(seed)
+    ec, alphas = teng._parts_consts(tp, level)
+    q = lp_ord.pack.q.cpu().long()[:, None]
+    x = (torch.randint(0, 1 << 62, (1, lp_ord.num_channels, tp.N),
+                       generator=gen) % q).to(card, tp.dtype)
+    st = teng._parts_digits(x, tp.parts[level], lp_ord,
+                            ec.shape[-1]).contiguous()
+    lp0 = tp.lp(0, True)
+    q0 = lp0.pack.q.cpu().long()[:, None]
+    keys = []
+    for _ in range(ec.shape[0]):
+        pair = []
+        for _ in range(2):
+            k = torch.randint(0, 1 << 62, (lp0.num_channels, tp.N),
+                              generator=gen) % q0
+            if adversarial:
+                k = (q0 - 1).expand_as(k).clone()
+            pair.append(k.to(card, tp.dtype)[level:])
+        keys.append(tuple(pair))
+    if adversarial:
+        st = _adversarial_digits(st, tp, level, gen)
+    return st, ec, alphas, tuple(keys), lp_sp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adversarial", [False, True],
+                         ids=["random", "adversarial"])
+@pytest.mark.parametrize("level", [1, 0])
+@pytest.mark.parametrize("logN", [7, 10, 15, 17])
+def test_parts_kernel_residues_on_card(card, logN, level, adversarial):
+    """K6's 62-bit lane on six special primes (parts of alpha up to 6,
+    as logN17's): level 1 (the step's) and level 0 (a rotation's), on
+    the digits of random residues and on adversarial ones (every digit
+    at +-(q_i - 1) / 2, both keys at q - 1): residues equal to the plain
+    version's, every word in [0, 2q)."""
+    tp = CkksParams(_cfg(logN, num_scales=14, num_special_primes=6), card)
+    st, ec, alphas, keys, lp_sp = _parts_inputs(tp, level, 100 * logN + level,
+                                                adversarial, card)
+    if adversarial:
+        assert int(alphas.max()) == 6
+    got = K.ntt_keymul_parts(st, ec, alphas, keys, lp_sp)
+    want = K.ntt_keymul_parts_plain(st, ec, alphas, keys, lp_sp)
+    torch.cuda.synchronize()
+    _parts_agree(got, want, lp_sp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [1, 0])
+@pytest.mark.parametrize("logN", [10, 15])
+def test_parts_kernel_long_chain_on_card(card, logN, level):
+    """One special prime and 30 scale primes of 59 bits: 31 parts at
+    level 0 and 30 at level 1, more than the basis's run of parts, so
+    pass 2 folds its sums; adversarial digits and keys: residues equal
+    to the plain version's, every word in [0, 2q)."""
+    tp = CkksParams(_cfg(logN, num_scales=30, num_special_primes=1,
+                         scale_bits=59), card)
+    assert tp.lp(0, True).sum_runs[1] < len(tp.parts[level])
+    st, ec, alphas, keys, lp_sp = _parts_inputs(tp, level, 7 * logN + level,
+                                                True, card)
+    got = K.ntt_keymul_parts(st, ec, alphas, keys, lp_sp)
+    want = K.ntt_keymul_parts_plain(st, ec, alphas, keys, lp_sp)
+    torch.cuda.synchronize()
+    _parts_agree(got, want, lp_sp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("runs", [(2, 3), (1, 1), (5, 2)],
+                         ids=["2-3", "1-1", "5-2"])
+@pytest.mark.parametrize("logN", [10, 15])
+def test_parts_kernel_short_runs_on_card(card, logN, runs):
+    """The level pack's runs cut short, on six special primes at level 0
+    (parts of [6, 6, 2, 1]): pass 1 sums runs of digits, pass 2 folds
+    between runs of parts; adversarial digits and keys: residues equal to
+    the plain version's, every word in [0, 2q)."""
+    tp = CkksParams(_cfg(logN, num_scales=14, num_special_primes=6), card)
+    st, ec, alphas, keys, lp_sp = _parts_inputs(tp, 0, 11 * logN + runs[0],
+                                                True, card)
+    lp_sp = dataclasses.replace(lp_sp, sum_runs=runs)
+    got = K.ntt_keymul_parts(st, ec, alphas, keys, lp_sp)
+    want = K.ntt_keymul_parts_plain(st, ec, alphas, keys, lp_sp)
+    torch.cuda.synchronize()
+    _parts_agree(got, want, lp_sp)
 
 
 @pytest.mark.cuda

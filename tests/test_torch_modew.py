@@ -14,23 +14,18 @@ the engine's modular product by a column, add and subtract, on the CPU.
 * ``_mont_scalar_core``, ``_cc_add_core`` and ``_cc_sub_core``, and the
   engine's ``cc_add``, ``cc_sub``, ``level_up``, ``align_level``,
   ``mult_scalar`` and ``mult_int_scalar`` go through the wrappers.
-* ``csrc/glue.cu`` itself, built for the host by ``g++`` (a shim defines
-  the CUDA qualifiers away and runs each launch's blocks and threads in
-  turn), launched through the wrappers on CPU tensors as the card's build
-  is, against the plain versions byte for byte, with ``LAUNCHES``
-  counted: the 16-byte path, the one-word path of a misaligned view, a
-  second operand of batch stride 0, views of a row range and a column a
-  stacked ciphertext.
+* ``csrc/glue.cu`` itself, built for the host by ``g++`` (``_cuda_host``:
+  a shim defines the CUDA qualifiers away and runs each launch's blocks
+  and threads in turn), launched through the wrappers on CPU tensors as
+  the card's build is, against the plain versions byte for byte, with
+  ``LAUNCHES`` counted: the 16-byte path, the one-word path of a
+  misaligned view, a second operand of batch stride 0, views of a row
+  range and a column a stacked ciphertext.
 
 The card's build against the plain versions: ``tests/test_torch_cuda.py``
 and ``chip_smoke.py``.  Tolerance: none.
 """
 
-import ctypes
-import os
-import re
-import shutil
-import subprocess
 import types
 
 import numpy as np
@@ -50,6 +45,8 @@ from tiberate_tpu_torch.ops import glue_kernels as G
 from tiberate_tpu_torch.ops import mont
 from tiberate_tpu_torch.ops import ntt_kernels as K
 
+import _cuda_host
+
 torch.set_num_threads(1)
 
 LOGN = 7
@@ -58,8 +55,6 @@ BATCH = 3
 LANES = {62: (dict(scale_bits=30), ""),
          30: (dict(scale_bits=21, buffer_bit_length=30), "_30")}
 OPS = ("mont_scalar", "mod_add", "mod_sub")
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "tiberate_tpu_torch", "csrc")
 
 
 def _cfg(lane, make=toy_config):
@@ -309,85 +304,16 @@ def test_engine_goes_through_the_wrappers(lane, monkeypatch):
 # csrc/glue.cu built for the host.
 # ----------------------------------------------------------------------
 
-_RUNTIME = r"""
-#pragma once
-#include <stddef.h>
-#include <stdint.h>
-struct dim3 {
-    unsigned x, y, z;
-    dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
-        : x(x_), y(y_), z(z_) {}
-};
-static dim3 blockIdx, threadIdx, gridDim, blockDim;
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __launch_bounds__(x)
-#define __align__(x) alignas(x)
-typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-struct alignas(16) longlong2 { long long x, y; };
-struct alignas(16) int4 { int x, y, z, w; };
-// a launch: every block's threads in turn (the glue's kernels share
-// nothing between threads)
-template <class F, class... A>
-void tt_launch(dim3 g, int b, int s, cudaStream_t st, F f, A... a) {
-    gridDim = g;
-    blockDim = dim3(b);
-    for (unsigned z = 0; z < g.z; ++z)
-        for (unsigned y = 0; y < g.y; ++y)
-            for (unsigned x = 0; x < g.x; ++x)
-                for (int t = 0; t < b; ++t) {
-                    blockIdx = dim3(x, y, z);
-                    threadIdx = dim3(t);
-                    f(a...);
-                }
-}
-"""
-
-_NTT_CUH = r"""
-#pragma once
-#include "cuda_runtime.h"
-#include "mont.cuh"
-#define TT_LANE 0
-#define TT_I64 1
-#define TT_I32 1
-#define TT_CHECK()                                   \
-    do {                                             \
-        cudaError_t err_ = cudaGetLastError();       \
-        if (err_ != cudaSuccess) return (int)err_;   \
-    } while (0)
-"""
-
-
 @pytest.fixture(scope="module")
 def host_glue(tmp_path_factory):
-    """``csrc/glue.cu`` as a host library: its launches ``k<<<g, b, s,
-    st>>>(args)`` rewritten as ``tt_launch(g, b, s, st, k, args)``."""
-    cxx = shutil.which("g++")
-    if cxx is None:
+    """``csrc/glue.cu`` as a host library (``_cuda_host``): a block's
+    threads in turn, the glue's kernels sharing nothing between them."""
+    lib = _cuda_host.build(
+        tmp_path_factory.mktemp("glue_host"), "glue.cu",
+        {"tt_modew" + sfx: cuda_build._LANED["tt_modew"]
+         for sfx in ("", "_30")}, logn=())
+    if lib is None:
         pytest.skip("needs g++ to build csrc/glue.cu on the host")
-    d = tmp_path_factory.mktemp("glue_host")
-    with open(os.path.join(CSRC, "glue.cu")) as f:
-        src = f.read()
-    src = re.sub(r"([A-Za-z_]\w*(?:<[^;{}()]*?>)?)\s*<<<(.*?)>>>\s*\(",
-                 lambda m: f"tt_launch({m.group(2)}, {m.group(1)}, ", src,
-                 flags=re.S)
-    (d / "glue_host.cpp").write_text(src)
-    (d / "cuda_runtime.h").write_text(_RUNTIME)
-    (d / "ntt.cuh").write_text(_NTT_CUH)
-    shutil.copy(os.path.join(CSRC, "mont.cuh"), d / "mont.cuh")
-    so = d / "libglue_host.so"
-    subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-o",
-                    str(so), str(d / "glue_host.cpp")], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(str(so))
-    for sfx in ("", "_30"):
-        fn = getattr(lib, "tt_modew" + sfx)
-        fn.argtypes = cuda_build._LANED["tt_modew"]
-        fn.restype = ctypes.c_int
     return lib
 
 

@@ -233,18 +233,46 @@ def _last_window_is_consecutive(plan):
     return np.array_equal(got, t * S2.R + i)
 
 
+def _fold_redc(s, q, k, signed):
+    """K6's one reduction of exact sums ``s`` (numpy object arrays, q and
+    k broadcast against them): the high word H folded as H (2^64 mod q)
+    + the low word, then its REDC, (x + m q) / 2^62 (``mont.cuh``: "Sums
+    of products"); a signed sum's negative results take +q."""
+    f = (1 << 64) % q
+    x = (s >> 64) * f + (s & ((1 << 64) - 1))
+    r = _exact_redc(x, q, k)
+    return np.where(r < 0, r + q, r) if signed else r
+
+
+def _exact_redc(x, q, k):
+    """(x + m q) / 2^62, m = (x mod 2^62) k mod 2^62, on object arrays."""
+    mask = (1 << 62) - 1
+    return (x + ((x & mask) * k & mask) * q) >> 62
+
+
+def _objects(t):
+    return t.numpy().astype(object)
+
+
 def model_keymul_parts(st, ec, alphas, keys, lp_sp, lane):
     """K6 as ``csrc/keyswitch.cu`` runs it, for st [B, n_parts, amax, N].
 
     Pass 1: each strided slot loads its digits of the part's alpha_p rows
-    and forms REDC(st_0 Rs) (+) sum_i REDC(st_i L_enter_i) in registers,
-    then the strided rounds run.  Pass 2: one twiddle table per chunk for
-    all parts; each part's chunk runs the contiguous rounds, in part order,
-    and its two key products go into two accumulators that part 0 sets;
-    part p's keys are read where ``keys[p]`` = (k0, k1) lie, as the
-    kernel reads them through its per-part pointer tables.
-    Returns the two accumulators [B, C_sp, N]."""
+    and forms the extension in registers, then the strided rounds run:
+    in the 30-bit lane REDC(st_0 Rs) (+) sum_i REDC(st_i L_enter_i), in
+    the 62-bit lane the exact sum of st_i L_enter_i (st_0 Rs first)
+    reduced once into [0, 2q) (a part of alpha 1: its one REDC, brought
+    into [0, 2q)).  Pass 2: one twiddle table per chunk for all parts;
+    each part's chunk runs the contiguous rounds, in part order, and its
+    two key products go into two accumulators: in the 30-bit lane REDCs
+    added lazily from part 0's, in the 62-bit lane exact sums reduced
+    once after the last part.  Part p's keys are read where ``keys[p]``
+    = (k0, k1) lie, as the kernel reads them through its per-part
+    pointer tables.  Returns the two accumulators [B, C_sp, N]."""
     B, n_parts, amax, N = st.shape
+    if lane == 62:
+        # the toys' sums run whole: one reduction a sum, no fold
+        assert amax <= lp_sp.sum_runs[0] and n_parts <= lp_sp.sum_runs[1]
     plan = Plan(N.bit_length() - 1, lane)
     pk = lp_sp.pack
     C, M = pk.num_channels, B * n_parts
@@ -259,10 +287,24 @@ def model_keymul_parts(st, ec, alphas, keys, lp_sp, lane):
               < alphas.repeat(B).long()[:, None])  # [M, amax]
     active = active.reshape(1, M, 1, 1, 1, 1, amax)
     q2 = _consts(pk, 6)[-1]
+    qo = _objects(pk.q).reshape(C, 1, 1, 1, 1, 1)
+    ko = _objects(pk.k).reshape(C, 1, 1, 1, 1, 1)
 
     def fill(v, idx):
         d = dig[..., torch.from_numpy(idx)]  # [1, M, amax, N2, 1, T, R]
         d = d.movedim(2, -1)  # [1, M, N2, 1, T, R, amax]
+        if lane == 62:
+            # digits and constants are zero past alpha: the sum runs over
+            # amax; a part of alpha 1 keeps its one REDC
+            prods = _objects(d) * _objects(cst)
+            one = _exact_redc(prods[..., 0], qo, ko)
+            one = np.where(one < 0, one + 2 * qo,
+                           np.where(one < 2 * qo, one, one - 2 * qo))
+            ext = _fold_redc(prods.sum(axis=-1), qo, ko, signed=True)
+            single = (alphas.repeat(B) == 1).numpy().reshape(1, M, 1, 1, 1,
+                                                             1)
+            ext = np.where(single, one, ext)
+            return torch.from_numpy(ext.astype(np.int64)).reshape(v.shape)
         prods = [_redc(d[..., a], cst[..., a], pk, 6) for a in range(amax)]
         ext = prods[0]
         for a in range(1, amax):
@@ -280,9 +322,17 @@ def model_keymul_parts(st, ec, alphas, keys, lp_sp, lane):
         _contig(X, table, plan, True, pk)
         for j in range(2):
             key = keys[p][j].reshape(C, 1, plan.N1, plan.N2)
+            if lane == 62:
+                prod = _objects(X) * _objects(key)
+                acc[j] = prod if p == 0 else acc[j] + prod
+                continue
             prod = _redc(X, key, pk, 4)
             acc[j] = prod if p == 0 else _tile_add(acc[j], prod,
                                                    _consts(pk, 4)[-1])
+    if lane == 62:
+        qo, ko = (_objects(t).reshape(C, 1, 1, 1) for t in (pk.q, pk.k))
+        acc = [torch.from_numpy(_fold_redc(a, qo, ko, signed=False).astype(
+            np.int64)) for a in acc]
     return tuple(a.reshape(C, B, N).transpose(0, 1) for a in acc)
 
 
@@ -390,7 +440,9 @@ STEP_CASES = [(4, 2), (7, 2), (10, 2), (10, 6), (15, 2), (17, 2)]
 def test_parts_schedule_matches_plain(logN, S, lane):
     """K6's two passes, modelled (the extension in the strided slots, one
     twiddle table for every part, register accumulators in part order),
-    equal ``ntt_keymul_parts_plain`` bit for bit."""
+    equal ``ntt_keymul_parts_plain``: bit for bit in the 30-bit lane; in
+    the 62-bit lane, whose sums are exact and reduced once, residue for
+    residue with every word in [0, 2q)."""
     tp = _toy(logN, lane, S)
     lp, lp_sp = tp.lp(1, False), tp.lp(1, True)
     rng = np.random.default_rng(1000 + logN)
@@ -405,9 +457,14 @@ def test_parts_schedule_matches_plain(logN, S, lane):
                  for _ in range(ec.shape[0]))
     want = K.ntt_keymul_parts_plain(st, ec, alphas, keys, lp_sp)
     got = model_keymul_parts(st, ec, alphas, keys, lp_sp, lane)
+    q = lp_sp.pack.q.long()[:, None]
     for g, w in zip(got, want):
         assert g.dtype == DTYPES[lane]
-        assert torch.equal(g, w)
+        if lane == 30:
+            assert torch.equal(g, w)
+            continue
+        assert bool(((g >= 0) & (g < 2 * q)).all())
+        assert torch.equal(g % q, w % q)
 
 
 @pytest.mark.parametrize("lane", [62, 30])

@@ -162,11 +162,16 @@ def test_redc_count_equals_plain_version(tp, redc_count, name):
 def test_kernel_shapes_counts():
     """The formulas at logN15 sizes, reckoned by hand: K1 over [8, 16, 2^15]
     with the entry is 128 rows x (2^14 x 15 + 2^15); K6 over 9 parts whose
-    alphas sum to 17, onto 18 with-special channels; K4 with S = 2."""
+    alphas sum to 17, onto 18 with-special channels, in each lane; K4
+    with S = 2."""
     assert roofline.ntt(128, 15, True) == 128 * (16384 * 15 + 32768)
     alphas = [1, 2, 2, 2, 2, 2, 2, 2, 2]
     assert roofline.ntt_keymul_parts(8, alphas, 18, 15) == 8 * 18 * (
         17 * 32768 + 9 * (16384 * 15 + 2 * 32768))
+    # the 62-bit lane: one REDC an extension sum of each part, one a key
+    # sum
+    assert roofline.ntt_keymul_parts(8, alphas, 18, 15, (8, 24)) == \
+        8 * 18 * (9 * 16384 * 15 + (9 + 2) * 32768)
     assert roofline.intt_pdiv(10, 15, 2) == 10 * (16384 * 15 + 4 * 32768)
 
 

@@ -33,6 +33,7 @@ from tiberate_tpu_torch.context.mont_context import MontgomeryContext
 from tiberate_tpu_torch.context.rns_partition import RnsPartition
 from tiberate_tpu_torch.ops import mont
 from tiberate_tpu_torch.ops import ntt as ntt_ops
+from tiberate_tpu_torch.ops import ntt_kernels
 from tiberate_tpu_torch.ops.mont import ModPack
 
 
@@ -48,7 +49,11 @@ class LevelPack:
 
     ``pdc`` [C, 1+S] holds the P-division constants in the form the
     ``intt_pdiv`` kernel takes (see :class:`CkksParams`); zero on special
-    rows, which are never P-divided.
+    rows, which are never P-divided.  ``fold`` and ``sum_runs`` are what
+    K6's 62-bit lane needs to sum its products exactly
+    (``ntt_kernels.sum_runs``): 2^64 mod q, and how many digits and parts
+    a sum takes, from the largest modulus of the whole basis, so that
+    every view of it holds the same.
     """
 
     pack: ModPack           # ql/qh/kl/kh/_2q [C, 1], q/k [C]
@@ -58,6 +63,8 @@ class LevelPack:
     Rs: torch.Tensor        # [C, 1] R^2 mod q
     Rs_scale: torch.Tensor  # [C, 1] R^2 * scale mod q
     pdc: torch.Tensor       # [C, 1+S] P-division constants
+    fold: torch.Tensor      # [C] 2^64 mod q (K6, 62-bit lane)
+    sum_runs: tuple         # (digits, parts) (K6, 62-bit lane)
 
     @property
     def num_channels(self):
@@ -74,13 +81,16 @@ class LevelPack:
             Rs=self.Rs[sl],
             Rs_scale=self.Rs_scale[sl],
             pdc=self.pdc[sl],
+            fold=self.fold[sl],
+            sum_runs=self.sum_runs,
         )
 
     def to(self, device):
         return dataclasses.replace(
             self, pack=self.pack.to(device),
             **{f: getattr(self, f).to(device)
-               for f in ("psi", "ipsi", "Ninv", "Rs", "Rs_scale", "pdc")})
+               for f in ("psi", "ipsi", "Ninv", "Rs", "Rs_scale", "pdc",
+                         "fold")})
 
 
 @dataclass(frozen=True)
@@ -233,10 +243,16 @@ class CkksParams:
             pdc_rows.append(row)
         self.pdc = torch.tensor(pdc_rows, dtype=self.dtype, device=dev)
 
+        # K6's sums (62-bit lane): the fold word and the runs, checked
+        # here once for every level
+        fold = torch.tensor([(1 << 64) % qi for qi in q], dtype=self.dtype,
+                            device=dev)
+        runs = (ntt_kernels.sum_runs(q) if self.dtype == torch.int64
+                else (0, 0))
         self._full = LevelPack(
             pack=self.pack, psi=self.psi, ipsi=self.ipsi,
             Ninv=self.Ninv, Rs=self.Rs, Rs_scale=self.Rs_scale,
-            pdc=self.pdc,
+            pdc=self.pdc, fold=fold, sum_runs=runs,
         )
         self._lp_cache = {}
 

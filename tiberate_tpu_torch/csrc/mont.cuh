@@ -52,14 +52,22 @@
 //   butterflies (ntt.cuh: K1-K6, chain)   redc_by   twiddle psi / ipsi, [0, q)
 //   x R entry (K1, K3, K5 pass 1)         redc_by   Rs, [0, q) (R on a
 //                                                   coef shard)
-//   K6 extension (parts_strided_k)        redc_by   Rs / L_enter, [0, q)
+//   K6 extension: alpha 1; 30-bit lane    redc_by   Rs / L_enter, [0, q)
+//   K6 extension, alpha >= 2 (62-bit)     exact     Rs / L_enter, [0, q):
+//                                                   redc_sum_signed once
+//                                                   a run of digits
 //   K2 / K4 epilogue (inv_strided_k)      redc_by   N^-1 R (or R), 1, pdc,
 //                                                   [0, q)
 //   fold probe (fold_probe.cu)            redc_by   w, [0, 2q) (checked by
 //                                                   ops/fold_probe.py)
 //   G1-G3 (glue.cu)                       redc_by   rescale scales, Y, L,
 //                                                   PiRs, [0, q)
-//   key products (K3, K3 chain, K6)       redc      keys are data
+//   key products (K3, K3 chain; K6 in     redc      keys are data
+//   the 30-bit lane)
+//   K6 key products (62-bit)              exact     keys are data:
+//                                                   redc_sum once a word,
+//                                                   fold_sum between runs
+//                                                   of parts
 //   K5's products (tensor_contig_k)       redc      both data
 //
 // The 30-bit lane's redc_by is its redc, unchanged.
@@ -79,13 +87,20 @@ template <> struct Lane<i32> { typedef u32 U; };
 
 #define TT_BIAS (1ULL << 63)
 
-// floor(x y / 2^62) + floor(m q / 2^62) + [m != 0] (mod 2^64) for x, y in
-// [0, 2^64), m = (x y mod 2^62) k mod 2^62: the REDC of x y, unsigned
-__device__ __forceinline__ u64 redc_u(u64 x, u64 y, u64 q, u64 k) {
-    const unsigned __int128 p = (unsigned __int128)x * y;
+typedef unsigned __int128 u128;
+
+// floor(p / 2^62) + floor(m q / 2^62) + [m != 0] (mod 2^64) for a 128-bit
+// p in two's complement, m = (p mod 2^62) k mod 2^62: (p + m q) / 2^62,
+// the REDC of p itself, wherever that quotient fits a word
+__device__ __forceinline__ u64 redc_wide(u128 p, u64 q, u64 k) {
     const u64 m4 = (u64)p * (k << 2);
-    const u64 t = (u64)(((unsigned __int128)m4 * q) >> 64);
+    const u64 t = (u64)(((u128)m4 * q) >> 64);
     return (u64)(p >> 62) + t + (m4 != 0 ? 1ULL : 0ULL);
+}
+
+// the REDC of x y, unsigned, for x, y in [0, 2^64)
+__device__ __forceinline__ u64 redc_u(u64 x, u64 y, u64 q, u64 k) {
+    return redc_wide((u128)x * y, q, k);
 }
 
 // every a, b
@@ -97,6 +112,39 @@ __device__ __forceinline__ i64 redc(i64 a, i64 b, u64 q, u64 k) {
 // every x; c in [0, 2^63)
 __device__ __forceinline__ i64 redc_by(i64 x, i64 c, u64 q, u64 k) {
     return (i64)(redc_u((u64)x ^ TT_BIAS, (u64)c, q, k) - ((u64)c << 1));
+}
+
+// Sums of products, reduced once (K6, keyswitch.cu).  A sum of exact
+// 64 x 64 -> 128-bit products x = hi 2^64 + lo is congruent to
+// hi f + lo with f = 2^64 mod q, a number of about 64 + log2 q bits whose
+// REDC lands in [0, 2q) where hi f stays below q 2^62 - 2^64:
+//
+//   redc_sum(x)         x unsigned, hi < 2^64:     [0, 2q) where
+//                       hi (q - 1) + 2^64 <= q 2^62;
+//   redc_sum_signed(x)  x signed (two's complement), |hi| <= H:
+//                       (-q, 2q) where H (q - 1) + 2^64 <= q 2^62.
+//
+// Both equal REDC(x) mod q: hi f + lo - x is a multiple of q.  The
+// signed fold biases hi as redc_by() biases its word: (hi + 2^63) f + lo
+// = (hi f + lo) + 2^63 f, whose REDC is 2f more, with the same m (2^63 f
+// has no bit below 2^63).  fold_sum(x) is the fold alone, at most (2^64
+// - 1) q: a long sum is folded between its terms, so that what follows
+// the fold starts from a high word below q.  The host works out, from
+// the largest modulus, how many terms a sum takes before its reduction
+// or its next fold keeps the bound (ntt_kernels.sum_runs).
+__device__ __forceinline__ u128 fold_sum(u128 x, u64 f) {
+    return (u128)(u64)(x >> 64) * f + (u64)x;
+}
+
+__device__ __forceinline__ i64 redc_sum(u128 x, u64 f, u64 q, u64 k) {
+    return (i64)redc_wide(fold_sum(x, f), q, k);
+}
+
+__device__ __forceinline__ i64 redc_sum_signed(u128 x, u64 f, u64 q,
+                                               u64 k) {
+    return (i64)(redc_wide((u128)((u64)(x >> 64) ^ TT_BIAS) * f + (u64)x, q,
+                           k) -
+                 (f << 1));
 }
 
 // |a*b| < 2^58 and m*q < 2^58 on every input the engine feeds (|a|, |b| <

@@ -52,7 +52,7 @@ _LANED = {
     "tt_ntt_tensor": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                       _P, _P, _P],
     "tt_ntt_keymul_parts": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _P, _P, _P, _P],
+                            _I, _P, _P, _P, _P, _I, _I, _P],
     # the step's glue (glue.cu): batch strides and round_at as long long
     "tt_rescale": [_P, _L, _P, _L, _P, _I, _I, _I, _P, _P, _P, _L, _I, _P],
     "tt_parts_digits": [_P, _L, _P, _I, _I, _I, _I, _P, _I, _P],

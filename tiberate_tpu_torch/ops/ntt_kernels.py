@@ -40,7 +40,10 @@ counted in the open spans, and the first stamps the root span.
 
 The kernels run the plain versions' butterflies, twiddles, operand order
 and lazy reductions, so their outputs are bit-identical to the plain
-versions, lazy outputs included.
+versions, lazy outputs included.  One exception: K6's 62-bit lane sums
+its products exactly and reduces each sum once, so its lazy accumulators
+equal the plain version's residue for residue, in [0, 2q), and
+everything canonical downstream of them byte for byte.
 """
 
 import math
@@ -494,6 +497,29 @@ def _check_part_keys(keys, n_parts, C_sp, N, device, dtype):
             raise ValueError(f"{name} is not 16-byte aligned")
 
 
+def sum_runs(q) -> tuple[int, int]:
+    """How long K6's sums run in the 62-bit lane over moduli ``q`` (Python
+    ints): the most digits pass 1 sums before it reduces, and the most
+    parts pass 2 adds to a sum between two folds, such that a sum's high
+    word H keeps H (q - 1) + 2^64 <= q 2^62 for every modulus
+    (``mont.cuh``, "Sums of products"), the bound under which its fold
+    and REDC land in [0, 2q).  Pass 1 sums digits (any int64) times
+    constants in [0, q): |H| <= ceil(run (q - 1) / 2).  Pass 2 starts a
+    run from 0 or from a fold, at most (2^64 - 1) q, and each part adds a
+    word in [0, 2q) times a key in [0, q).  Below 2^60 they are at least
+    7 and 23; capped at 2^30 (an int of the kernel)."""
+    digits = parts = 1 << 30
+    for qi in q:
+        h = ((qi << 62) - (1 << 64)) // (qi - 1)  # the largest H
+        digits = min(digits, 2 * h // (qi - 1))
+        parts = min(parts, (((h + 1) << 64) - 1 - ((1 << 64) - 1) * qi)
+                    // ((2 * qi - 1) * (qi - 1)))
+    if min(digits, parts) < 1:
+        raise ValueError(f"moduli of {max(q).bit_length()} bits leave no "
+                         f"room for K6's sums in the 62-bit lane")
+    return digits, parts
+
+
 def ntt_keymul_parts(st, ec, alphas, keys, lp_sp, tables=None):
     """The whole keyswitch part loop.
 
@@ -504,6 +530,12 @@ def ntt_keymul_parts(st, ec, alphas, keys, lp_sp, tables=None):
     kernel reads in place; tables: their :func:`key_tables` (built here
     when None; callers that switch with one key many times cache them).
     Returns the two lazy accumulators, each [..., C_sp, N].
+
+    The 62-bit lane sums each output word's products exactly, in 128
+    bits, in runs of ``lp_sp.sum_runs`` (:func:`sum_runs`), and reduces
+    once: its accumulators lie in [0, 2q) and equal the plain version's
+    residue for residue, not word for word (the plain version reduces
+    every product).
     """
     if _on_cpu(st, _PASSES):
         return ntt_keymul_parts_plain(st, ec, alphas, keys, lp_sp)
@@ -525,7 +557,7 @@ def ntt_keymul_parts(st, ec, alphas, keys, lp_sp, tables=None):
     _check_rows(B * n_parts * C_sp)
     _, logN = _geometry(keys[0][0], C_sp)
     _check(st.device, lp_sp.pack.dtype, st=st, ec=ec, alphas=alphas,
-           q=lp_sp.pack.q, k=lp_sp.pack.k, psi=lp_sp.psi)
+           q=lp_sp.pack.q, k=lp_sp.pack.k, psi=lp_sp.psi, fold=lp_sp.fold)
     _check(st.device, torch.int64, k0p=tables.k0p, k1p=tables.k1p)
     tmp = torch.empty((B, n_parts, C_sp, N), dtype=st.dtype,
                       device=st.device)
@@ -535,7 +567,7 @@ def ntt_keymul_parts(st, ec, alphas, keys, lp_sp, tables=None):
         _ptr(st), _ptr(ec), _ptr(alphas), _ptr(tmp), _ptr(tables.k0p),
         _ptr(tables.k1p), _ptr(acc0), _ptr(acc1), B, n_parts, amax, C_sp,
         logN, _ptr(lp_sp.pack.q), _ptr(lp_sp.pack.k), _ptr(lp_sp.psi),
-        _stream(st.device),
+        _ptr(lp_sp.fold), *lp_sp.sum_runs, _stream(st.device),
     )
     _done(rc, "ntt_keymul_parts", lp_sp.pack)
     return acc0, acc1

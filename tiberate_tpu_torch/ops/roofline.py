@@ -82,16 +82,39 @@ def ntt_tensor(rows: int, logN: int) -> int:
     return 4 * ntt(rows, logN, True) + 4 * rows * (1 << logN)
 
 
-def ntt_keymul_parts(batch: int, alphas, C_sp: int, logN: int) -> int:
-    """K6: per part p and with-special row, alpha_p extension REDCs per
-    coefficient (``parts_strided_k``'s load), the forward stages
-    (``parts_strided_k``, ``parts_contig_k``) and the two key products
-    (``parts_contig_k``, keyswitch.cu).  The ``tmp`` intermediate, written
-    by pass 1 and read by pass 2, is no input or output: the bytes bound
-    leaves it out."""
-    N = 1 << logN
-    return batch * C_sp * sum(a * N + _transform(logN) + 2 * N
-                              for a in alphas)
+def keymul_parts_sums(batch: int, alphas, C_sp: int, N: int,
+                      runs=None) -> tuple:
+    """K6's sums (``parts_strided_k``'s extension, ``parts_contig_k``'s
+    key products; keyswitch.cu): (products, reductions) of ``batch`` x
+    ``C_sp`` rows.  Per part p, row and coefficient, alpha_p extension
+    products and two key products.  The 30-bit lane (``runs`` None)
+    reduces each.  The 62-bit lane takes them as 128-bit products and
+    reduces each sum once: ceil(alpha_p / digits) extension sums a part
+    (one REDC for alpha 1 too) and the two key sums, whose folds, one
+    64-bit product each, after every ``parts`` parts where parts follow,
+    count as products.  ``runs`` = (digits, parts): ``LevelPack.sum_runs``
+    (``ntt_kernels.sum_runs``)."""
+    words = batch * C_sp * N
+    products = words * (sum(alphas) + 2 * len(alphas))
+    if runs is None:
+        return products, products
+    digits, parts = runs
+    folds = 2 * ((len(alphas) - 1) // parts)
+    return (products + words * folds,
+            words * (sum(-(-a // digits) for a in alphas) + 2))
+
+
+def ntt_keymul_parts(batch: int, alphas, C_sp: int, logN: int,
+                     runs=None) -> int:
+    """K6: per part and with-special row the forward stages
+    (``parts_strided_k``, ``parts_contig_k``), and the REDCs of its sums
+    (:func:`keymul_parts_sums`): with ``runs`` None those of the 30-bit
+    lane, one a product, which is also the number of the 62-bit lane's
+    modular products; with ``runs`` the 62-bit lane's, one a sum.  The
+    ``tmp`` intermediate, written by pass 1 and read by pass 2, is no
+    input or output: the bytes bound leaves it out."""
+    return (batch * C_sp * len(alphas) * _transform(logN)
+            + keymul_parts_sums(batch, alphas, C_sp, 1 << logN, runs)[1])
 
 
 def rescale(rows: int, N: int) -> int:

@@ -65,6 +65,17 @@ Phases (any failure exits non-zero):
    row below a rescaler of q - 1, rows at 0 and q - 1, rescalers at
    round_at and either side of it, both roundings, a part's rows of the
    level's and an accumulator's special rows (the same in 6, 10, 11);
+3b. the stacked linear op's matrix product (``matmul``, csrc/matmul.cu)
+   at the feed-forward layer's shapes, in both lanes (Preset.logN15 and
+   logN15_30): 768 inputs to a block of 512 intermediate features at
+   level 0 (17 channels) and the down product's 512 to 768 at level 2,
+   random residues, weights drawn as BERT-base's and encoded by the
+   engine (two limbs).  The kernel's output, and the same call adding
+   into an accumulator, against ``matmul_plain`` on the CPU byte for byte
+   in three 64-coefficient column tiles of every row (every channel and
+   output tile); its time beside ``bound_ms``, the least time of
+   ``fhebench/roofline/ffn.py``'s count (int8 tensor-core ceiling at the
+   card's highest SM clock, or bytes at the HBM rate);
 4. drive the main path at Preset.logN15 on the card: keygen,
    ``encodecrypt_batch`` of 8 messages twice, the fused cc_mult step on
    the batch (all keyswitch parts in one kernel), ``decryptcode_batch``;
@@ -164,7 +175,12 @@ Phases (any failure exits non-zero):
     ``HELinearFeatureWise`` at dim 16 (79 K6 a forward, exactly; within
     5e-4), its forward times, its rotation keys' memory, and what their
     K6 key forms hold after first use (pointer tables only);
-    ``HELayerNormFeatureWise`` (F 4, two Newton steps; within 5e-3); two
+    ``HELayerNormFeatureWise`` (F 4, two Newton steps; within 5e-3);
+    ``HEFeedForwardFeatureWise`` through ``CkksEngine.feed_forward`` at
+    64 hidden and 1024 intermediate features (two blocks) and, on a
+    logN15_30 engine, 16 and 64, its launches counted from that run
+    alone (the matrix products exactly 2 a block, in the engine's lane;
+    within 1e-6 and 5e-3 of the float forward); two
     MPC parties (collective encrypt and threshold decrypt, a collective
     rotation; within 5e-4; one share alone garbage; card == CPU); a
     ``trace.profile`` of one rotation holding its ``annotate`` names and
@@ -278,6 +294,11 @@ CSPRNG = tuple(_CSPRNG)
 KERNELS.update({name: ("tiberate_tpu_torch/csrc/csprng.cu",
                        f"tiberate_tpu/rng/csprng.py:{line}")
                 for name, line in _CSPRNG.items()})
+# The stacked linear op's matrix product (csrc/matmul.cu) replaces no TPU
+# kernel: the JAX package has no stacked linear op.
+KERNELS.update({"matmul" + sfx: ("tiberate_tpu_torch/csrc/matmul.cu",
+                                 "none (no JAX counterpart)")
+                for sfx in ("", "_30")})
 # the kernels keygen draws with (sk, pk, evk: R2, R3), and those
 # encodecrypt_batch draws with (R4, and R2 + R3 for the noise)
 KEYGEN_DRAWS = ("chacha_randint", "chacha_dgauss")
@@ -305,8 +326,8 @@ EVAL_15 = ("ntt", "intt", "ntt_keymul", "intt_pdiv", "ntt_tensor",
            "ntt_keymul_parts", *GLUE)
 # the kernels the logN15 extension path launches (phase 12): rotation and
 # MPC keys (K1, K2), pc_mult and decrypts (K3), keyswitches (K6, K4),
-# cc_mult (K5)
-EXT_15 = EVAL_15
+# cc_mult (K5), the feed-forward layer's matrix products in both lanes
+EXT_15 = (*EVAL_15, "matmul", "matmul_30")
 
 
 def lane(names, sfx):
@@ -667,6 +688,103 @@ def check_kernels(eng, kern, mod, roofline, tag, loops, redc_per_s):
                                                reductions=reds)
     results["ntt_keymul_accum"]["with_skip"] = results.pop(skip_key)
     return results
+
+
+# Phase 3b: the stacked linear op's matrix product at the feed-forward
+# layer's shapes: (level, F_in, F_out) of BERT-base's up product (768 to a
+# block of 512 intermediate features) and down product (512 to 768)
+MATMUL_SHAPES = ((0, 768, 512), (2, 512, 768))
+MATMUL_TILE = 64       # coefficients a block of the kernel owns
+FFN_STD = 0.02         # BERT-base's initializer_range
+
+
+def matmul_tiles(t, N):
+    """Coefficient tiles 0, N / 2 and the last of every row of ``t`` [F,
+    C, N], contiguous on the CPU."""
+    cols = [slice(a, a + MATMUL_TILE)
+            for a in (0, N // 2, N - MATMUL_TILE)]
+    return torch.cat([t[..., c] for c in cols], dim=-1).cpu().contiguous()
+
+
+def matmul_phase(CkksEngine, preset, tag, smi, clock_hz):
+    """3b: ``ops/matmul.matmul`` at MATMUL_SHAPES in one lane: random
+    canonical residues, weights of N(0, FFN_STD^2) (the up product's times
+    sqrt(0.125), as the layer folds the Quad's 0.125) encoded by the
+    engine at the product's level; the output, and the same call into an
+    accumulator holding it (twice it, mod q), against ``matmul_plain`` on
+    the CPU byte for byte in three column tiles of every row; canonical.
+    Timed (CUDA events) beside ``bound_ms`` from
+    ``fhebench/roofline/ffn.py``.  Returns the last shape's result, with
+    every shape's under ``shapes``."""
+    from fhebench.roofline import ffn as ffn_roofline
+    from tiberate_tpu_torch.ops import matmul as mm
+    from tiberate_tpu_torch.ops import ntt_kernels as kern
+
+    eng = CkksEngine(preset, device="cuda", seed=SEED)
+    cfg = eng.ckksCfg
+    primes = [int(q) for q in eng.params.q]
+    P = len(primes) - cfg.num_special_primes
+    sfx = "" if cfg.numpy_dtype == np.int64 else "_30"
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    shapes = {}
+    for level, F_in, F_out in MATMUL_SHAPES:
+        lp = eng._lp(level, False)
+        q = lp.pack.q.long()[:, None]
+        C, N = len(q), cfg.N
+        x0, x1 = ((torch.randint(0, 1 << 62, (F_in, C, N), device="cuda",
+                                 generator=gen) % q).to(lp.pack.dtype)
+                  for _ in range(2))
+        w = rng.normal(0.0, FFN_STD, (F_in, F_out))
+        if level == 0:
+            w *= math.sqrt(0.125)
+        wl = eng.encode_matrix(w, level).limbs
+        before = dict(kern.LAUNCHES)
+        got = mm.matmul(x0, x1, wl, lp)
+        acc = tuple(g.clone() for g in got)
+        again = mm.matmul(x0, x1, wl, lp, acc=acc)
+        torch.cuda.synchronize()
+        counts = diff(kern, before)
+        check(counts == {"matmul" + sfx: 2},
+              f"{tag} matmul launches {counts}")
+        t0 = time.perf_counter()
+        lp_cpu = eng._lp(level, False).to("cpu")
+        want = mm.matmul_plain(matmul_tiles(x0, N), matmul_tiles(x1, N),
+                               wl.cpu(), lp_cpu)
+        plain_s = time.perf_counter() - t0
+        qc = q.cpu()
+        same = all(torch.equal(matmul_tiles(g, N), w_)
+                   and torch.equal(matmul_tiles(a, N),
+                                   (2 * w_.long() % qc).to(w_.dtype))
+                   for g, a, w_ in zip(got, again, want))
+        canonical = all(bool(((g >= 0) & (g.long() < q)).all())
+                        for g in got)
+        del got, again, acc, want
+        ms = cuda_ms(lambda: mm.matmul(x0, x1, wl, lp))
+        work = ffn_roofline.matmul(cfg.logN, primes, level, P, F_in, F_out,
+                                   cfg.scale_bits)
+        bound_ms = work.least_s(clock_hz) * 1e3
+        res = dict(ms=ms, bound_ms=bound_ms, bound_by="int8 tensor cores"
+                   if work.int8 / ffn_roofline.int8_ceiling(clock_hz)
+                   >= work.nbytes / HBM_BYTES_PER_S else "bytes",
+                   limbs=int(wl.shape[0]), same_bytes=same,
+                   canonical=canonical, plain_s=plain_s,
+                   dims=[level, F_in, F_out, C, N])
+        shapes[f"level{level}_{F_in}x{F_out}"] = res
+        log(f"{tag} matmul{sfx} level {level}, {F_in} -> {F_out} "
+            f"ciphertexts ({C} channels, N {N}, {res['limbs']} limbs a "
+            f"weight): same bytes as matmul_plain in 3 column tiles of "
+            f"every row, with and without an accumulator: {same} (plain "
+            f"{plain_s:.1f} s on the CPU); canonical {canonical}; "
+            f"{ms:.3f} ms a call; bound {bound_ms:.3f} ms "
+            f"({res['bound_by']}, roofline/ffn.py at "
+            f"{clock_hz / 1e6:.0f} MHz), {100 * bound_ms / ms:.1f}% of the "
+            f"bound ({smi})")
+        check(same and canonical, f"{tag} matmul differs from its plain "
+              f"version at level {level}, {F_in} x {F_out}")
+        del x0, x1
+    del eng
+    return dict(res, shapes=shapes)
 
 
 def signed_key_rows(kern, mod, tp):
@@ -2280,6 +2398,62 @@ def ext_layernorm(eng, kern, tag, smi):
                 limit=EXT_TOL_LN, launches=counts)
 
 
+EXT_TOL_FFN = 1e-6    # a fresh ciphertext's; the cell reads ~1e-7
+
+
+def ext_ffn(eng, kern, tag, smi, H, I, tol, sfx):
+    """12.5b: ``HEFeedForwardFeatureWise`` through
+    ``CkksEngine.feed_forward`` at H hidden and I intermediate features,
+    drawn as BERT-base's (weights N(0, FFN_STD^2), biases U(-0.1, 0.1))
+    over LayerNorm outputs: a first forward encodes the weights, then the
+    launches of the second alone are counted (the matrix products exactly
+    2 a block of ``layer.blocks``, in the lane ``sfx`` only), its time
+    taken and its output decrypted within ``tol`` of the float forward,
+    three levels down."""
+    from tiberate_tpu_torch.engine import (
+        stack_ciphertexts,
+        unstack_ciphertext,
+    )
+
+    rng = np.random.default_rng(SEED)
+    w1 = rng.normal(0.0, FFN_STD, (H, I))
+    w2 = rng.normal(0.0, FFN_STD, (I, H))
+    b1, b2 = rng.uniform(-0.1, 0.1, I), rng.uniform(-0.1, 0.1, H)
+    z = rng.standard_normal((H, eng.num_slots))
+    z = (z - z.mean(axis=0)) / z.std(axis=0)
+    x = (rng.uniform(0.5, 1.5, H)[:, None] * z
+         + rng.uniform(-0.5, 0.5, H)[:, None])
+    X = stack_ciphertexts(eng.encodecrypt_batch(list(x)))
+    layer = eng.feed_forward(w1, b1, w2, b2)
+    layer(X)
+    torch.cuda.synchronize()
+    before = dict(kern.LAUNCHES)
+    t0 = time.perf_counter()
+    out = layer(X)
+    torch.cuda.synchronize()
+    t_ffn = time.perf_counter() - t0
+    counts = diff(kern, before)
+    blocks = layer.blocks(X.level)
+    mm = {k: v for k, v in counts.items() if k.startswith("matmul")}
+    got = np.stack([eng.decryptcode(c, is_real=True)
+                    for c in unstack_ciphertext(out)])
+    h = w1.T @ x + b1[:, None]
+    want = x + w2.T @ (0.125 * h * h + 0.25 * h + 0.5) + b2[:, None]
+    err = float(np.abs(got - want).max())
+    log(f"{tag} HEFeedForwardFeatureWise H {H}, I {I} ({len(blocks)} "
+        f"blocks): output level {out.level}, {t_ffn:.3f} s (host clock, "
+        f"synchronised; {smi}), matrix products {mm}, launches {counts}; "
+        f"max error {err:.3e} (limit {tol})")
+    check(mm == {"matmul" + sfx: 2 * len(blocks)},
+          f"{tag} feed-forward matrix products {mm}, want "
+          f"{2 * len(blocks)} of matmul{sfx}")
+    check(out.level == X.level + 3, f"{tag} feed-forward level {out.level}")
+    check(err < tol, f"{tag} feed-forward error above the limit")
+    return dict(seconds=t_ffn, hidden=H, intermediate=I,
+                blocks=len(blocks), level=out.level, max_abs_err=err,
+                limit=tol, launches=counts)
+
+
 def mpc_run(mpc, m, rotate):
     """Two parties: keys, the collective key, encrypt, threshold decrypt
     (and with ``rotate`` a collective rotation key and one rotation)."""
@@ -2421,6 +2595,11 @@ def extension_phase(CkksEngine, Preset, kern, typing, smi):
     res["linear_feature_wise"] = ext_linear(CkksEngine, Preset, kern, tag,
                                             smi)
     res["layernorm"] = ext_layernorm(eng, kern, tag, smi)
+    res["ffn"] = ext_ffn(eng, kern, tag, smi, 64, 1024, EXT_TOL_FFN, "")
+    eng30 = CkksEngine("logN15_30", device="cuda", seed=SEED)
+    res["ffn_30"] = ext_ffn(eng30, kern, "logN15_30 extensions", smi, 16,
+                            64, DECRYPT_TOL_30_OP, "_30")
+    del eng30
     res["mpc"] = ext_mpc(Preset, kern, tag)
     res["trace"] = ext_trace(eng, trace, ct1, tag)
     res["cli"] = ext_cli(tag)
@@ -2896,6 +3075,15 @@ def main():
     del eng_k
     release_engines(ttyping)
 
+    # 3b. the stacked linear op's matrix product at the feed-forward
+    # layer's shapes, both lanes (the 30-bit result joins phase 10's)
+    clock_hz = max_sm_clock_hz()
+    results15["matmul"] = matmul_phase(CkksEngine, Preset.logN15, "logN15",
+                                       smi, clock_hz)
+    matmul15_30 = matmul_phase(CkksEngine, "logN15_30", "logN15_30", smi,
+                               clock_hz)
+    release_engines(ttyping)
+
     # 4. the logN15 main path
     eng = CkksEngine(Preset.logN15, device="cuda", seed=SEED)
     A, B, out, launches15, step15, err15, info15 = drive(
@@ -2970,6 +3158,7 @@ def main():
     eng_k = CkksEngine("logN15_30", device="cuda", seed=SEED)
     results15_30 = check_kernels(eng_k, kern, mod, roofline, "logN15_30",
                                  (3, 3), rate30)
+    results15_30["matmul"] = matmul15_30
     del eng_k
     release_engines(ttyping)
     eng = CkksEngine("logN15_30", device="cuda", seed=SEED)

@@ -14,7 +14,9 @@ engine's modular add, subtract and product by a column) against its
 plain version at logN15's shapes and views, with no torch kernel in the
 engine's cores that call it, the CSPRNG's
 kernels (R1-R4) against their plain versions on edge counters in their
-single and batch forms, and the mesh engine with every shard on the card
+single and batch forms, the stacked linear op's modular matrix product
+against its plain version at the logN15 presets' chains, and the mesh
+engine with every shard on the card
 against the single-device engine on the CPU.  The file imports no jax, so it also
 runs on a machine that has only torch:
 
@@ -42,6 +44,7 @@ from tiberate_tpu_torch.context.ntt_context import CkksParams
 from tiberate_tpu_torch.engine import ckks_engine as teng
 from tiberate_tpu_torch.ops import fold_probe as fp
 from tiberate_tpu_torch.ops import glue_kernels as G
+from tiberate_tpu_torch.ops import matmul as mm
 from tiberate_tpu_torch.ops import ntt as ntt_ops
 from tiberate_tpu_torch.ops import ntt_kernels as K
 from tiberate_tpu_torch.rng.csprng import Csprng
@@ -968,3 +971,78 @@ def test_mesh_engine_on_card_equals_cpu(card, lane, axes):
         need.append("intt_pdiv")
     assert all(counts[k + sfx] > 0 for k in need), counts
     assert counts["ntt_keymul_parts" + sfx] == 0
+
+
+# The stacked linear op's modular matrix product (csrc/matmul.cu) at the
+# logN15 presets' chains (the 62-bit lane's 40- and 41-bit scale primes
+# and 60-bit base, which take 2 and 3 limbs; the 30-bit lane's 24- to
+# 28-bit primes): case -> (level, F_in, F_out, weights, residues); F_in
+# None is one run of the weights' limbs and 5 features more
+MATMUL_CASES = {
+    "up block": (0, 16, 70, "random", "random"),
+    "down block": (2, 24, 64, "random", "random"),
+    "q - 1 and the largest weights": (0, 16, 65, "extreme", "q - 1"),
+    "one limb": (1, 9, 33, "small", "random"),
+    "two runs at the bound": (14, None, 3, "extreme", "q - 1"),
+    "three limbs": (0, 16, 66, "wide", "random"),
+    "q - 1 and the largest three-limb weights": (0, 16, 65, "extreme3",
+                                                 "q - 1"),
+    "two three-limb runs at the bound": (14, None, 3, "extreme3", "q - 1"),
+}
+
+
+def _matmul_operands(case, tp):
+    """(lp, x0, x1, W) of a case, the residues and weights on the CPU."""
+    level, F_in, F_out, weights, residues = MATMUL_CASES[case]
+    lp = tp.lp(level, False)
+    q = lp.pack.q.long().cpu()
+    C, N = lp.num_channels, tp.N
+    top = {"random": 1 << 37, "small": 1 << 20, "wide": 1 << 55,
+           "extreme": mm.limb_max(2), "extreme3": mm.MAX_WEIGHT}[weights]
+    F_in = F_in or mm.matmul_run(3 if top > mm.limb_max(2) else 2) + 5
+    gen = torch.Generator().manual_seed(400 + level)
+    x = torch.randint(0, 1 << 62, (2, F_in, C, N), generator=gen) % q[:, None]
+    if residues == "q - 1":
+        x[:, : F_in // 2 + 1] = (q - 1)[:, None]
+    W = torch.randint(-top, top + 1, (F_in, F_out), generator=gen)
+    if weights.startswith("extreme"):
+        W[: F_in // 2 + 1] = top
+        W[: F_in // 2 + 1, 1::2] = -top - 1
+    x = x.to(tp.dtype)
+    return lp, x[0], x[1], W
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", sorted(LANES))
+@pytest.mark.parametrize("case", sorted(MATMUL_CASES))
+def test_matmul_matches_plain_on_card(card, lane, case):
+    """The modular matrix product against its plain version (on the CPU),
+    byte for byte, with and without an accumulator: random residues and
+    weights of 37 bits as the engine encodes a BERT-base layer's, residues
+    q - 1 with weights of the largest magnitude two and three limbs hold,
+    weights of one limb and of three, and sums longer than one run (two
+    launches, the second adding into the first's output).  Canonical in
+    [0, q)."""
+    from tiberate_tpu_torch.config import CkksConfig
+
+    tp = CkksParams(CkksConfig.parse("logN15" + ("" if lane == 62
+                                                 else "_30")), card)
+    lp, x0, x1, W = _matmul_operands(case, tp)
+    wl = mm.weight_limbs(W)
+    run = mm.matmul_run(wl.shape[0])
+    pieces = -(-x0.shape[0] // run)
+    lp_cpu = lp.to("cpu")
+    want = mm.matmul_plain(x0, x1, wl, lp_cpu)
+    K.reset_launch_counts()
+    got = mm.matmul(x0.to(card), x1.to(card), wl.to(card), lp)
+    acc = tuple(w.to(card) for w in want)
+    again = mm.matmul(x0.to(card), x1.to(card), wl.to(card), lp, acc=acc)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+        "matmul" + LANES[lane][1]: 2 * pieces}
+    q = lp_cpu.pack.q.long()[:, None]
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == tp.dtype and g.is_contiguous()
+        assert torch.equal(g.cpu(), w)
+        assert torch.equal(a.cpu(), ((2 * w.long()) % q).to(w.dtype))
+    assert again[0].data_ptr() == acc[0].data_ptr()

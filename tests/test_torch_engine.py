@@ -283,6 +283,19 @@ q = 1152921504606584833
 a = np.arange(64, dtype=np.int64)
 assert native.negacyclic_mul(a, np.eye(1, 64, 1, dtype=np.int64)[0], q)[
     1:].tolist() == a[:-1].tolist()
+
+# the stacked linear op and the feed-forward layer
+from tiberate_tpu_torch.engine import stack_ciphertexts, unstack_ciphertext
+X = stack_ciphertexts(eng.encodecrypt_batch([m1, m2]))
+w = rng.normal(0, 0.3, (2, 3))
+Y = eng.mult_matrix(X, eng.encode_matrix(w, X.level), [0.1, 0.2, 0.3])
+got = np.stack([eng.decryptcode(c, is_real=True)
+                for c in unstack_ciphertext(Y)])
+want = w.T @ np.stack([m1, m2]) + np.array([0.1, 0.2, 0.3])[:, None]
+assert np.abs(got - want).max() < {tol30}
+ff = eng.feed_forward(w, np.zeros(3), w.T.copy(), np.zeros(2))
+assert isinstance(ff, extension.HEFeedForwardFeatureWise)
+assert ff(X).level == X.level + 3
 assert "tiberate_tpu" not in sys.modules
 print("ok")
 """

@@ -20,7 +20,9 @@ step's glue between them (the rescale, the keyswitch digits and the
 special rows of the P-division), and the modular add, subtract and
 product by a column of ``cc_add``, ``cc_sub``, ``level_up`` and the
 scalar products, through those of
-:mod:`tiberate_tpu_torch.ops.glue_kernels`: one code path, which
+:mod:`tiberate_tpu_torch.ops.glue_kernels`, and the stacked linear op's
+matrix product (:meth:`CkksEngine.mult_matrix`, which the JAX package
+lacks) through :mod:`tiberate_tpu_torch.ops.matmul`: one code path, which
 launches the Hopper kernels for CUDA tensors and runs their plain
 versions for CPU tensors.  Outputs are bit-identical to the JAX
 package's jnp path on the same inputs.
@@ -41,6 +43,7 @@ import math
 import types
 import uuid
 from hashlib import sha256
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -49,6 +52,7 @@ from tiberate_tpu_torch import errors
 from tiberate_tpu_torch.config import CkksConfig, Preset
 from tiberate_tpu_torch.context.ntt_context import CkksParams, PartPack
 from tiberate_tpu_torch.ops import glue_kernels as glue
+from tiberate_tpu_torch.ops import matmul as mm
 from tiberate_tpu_torch.ops import mont
 from tiberate_tpu_torch.ops import ntt_kernels as kern
 from tiberate_tpu_torch.parallel.mesh import (
@@ -82,6 +86,16 @@ logger = logging.getLogger("tiberate_tpu_torch")
 # ======================================================================
 # Cores.
 # ======================================================================
+
+
+class MatrixWeights(NamedTuple):
+    """A weight matrix encoded for :meth:`CkksEngine.mult_matrix` at one
+    level: ``limbs`` the limbs (``ops/matmul.weight_limbs``), on the
+    engine's device, of each weight's signed integer, as ``mult_scalar``
+    encodes a scalar there."""
+
+    level: int
+    limbs: torch.Tensor
 
 
 def _t(x):
@@ -2048,6 +2062,76 @@ class CkksEngine:
         ct_var = self.var(ct, evk or self.evk, post_relin=post_relin)
         return self.sqrt(ct_var, evk or self.evk)
 
+    # ------------------------------------------------------------------
+    # Stacked linear layers (features as ciphertexts).
+    # ------------------------------------------------------------------
+
+    def encode_matrix(self, weight, level: int) -> MatrixWeights:
+        """``weight`` [F_in, F_out] (real) for :meth:`mult_matrix` on
+        ciphertexts at ``level``: each weight the integer
+        ``int(w * scale * sqrt(dev[level + 1]) + 0.5)``, as
+        :meth:`mult_scalar` encodes a scalar, split into limbs once and
+        kept on the device.  Any integer below 2^62 in magnitude: |w| up
+        to about 2^22 at a 2^40 scale."""
+        w = np.asarray(weight, dtype=np.float64)
+        if w.ndim != 2:
+            raise ValueError(f"weight must be [F_in, F_out], got {w.shape}")
+        root = np.sqrt(self.params.deviations[level + 1])
+        scaled = w * self.ckksCfg.scale * root + 0.5
+        if not np.all(np.abs(scaled) < 2.0**62):
+            raise ValueError(f"a weight of {np.abs(w).max()} encodes to "
+                             f"2^62 or more at level {level}")
+        ints = np.trunc(scaled).astype(np.int64)     # int(), to zero
+        limbs = mm.weight_limbs(torch.from_numpy(ints))
+        return MatrixWeights(level, limbs.to(self.device))
+
+    def _matrix_sum(self, ct: Ciphertext, weights: MatrixWeights,
+                    acc: Ciphertext = None) -> Ciphertext:
+        """``sum_i W[i, j] ct[i]`` at ``ct``'s level, not rescaled: one
+        modular matrix product (``ops/matmul``) over the stack ``ct``
+        [F_in, C, N], for both polynomials.  With ``acc`` (a stack of
+        F_out at the same level) the sums are added into ``acc``'s data in
+        place, which is returned."""
+        if _holds_sharded(ct):
+            raise NotImplementedError("mult_matrix runs on one device")
+        if weights.level != ct.level:
+            raise ValueError(f"weights encoded for level {weights.level}, "
+                             f"ciphertexts at {ct.level}")
+        if acc is not None and acc.level != ct.level:
+            raise ValueError(f"accumulator at level {acc.level}, "
+                             f"ciphertexts at {ct.level}")
+        lp = self._lp(ct.level, False)
+        data = mm.matmul(ct.data[0], ct.data[1], weights.limbs, lp,
+                         None if acc is None else acc.data)
+        return Ciphertext(data=data, level=ct.level, **self._meta())
+
+    def mult_matrix(self, ct: Ciphertext, weight: MatrixWeights,
+                    bias=None) -> Ciphertext:
+        """The stacked linear op: a stack of F_in ciphertexts (``[F_in,
+        C, N]`` data, one feature each) to a stack of F_out,
+        ``out[j] = sum_i w[i, j] ct[i] + bias[j]``, ``weight`` the real
+        [F_in, F_out] matrix ``w`` as :meth:`encode_matrix` encodes it for
+        ``ct``'s level.  The weighted sums (unrescaled,
+        :meth:`_matrix_sum`), one :meth:`rescale`, then the bias a row
+        through :meth:`add_scalar`: the residues of
+        ``sum_i mult_int_scalar(ct[i], W[i, j])`` rescaled, with ``W``
+        the integers :meth:`encode_matrix` makes.  Traced as the span
+        ``mult_matrix``."""
+        with trace.annotate("mult_matrix"):
+            out = self.rescale(self._matrix_sum(ct, weight))
+            if bias is not None:
+                out = self.add_scalar(out, bias)
+        return out
+
+    def feed_forward(self, w1, b1, w2, b2):
+        """The feature-wise encrypted feed-forward sub-layer on this engine:
+        :class:`tiberate_tpu_torch.extension.nn.HEFeedForwardFeatureWise`,
+        ``y = x + w2^T quad(w1^T x + b1) + b2`` over one stack of feature
+        ciphertexts."""
+        from tiberate_tpu_torch.extension.nn import HEFeedForwardFeatureWise
+
+        return HEFeedForwardFeatureWise(w1, b1, w2, b2, self)
+
     def layer_norm(self, gamma, beta, **kwargs):
         """The feature-wise encrypted LayerNorm on this engine:
         :class:`tiberate_tpu_torch.extension.nn.HELayerNormFeatureWise`
@@ -2095,4 +2179,5 @@ def unstack_ciphertext(ct: Ciphertext) -> list:
     ]
 
 
-__all__ = ["CkksEngine", "stack_ciphertexts", "unstack_ciphertext"]
+__all__ = ["CkksEngine", "MatrixWeights", "stack_ciphertexts",
+           "unstack_ciphertext"]

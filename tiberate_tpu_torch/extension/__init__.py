@@ -1,5 +1,6 @@
 from tiberate_tpu_torch.extension.mpc import CkksEngineMPCExtension
 from tiberate_tpu_torch.extension.nn import (
+    HEFeedForwardFeatureWise,
     HELayerNorm,
     HELinear,
     HELinearFeatureWise,
@@ -16,6 +17,7 @@ __all__ = [
     "CkksEngineMPCExtension",
     "FeatureWiseCTEncoding",
     "FeatureWisePacking",
+    "HEFeedForwardFeatureWise",
     "HELayerNorm",
     "HELinear",
     "HELinearFeatureWise",

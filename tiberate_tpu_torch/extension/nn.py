@@ -16,6 +16,10 @@ not parameters with gradients, and nothing here trains.
   Newton reciprocal square root; depth 3 + 3 * iters + 2 levels, one
   more with gamma.  It takes a list of ciphertexts or one stacked
   ciphertext ``[F, ...]``.
+* :class:`HEFeedForwardFeatureWise`: a transformer's feed-forward
+  sub-layer with MPCFormer's Quad activation over one stack of feature
+  ciphertexts, by two stacked linear ops (``CkksEngine.mult_matrix``);
+  depth 3 levels.
 """
 
 import math
@@ -43,6 +47,15 @@ STEP_BUDGET_BYTES = 8 << 30
 STEP_TRANSIENT_CTS = 11
 
 
+# The feed-forward sub-layer streams over blocks of its intermediate
+# features: a block's h, its square, its linear term and its activation
+# are FFN_BLOCK_CTS ciphertexts a feature at h's level at most, kept under
+# FFN_BUDGET_BYTES (512 features at logN15, level 1; the block's squares
+# run in stack_chunk chunks inside it).
+FFN_BUDGET_BYTES = 16 << 30
+FFN_BLOCK_CTS = 4
+
+
 def stack_chunk(engine, level: int) -> int:
     """Stacked ciphertexts a chunk centred at ``level``: the transients of
     one, STEP_TRANSIENT_CTS times a ciphertext's bytes there, into
@@ -51,6 +64,16 @@ def stack_chunk(engine, level: int) -> int:
     word = np.dtype(cfg.numpy_dtype).itemsize
     ct_bytes = 2 * (engine.params.P - level) * cfg.N * word
     return max(1, STEP_BUDGET_BYTES // (STEP_TRANSIENT_CTS * ct_bytes))
+
+
+def ffn_block(engine, level: int) -> int:
+    """Intermediate features a block of the feed-forward sub-layer whose
+    h lies at ``level``: FFN_BLOCK_CTS ciphertexts a feature there into
+    FFN_BUDGET_BYTES (512 at logN15, level 1)."""
+    cfg = engine.ckksCfg
+    word = np.dtype(cfg.numpy_dtype).itemsize
+    ct_bytes = 2 * (engine.params.P - level) * cfg.N * word
+    return max(1, FFN_BUDGET_BYTES // (FFN_BLOCK_CTS * ct_bytes))
 
 
 def _rows(ct, start, stop):
@@ -346,3 +369,105 @@ class HELinearFeatureWise(HELinear):
                 encoded_by=ct_in.metadata.encoded_by,
             ),
         )
+
+
+class HEFeedForwardFeatureWise(HEModule):
+    """A transformer's feed-forward sub-layer over one stack of feature
+    ciphertexts (features as ciphertexts, tokens in the slots), with
+    MPCFormer's Quad in the place of GELU:
+
+        y = x + w2^T quad(w1^T x + b1) + b2,
+        quad(h) = 0.125 h^2 + 0.25 h + 0.5,
+
+    ``w1`` [H, I], ``b1`` [I], ``w2`` [I, H], ``b2`` [H]: H hidden and I
+    intermediate features.  The circuit, for x [H] at level l:
+
+    * up, at level l: ``g = mult_matrix(x, s w1, s b1)`` with s =
+      sqrt(0.125): the weights and bias scaled so that g = s h; one
+      rescale, so g lies at l + 1;
+    * Quad, at level l + 1: ``g2 = cc_mult(g, g)`` = 0.125 h^2 (the
+      tensor product's rescale: level l + 2), in chunks of
+      :func:`stack_chunk` features; ``u = mult_scalar(g, 0.25 / s)`` =
+      0.25 h (its rescale: level l + 2, the square's scale, so the two
+      add); ``a = add_scalar(cc_add(g2, u), 0.5)``;
+    * down, at level l + 2: ``w2^T a`` summed unrescaled over the blocks,
+      then one rescale and ``b2`` a row (``add_scalar``): level l + 3;
+    * residual: ``cc_add(level_up(x, l + 3), down)``.
+
+    So 0.125 is folded into the up weights' encoding, 0.25 is one
+    ``mult_scalar`` and 0.5 one ``add_scalar``; the output lies at l + 3.
+    The intermediate features stream in blocks of :func:`ffn_block`: a
+    block's g, squares, linear term and activation are made, and its down
+    product added into the accumulator, before the next block starts.  The residues do not depend on the block (the
+    sums are exact modular sums).  The encoded weights are made once a
+    level and kept (``weights(level)``).  Traced as the span ``ffn`` with
+    the children ``ffn.up``, ``ffn.act``, ``ffn.down`` and
+    ``ffn.residual``.
+    """
+
+    QUAD = (0.125, 0.25, 0.5)
+
+    def __init__(self, w1, b1, w2, b2, engine):
+        self.engine = engine
+        self.w1 = np.asarray(w1, dtype=np.float64)
+        self.w2 = np.asarray(w2, dtype=np.float64)
+        H, I = self.w1.shape
+        if self.w2.shape != (I, H):
+            raise ValueError(f"w1 {self.w1.shape} and w2 {self.w2.shape}: "
+                             f"want [H, I] and [I, H]")
+        self.b1 = np.asarray(b1, dtype=np.float64).reshape(I)
+        self.b2 = np.asarray(b2, dtype=np.float64).reshape(H)
+        self.hidden, self.intermediate = H, I
+        c2, c1, self.c0 = self.QUAD
+        self.s = math.sqrt(c2)
+        self.lin = c1 / self.s
+        self._weights = {}
+
+    def blocks(self, level: int):
+        """The intermediate features' blocks for an input at ``level``."""
+        n = ffn_block(self.engine, level + 1)
+        return [(i, min(i + n, self.intermediate))
+                for i in range(0, self.intermediate, n)]
+
+    def weights(self, level: int):
+        """Per block, the encoded (up, down) weights for an input at
+        ``level``: made on first use and kept."""
+        if level not in self._weights:
+            eng = self.engine
+            self._weights[level] = [
+                (eng.encode_matrix(self.s * self.w1[:, i:j], level),
+                 eng.encode_matrix(self.w2[i:j], level + 2))
+                for i, j in self.blocks(level)]
+        return self._weights[level]
+
+    def forward(self, x: Ciphertext, **kwargs) -> Ciphertext:
+        """x: one stacked ciphertext of H rows; returns the stack of H
+        outputs, three levels down."""
+        eng = self.engine
+        if x.data[0].shape[0] != self.hidden:
+            raise ValueError(f"{x.data[0].shape[0]} features for a layer of "
+                             f"{self.hidden}")
+        weights = self.weights(x.level)
+        acc = None
+        with annotate("ffn"):
+            for (i, j), (up, down) in zip(self.blocks(x.level), weights):
+                with annotate("ffn.up"):
+                    g = eng.mult_matrix(x, up, self.s * self.b1[i:j])
+                with annotate("ffn.act"):
+                    n = stack_chunk(eng, g.level)
+                    g2 = _cat([eng.cc_mult(c, c) for c in
+                               (_rows(g, k, k + n)
+                                for k in range(0, j - i, n))])
+                    u = eng.mult_scalar(g, self.lin)
+                    del g
+                    a = eng.add_scalar(eng.cc_add(g2, u), self.c0)
+                    del g2, u
+                with annotate("ffn.down"):
+                    acc = eng._matrix_sum(a, down, acc)
+                    del a
+            with annotate("ffn.down"):
+                y = eng.add_scalar(eng.rescale(acc), self.b2)
+                del acc
+            with annotate("ffn.residual"):
+                out = eng.cc_add(eng.level_up(x, y.level), y)
+        return out

@@ -1,8 +1,8 @@
 """Build and load the Hopper kernels (``csrc/*.cu``) at first use.
 
 ``nvcc`` compiles each source into an object file (``tensor.cu``,
-``keyswitch.cu`` and ``glue.cu`` once per lane, ``ntt.cu`` once per lane
-and direction, ``fold_probe.cu`` and ``csprng.cu`` once),
+``keyswitch.cu``, ``glue.cu`` and ``matmul.cu`` once per lane, ``ntt.cu``
+once per lane and direction, ``fold_probe.cu`` and ``csprng.cu`` once),
 all at once in parallel processes, and links them into one shared library
 with a plain C interface under ``tiberate_tpu_torch/_build/`` (named by a
 hash of the sources, so an edited source is rebuilt); ``ctypes`` loads
@@ -22,15 +22,16 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("ntt.cu", "tensor.cu", "keyswitch.cu", "glue.cu", "fold_probe.cu",
-           "csprng.cu")
+           "csprng.cu", "matmul.cu")
 HEADERS = ("mont.cuh", "ntt.cuh")
 # (source, extra nvcc flags) per object file: ntt.cu, tensor.cu and
 # keyswitch.cu instantiate their kernels for every logN, so each lane (and
-# each direction of ntt.cu) builds apart; glue.cu's lanes build apart too
+# each direction of ntt.cu) builds apart; glue.cu's and matmul.cu's lanes
+# build apart too
 UNITS = (*(("ntt.cu", (f"-DTT_LANE={lane}", f"-DTT_FWD={fwd}"))
            for lane in (62, 30) for fwd in (1, 0)),
          *((src, (f"-DTT_LANE={lane}",))
-           for src in ("tensor.cu", "keyswitch.cu", "glue.cu")
+           for src in ("tensor.cu", "keyswitch.cu", "glue.cu", "matmul.cu")
            for lane in (62, 30)),
          ("fold_probe.cu", ()), ("csprng.cu", ()))
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -59,6 +60,11 @@ _LANED = {
     "tt_pdiv_p0": [_P, _L, _P, _I, _I, _I, _P, _P, _P, _P],
     # the engine's elementwise ops (G4): op, then as the glue's
     "tt_modew": [_I, _P, _L, _P, _L, _P, _I, _I, _I, _P, _L, _P, _P, _P],
+    # the stacked linear op (matmul.cu): x0, x1, feature stride, the weight
+    # limbs and their limb stride, L, F_in, F_out, acc0, acc1, out0, out1,
+    # C, N, q, k, 2^64 mod q, 2^124 mod q, stream
+    "tt_matmul": [_P, _P, _L, _P, _L, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P,
+                  _P, _P, _P, _P],
 }
 # Every C entry point -> argument types.  The fold-rate probe takes its
 # constants by value in its lane's word, and its Shoup fold has no 30-bit

@@ -70,12 +70,16 @@ Phases (any failure exits non-zero):
    logN15_30): 768 inputs to a block of 512 intermediate features at
    level 0 (17 channels) and the down product's 512 to 768 at level 2,
    random residues, weights drawn as BERT-base's and encoded by the
-   engine (two limbs).  The kernel's output, and the same call adding
-   into an accumulator, against ``matmul_plain`` on the CPU byte for byte
-   in three 64-coefficient column tiles of every row (every channel and
-   output tile); its time beside ``bound_ms``, the least time of
-   ``fhebench/roofline/ffn.py``'s count (int8 tensor-core ceiling at the
-   card's highest SM clock, or bytes at the HBM rate);
+   engine (five bytes in the 62-bit lane).  The kernel's output, and the
+   same call adding into an accumulator, against ``matmul_plain`` on the
+   CPU byte for byte in three 64-coefficient column tiles of every row
+   (every channel and output tile); its time beside ``bound_ms``, the
+   least time of ``fhebench/roofline/ffn.py``'s count (int8 tensor-core
+   ceiling at the card's highest SM clock, or bytes at the HBM rate); the
+   engagement counters' int8 products a modular product
+   (``ops/matmul.py``) beside the roofline's count; phase 2 prints
+   ptxas's registers and spills of every ``matmul_k`` instantiation, and
+   the 62-bit lane's at five bytes a weight (the cell's) must not spill;
 4. drive the main path at Preset.logN15 on the card: keygen,
    ``encodecrypt_batch`` of 8 messages twice, the fused cc_mult step on
    the batch (all keyswitch parts in one kernel), ``decryptcode_batch``;
@@ -706,6 +710,28 @@ def matmul_tiles(t, N):
     return torch.cat([t[..., c] for c in cols], dim=-1).cpu().contiguous()
 
 
+def matmul_ptxas(build_log):
+    """ptxas's account of each ``matmul_k`` instantiation in a verbose
+    build's log: {(lane bits, L): registers, spill stores and loads,
+    static shared memory}, from the chunk of the log that each entry
+    function's "Compiling entry function" line opens."""
+    out = {}
+    for chunk in build_log.split("Compiling entry function")[1:]:
+        name = re.match(r"\s*'_Z\d+matmul_kI([xi])Li(\d)EE", chunk)
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", chunk)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        smem = re.search(r"(\d+) bytes smem", chunk)
+        out[62 if name.group(1) == "x" else 30, int(name.group(2))] = dict(
+            registers=int(regs.group(1)) if regs else None,
+            spill_stores=int(spill.group(1)) if spill else None,
+            spill_loads=int(spill.group(2)) if spill else None,
+            smem=int(smem.group(1)) if smem else 0)
+    return out
+
+
 def matmul_phase(CkksEngine, preset, tag, smi, clock_hz):
     """3b: ``ops/matmul.matmul`` at MATMUL_SHAPES in one lane: random
     canonical residues, weights of N(0, FFN_STD^2) (the up product's times
@@ -760,15 +786,22 @@ def matmul_phase(CkksEngine, preset, tag, smi, clock_hz):
         canonical = all(bool(((g >= 0) & (g.long() < q)).all())
                         for g in got)
         del got, again, acc, want
+        key = "matmul" + sfx
+        i8, mod = mm.INT8_PRODUCTS[key], mm.MOD_PRODUCTS[key]
+        mm.matmul(x0, x1, wl, lp)
+        ratio = ((mm.INT8_PRODUCTS[key] - i8)
+                 / (mm.MOD_PRODUCTS[key] - mod))
         ms = cuda_ms(lambda: mm.matmul(x0, x1, wl, lp))
         work = ffn_roofline.matmul(cfg.logN, primes, level, P, F_in, F_out,
                                    cfg.scale_bits)
+        counted = work.int8 / (F_in * F_out * 2 * N * C)
         bound_ms = work.least_s(clock_hz) * 1e3
         res = dict(ms=ms, bound_ms=bound_ms, bound_by="int8 tensor cores"
                    if work.int8 / ffn_roofline.int8_ceiling(clock_hz)
                    >= work.nbytes / HBM_BYTES_PER_S else "bytes",
                    limbs=int(wl.shape[0]), same_bytes=same,
                    canonical=canonical, plain_s=plain_s,
+                   int8_per_product=ratio, roofline_int8_per_product=counted,
                    dims=[level, F_in, F_out, C, N])
         shapes[f"level{level}_{F_in}x{F_out}"] = res
         log(f"{tag} matmul{sfx} level {level}, {F_in} -> {F_out} "
@@ -779,7 +812,10 @@ def matmul_phase(CkksEngine, preset, tag, smi, clock_hz):
             f"{ms:.3f} ms a call; bound {bound_ms:.3f} ms "
             f"({res['bound_by']}, roofline/ffn.py at "
             f"{clock_hz / 1e6:.0f} MHz), {100 * bound_ms / ms:.1f}% of the "
-            f"bound ({smi})")
+            f"bound ({smi}); int8 products a modular product "
+            f"{ratio:.4f} issued (ops/matmul.py's counters), "
+            f"{counted:.4f} counted (roofline/ffn.py at {cfg.scale_bits}-bit "
+            f"weights)")
         check(same and canonical, f"{tag} matmul differs from its plain "
               f"version at level {level}, {F_in} x {F_out}")
         del x0, x1
@@ -3027,6 +3063,16 @@ def main():
     log(f"built kernels in {time.perf_counter() - t0:.1f} s; ptxas: "
         f"{len(regs)} entry functions, {min(regs)}-{max(regs)} registers, "
         f"{spill} bytes of spill stores and loads")
+    mm_ptxas = matmul_ptxas(cuda_build.build_log)
+    for (lane_bits, L), info in sorted(mm_ptxas.items()):
+        log(f"ptxas matmul_k, {lane_bits}-bit lane, {L} bytes a weight: "
+            f"{info['registers']} registers, {info['spill_stores']} / "
+            f"{info['spill_loads']} bytes of spill stores / loads, "
+            f"{info['smem']} bytes of static shared memory")
+    check((62, 5) in mm_ptxas and mm_ptxas[62, 5]["spill_stores"]
+          + mm_ptxas[62, 5]["spill_loads"] == 0,
+          f"matmul_k at five bytes a weight (62-bit) spills or is missing: "
+          f"{mm_ptxas.get((62, 5))}")
     cuda_build.lib()
 
     # 2b. the fold-rate probe: its kernels against their plain versions,

@@ -1,15 +1,18 @@
 """A CUDA source of ``tiberate_tpu_torch/csrc`` built for the host by g++,
 for the CPU tests of its kernels (``test_torch_modew.py``,
-``test_torch_k6_sums.py``).
+``test_torch_k6_sums.py``, ``test_torch_ffn.py``).
 
-A shim ``cuda_runtime.h`` defines the CUDA qualifiers away; each launch
-``k<<<g, b, s, st>>>(args)`` is rewritten as ``tt_launch(g, b, s, st, k,
-args)``, which runs the grid's blocks in turn; a block's shared memory is
-one static buffer; ``TT_BY_LOGN`` of the real ``ntt.cuh`` is cut to the
-logN a test instantiates.  A block's threads run in turn, or, with
-``threads``, each as a thread of its own, every ``__syncthreads`` and
-``__syncwarp`` a barrier of the whole block (kernels whose threads
-exchange words through shared memory need that).
+A shim ``cuda_runtime.h`` defines the CUDA qualifiers away and models
+``__byte_perm``; each launch ``k<<<g, b, s, st>>>(args)`` is rewritten as
+``tt_launch(g, b, s, st, k, args)``, which runs the grid's blocks in
+turn; a block's shared memory is one static buffer; ``TT_BY_LOGN`` of the
+real ``ntt.cuh`` is cut to the logN a test instantiates; ``TT_HOST`` is
+defined, so that a source can put a plain C++ model in the place of an
+instruction the host lacks (``matmul.cu``'s ``mma.sync``).  A block's
+threads run in turn, or, with ``threads``, each as a thread of its own,
+every ``__syncthreads`` a barrier of the whole block and every
+``__syncwarp`` one of the thread's warp (kernels whose threads exchange
+words through shared memory need that).
 """
 
 import ctypes
@@ -27,6 +30,7 @@ RUNTIME = r"""
 #include <stdint.h>
 #if TT_HOST_THREADS
 #include <barrier>
+#include <deque>
 #include <thread>
 #include <vector>
 #endif
@@ -54,11 +58,21 @@ cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
 }
 struct alignas(16) longlong2 { long long x, y; };
 struct alignas(16) int4 { int x, y, z, w; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+// byte n of the result: byte (s >> 4 n) & 7 of y:x (x the low four)
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+    const unsigned long long v = (unsigned long long)y << 32 | x;
+    unsigned r = 0;
+    for (int n = 0; n < 4; ++n)
+        r |= (unsigned)(v >> (8 * ((s >> (4 * n)) & 7)) & 0xff) << (8 * n);
+    return r;
+}
 inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
 #if TT_HOST_THREADS
 static std::barrier<>* tt_bar;
+static std::deque<std::barrier<>>* tt_warp_bars;
 inline void __syncthreads() { tt_bar->arrive_and_wait(); }
-inline void __syncwarp() { tt_bar->arrive_and_wait(); }
+inline void __syncwarp() { (*tt_warp_bars)[threadIdx.x / 32].arrive_and_wait(); }
 #else
 inline void __syncthreads() {}
 inline void __syncwarp() {}
@@ -74,6 +88,10 @@ void tt_launch(dim3 g, int b, int s, cudaStream_t st, F f, A... a) {
 #if TT_HOST_THREADS
                 std::barrier<> bar(b);
                 tt_bar = &bar;
+                std::deque<std::barrier<>> warps;
+                for (int w = 0; 32 * w < b; ++w)
+                    warps.emplace_back(b - 32 * w < 32 ? b - 32 * w : 32);
+                tt_warp_bars = &warps;
                 std::vector<std::thread> ts;
                 for (int t = 0; t < b; ++t)
                     ts.emplace_back([=] {
@@ -121,7 +139,8 @@ def build(tmp_dir, source, entries, logn, threads=False):
     shutil.copy(os.path.join(CSRC, "mont.cuh"), os.path.join(d, "mont.cuh"))
     so = os.path.join(d, f"lib{stem}_host.so")
     subprocess.run([cxx, "-O1", "-std=c++20", "-shared", "-fPIC",
-                    "-pthread", f"-DTT_HOST_THREADS={int(threads)}", "-I", d,
+                    "-pthread", "-DTT_HOST=1",
+                    f"-DTT_HOST_THREADS={int(threads)}", "-I", d,
                     "-o", so, cpp], check=True, capture_output=True)
     lib = ctypes.CDLL(so)
     for name, argtypes in entries.items():

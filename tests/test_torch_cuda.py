@@ -975,19 +975,31 @@ def test_mesh_engine_on_card_equals_cpu(card, lane, axes):
 
 # The stacked linear op's modular matrix product (csrc/matmul.cu) at the
 # logN15 presets' chains (the 62-bit lane's 40- and 41-bit scale primes
-# and 60-bit base, which take 2 and 3 limbs; the 30-bit lane's 24- to
-# 28-bit primes): case -> (level, F_in, F_out, weights, residues); F_in
-# None is one run of the weights' limbs and 5 features more
+# and 60-bit base, 5, 6 and 8 bytes a residue; the 30-bit lane's 24- to
+# 28-bit primes, 3 and 4): case -> (level, F_in, F_out, weights,
+# residues); F_in None is one run of the weights' bytes and 5 features
+# more, over 64 coefficients so that the CPU's plain version stays short
+# (level 14: three channels, the base among them; level 16: the base)
 MATMUL_CASES = {
     "up block": (0, 16, 70, "random", "random"),
     "down block": (2, 24, 64, "random", "random"),
-    "q - 1 and the largest weights": (0, 16, 65, "extreme", "q - 1"),
-    "one limb": (1, 9, 33, "small", "random"),
-    "two runs at the bound": (14, None, 3, "extreme", "q - 1"),
-    "three limbs": (0, 16, 66, "wide", "random"),
-    "q - 1 and the largest three-limb weights": (0, 16, 65, "extreme3",
+    "q - 1 and the largest five-byte weights": (0, 16, 65, "extreme5",
+                                                "q - 1"),
+    "one byte": (1, 9, 33, "small", "random"),
+    "seven bytes, two stages": (0, 80, 66, "wide", "random"),
+    "q - 1 and the largest eight-byte weights": (0, 80, 65, "extreme8",
                                                  "q - 1"),
-    "two three-limb runs at the bound": (14, None, 3, "extreme3", "q - 1"),
+    "two five-byte runs at the bound": (16, None, 3, "extreme5", "q - 1"),
+    "two eight-byte runs at the bound": (14, None, 3, "extreme8", "q - 1"),
+}
+# weights -> (the largest, the least): random weights of 37 bits as the
+# engine encodes a BERT-base layer's (five bytes); one byte; seven; the
+# extremes five and eight bytes hold
+MATMUL_WEIGHTS = {
+    "random": (1 << 37, -(1 << 37)), "small": (127, -128),
+    "wide": (1 << 55, -(1 << 55)),
+    "extreme5": (mm.limb_max(5), mm.limb_min(5)),
+    "extreme8": (mm.MAX_WEIGHT, -2**63),
 }
 
 
@@ -996,18 +1008,18 @@ def _matmul_operands(case, tp):
     level, F_in, F_out, weights, residues = MATMUL_CASES[case]
     lp = tp.lp(level, False)
     q = lp.pack.q.long().cpu()
-    C, N = lp.num_channels, tp.N
-    top = {"random": 1 << 37, "small": 1 << 20, "wide": 1 << 55,
-           "extreme": mm.limb_max(2), "extreme3": mm.MAX_WEIGHT}[weights]
-    F_in = F_in or mm.matmul_run(3 if top > mm.limb_max(2) else 2) + 5
+    C, N = lp.num_channels, tp.N if F_in else 64
+    top, least = MATMUL_WEIGHTS[weights]
+    L = mm.weight_limbs(torch.tensor([[top, least]])).shape[0]
+    F_in = F_in or mm.matmul_run(L) + 5
     gen = torch.Generator().manual_seed(400 + level)
     x = torch.randint(0, 1 << 62, (2, F_in, C, N), generator=gen) % q[:, None]
     if residues == "q - 1":
         x[:, : F_in // 2 + 1] = (q - 1)[:, None]
-    W = torch.randint(-top, top + 1, (F_in, F_out), generator=gen)
+    W = torch.randint(least, top, (F_in, F_out), generator=gen)
     if weights.startswith("extreme"):
         W[: F_in // 2 + 1] = top
-        W[: F_in // 2 + 1, 1::2] = -top - 1
+        W[: F_in // 2 + 1, 1::2] = least
     x = x.to(tp.dtype)
     return lp, x[0], x[1], W
 
@@ -1018,11 +1030,12 @@ def _matmul_operands(case, tp):
 def test_matmul_matches_plain_on_card(card, lane, case):
     """The modular matrix product against its plain version (on the CPU),
     byte for byte, with and without an accumulator: random residues and
-    weights of 37 bits as the engine encodes a BERT-base layer's, residues
-    q - 1 with weights of the largest magnitude two and three limbs hold,
-    weights of one limb and of three, and sums longer than one run (two
-    launches, the second adding into the first's output).  Canonical in
-    [0, q)."""
+    weights of 37 bits as the engine encodes a BERT-base layer's (five
+    bytes), residues q - 1 with the largest and least weights five and
+    eight bytes hold, weights of one byte and of seven, two stages of
+    features, and sums longer than one run at the bounds of five and of
+    eight bytes (two launches, the second adding into the first's output);
+    the engagement counters.  Canonical in [0, q)."""
     from tiberate_tpu_torch.config import CkksConfig
 
     tp = CkksParams(CkksConfig.parse("logN15" + ("" if lane == 62
@@ -1034,13 +1047,19 @@ def test_matmul_matches_plain_on_card(card, lane, case):
     lp_cpu = lp.to("cpu")
     want = mm.matmul_plain(x0, x1, wl, lp_cpu)
     K.reset_launch_counts()
+    key = "matmul" + LANES[lane][1]
+    before = mm.INT8_PRODUCTS[key], mm.MOD_PRODUCTS[key]
     got = mm.matmul(x0.to(card), x1.to(card), wl.to(card), lp)
     acc = tuple(w.to(card) for w in want)
     again = mm.matmul(x0.to(card), x1.to(card), wl.to(card), lp, acc=acc)
     torch.cuda.synchronize()
-    assert {k: v for k, v in K.LAUNCHES.items() if v} == {
-        "matmul" + LANES[lane][1]: 2 * pieces}
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {key: 2 * pieces}
     q = lp_cpu.pack.q.long()[:, None]
+    (F_in, C, N), F_out, L = x0.shape, W.shape[1], wl.shape[0]
+    products = 2 * F_in * F_out * 2 * N * C
+    xl = sum(mm.residue_bytes(v) for v in q.flatten().tolist())
+    assert mm.MOD_PRODUCTS[key] - before[1] == products
+    assert mm.INT8_PRODUCTS[key] - before[0] >= products // C * xl * L
     for g, a, w in zip(got, again, want):
         assert g.dtype == tp.dtype and g.is_contiguous()
         assert torch.equal(g.cpu(), w)

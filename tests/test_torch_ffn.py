@@ -8,16 +8,21 @@ int64, 30-bit int32) where the lane matters.
   ``cc_add`` sum, ``rescale``, ``add_scalar``), against the same
   composition on the JAX engine (keys and ciphertexts carried over), and
   the unrescaled sums against exact residues in Python integers.
-* The plain version at residues q - 1 with the largest weights two and
-  three limbs hold, over a run of ``matmul_run`` features and past it,
-  against the exact residue; the run's bound; the weights' limbs.
+* The plain version at residues q - 1 with the largest and least
+  weights five and eight bytes hold, over a run of ``matmul_run``
+  features and past it, against the exact residue; the run's int32
+  bound; the weights' balanced bytes; an integer model of the kernel's
+  class sums and their one reduction, in ``redc_sum_signed``'s domain
+  and exact, for every residue and weight width.
 * ``csrc/matmul.cu`` built for the host by g++ (``_cuda_host``, a block's
   threads as threads of their own: the kernel stages its operands in
-  shared memory), launched through the wrapper on CPU tensors against the
-  plain version byte for byte, with ``LAUNCHES`` counted: 40-, 41- and
-  60-bit channels of logN15's chain (2 and 3 limbs a residue), the 30-bit
-  chain, one, two and three limbs a weight, a ragged output tile, an
-  accumulator updated in place, two runs.
+  shared memory, and its MMA's host model exchanges a warp's fragments
+  there), launched through the wrapper on CPU tensors against the plain
+  version byte for byte, with ``LAUNCHES`` and the engagement counters
+  counted: 40-, 41- and 60-bit channels of logN15's chain (5, 6 and 8
+  bytes a residue), the 30-bit chain, one to eight bytes a weight, a
+  ragged output tile, weights read 16 bytes at a time and byte by byte,
+  an accumulator updated in place, two runs at the bound.
 * The wrappers refuse what the kernel does not read, on every device.
 * ``HEFeedForwardFeatureWise`` at 8 hidden and 32 intermediate features:
   in blocks of 12 the residues of one block; every residue
@@ -28,6 +33,8 @@ int64, 30-bit int32) where the lane matters.
 Tolerance: none for residues.
 """
 
+import os
+import re
 import types
 
 import numpy as np
@@ -133,9 +140,14 @@ def test_mult_matrix_is_the_composition(pair):
     _, t, _, X, _, w, b = pair
     enc = t.encode_matrix(w, X.level)
     ints = _ints(t, w, X.level)
-    assert enc.limbs.shape[0] == 2
+    L = min(L for L in range(1, 9) if all(
+        mm.limb_min(L) <= int(v) <= mm.limb_max(L) for v in ints.flat))
+    assert enc.limbs.dtype == torch.int8
+    assert enc.limbs.shape == (L, F_IN, F_OUT)
+    assert enc.limbs.transpose(1, 2).is_contiguous()
     limbs = enc.limbs.long()
-    assert (limbs[0] + (limbs[1] << 21)).tolist() == ints.tolist()
+    back = sum(limbs[i] << (8 * i) for i in range(L))
+    assert back.tolist() == ints.tolist()
     want = _composition(t, unstack_ciphertext(X), ints, b)
     got = t.mult_matrix(X, enc, b)
     assert got.level == X.level + 1
@@ -189,65 +201,166 @@ def _exact(x, W, q):
                       enumerate(plane)] for plane in out], dtype=object)
 
 
-@pytest.mark.parametrize("L", [2, 3])
+@pytest.mark.parametrize("L", [5, 8])
 @pytest.mark.parametrize("runs", [1, 2])
 def test_plain_at_the_edges(lane, runs, L):
-    """Residues q - 1 and weights of the largest magnitude L limbs hold,
+    """Residues q - 1 and weights of the largest and least L bytes hold,
     over one whole run of ``matmul_run(L)`` features and past it, on the
-    40-, 41- and 60-bit channels (2 and 3 limbs): the exact residues."""
+    40-, 41- and 60-bit channels (5, 6 and 8 bytes): the exact
+    residues."""
     lp, q = _edge_lp(lane, [14, 15, 16] if lane == 62 else [0, 1, 16])
     F = mm.matmul_run(L) * runs - (runs - 1) * 7
-    C, N = len(q), 64
+    C, N = len(q), 32
     qt = torch.tensor(q)[:, None]
     x = (qt - 1).expand(F, C, N).clone()
     x[:, :, 1::2] = torch.randint(0, 1 << 62, (F, C, N // 2)) % qt
     x = x.to(lp.pack.dtype)
-    top = mm.limb_max(L)
+    top, least = mm.limb_max(L), max(mm.limb_min(L), -2**63)
     W = torch.full((F, 4), top)
-    W[:, 1] = -top
-    W[::3, 2] = -top - 1
+    W[:, 1] = least
+    W[::3, 2] = least
     W[:, 3] = torch.randint(-(1 << 37), 1 << 37, (F,))
     wl = mm.weight_limbs(W)
-    assert wl.shape[0] == L and float(wl.abs().max()) == 2**20
+    assert wl.shape == (L, F, 4)
+    assert int(wl.max()) == 127 and int(wl.min()) == -128
     out = mm.matmul_plain(x, x.flip(0), wl, lp)
     assert np.array_equal(out[0].long().numpy(), _exact(x, W, q))
     assert np.array_equal(out[1].long().numpy(), _exact(x.flip(0), W, q))
 
 
 def test_the_run_bound():
-    """A run's sums of up to L limb products a feature, each at most
-    (2^21 - 1) 2^20, stay below 2^53; one feature more does not."""
-    for L in (1, 2, 3):
+    """A run's class sums of up to L byte products a feature, each at most
+    255 x 128 in magnitude, stay below 2^31 for every L; one feature more
+    does not."""
+    for L in range(1, 9):
         run = mm.matmul_run(L)
-        term = L * ((1 << 21) - 1) * (1 << 20)
-        assert run * term < 2**53 <= (run + 1) * term
-    assert [mm.matmul_run(L) for L in (1, 2, 3)] == [4096, 2048, 1365]
+        term = L * 255 * 128
+        assert run * term < 2**31 <= (run + 1) * term, L
+    assert [mm.matmul_run(L) for L in (1, 5, 8)] == [65793, 13158, 8224]
+
+
+def _back(wl):
+    """The weights [F_in, F_out] that balanced bytes [L, F_in, F_out]
+    hold."""
+    return sum(wl[b].long() << (8 * b) for b in range(wl.shape[0]))
 
 
 def test_weight_limbs():
-    """Balanced limbs sum back to the weights, each in [-2^20, 2^20]: one
-    limb to 2^20, two to ``limb_max(2)``, three to ``MAX_WEIGHT`` (about
-    2^62); past it raises."""
-    one = torch.tensor([[0, 1, -1, 2**20, -2**20]])
-    assert mm.weight_limbs(one).shape == (1, 1, 5)
-    two = mm.limb_max(2)
-    assert two == 2**41 + 2**20 - 1 and mm.limb_max(1) == 2**20
-    W = torch.tensor([[2**20 + 1, -2**20 - 1, two, -two - 1, 123456789012]])
+    """Balanced bytes [L, F_in, F_out], stored F_in fastest, sum back to
+    the weights [F_in, F_out]: L bytes hold ``limb_min(L)`` to ``limb_max(L)``, one past
+    either takes L + 1; eight hold ``MAX_WEIGHT`` (above 2^62) and -2^63;
+    past ``MAX_WEIGHT`` raises."""
+    assert (mm.limb_min(1), mm.limb_max(1)) == (-128, 127)
+    assert mm.limb_max(5) == 127 * (2**40 - 1) // 255
+    assert mm.MAX_WEIGHT == mm.limb_max(8) and 2**62 < mm.MAX_WEIGHT < 2**63
+    for L in range(1, 9):
+        top, least = mm.limb_max(L), max(mm.limb_min(L), -2**63)
+        W = torch.tensor([[top, least, 0], [1, -1, top - 1]])
+        wl = mm.weight_limbs(W)
+        assert wl.dtype == torch.int8 and wl.shape == (L, 2, 3), L
+        assert wl.transpose(1, 2).is_contiguous(), L
+        assert torch.equal(_back(wl), W), L
+        if L < 8:
+            for v in (top + 1, least - 1):
+                wl = mm.weight_limbs(torch.tensor([[v]]))
+                assert wl.shape[0] == L + 1 and int(_back(wl)) == v, (L, v)
+    gen = torch.Generator().manual_seed(3)
+    W = torch.randint(-(1 << 45), 1 << 45, (7, 9), generator=gen)
     wl = mm.weight_limbs(W)
-    assert wl.shape == (2, 1, 5) and float(wl.abs().max()) <= 2**20
-    assert torch.equal(wl[0].long() + (wl[1].long() << 21), W)
-    W = torch.tensor([[two + 1, -two - 2, mm.MAX_WEIGHT, -mm.MAX_WEIGHT - 1,
-                       -(2**61) + 12345]])
-    wl = mm.weight_limbs(W)
-    assert wl.shape == (3, 1, 5) and float(wl.abs().max()) <= 2**20
-    assert torch.equal(wl[0].long() + (wl[1].long() << 21)
-                       + (wl[2].long() << 42), W)
-    for bad in (mm.MAX_WEIGHT + 1, -mm.MAX_WEIGHT - 2**21 - 2, -2**63,
-                2**63 - 1):
+    assert wl.shape == (6, 7, 9) and torch.equal(_back(wl), W)
+    assert wl[0, 2, 4] == ((int(W[2, 4]) + 128) & 255) - 128
+    wl = mm.weight_limbs(torch.tensor([[-2**63, mm.MAX_WEIGHT]]))
+    assert wl.shape[0] == 8
+    assert _back(wl).tolist() == [[-2**63, mm.MAX_WEIGHT]]
+    for bad in (mm.MAX_WEIGHT + 1, 2**63 - 1):
         with pytest.raises(ValueError, match="exceeds"):
             mm.weight_limbs(torch.tensor([[bad]]))
     with pytest.raises(ValueError, match="int64"):
         mm.weight_limbs(W.double())
+
+
+# mont.cuh's REDC in Python integers, as the kernel's 64-bit words wrap
+M64 = (1 << 64) - 1
+
+
+def _s64(x):
+    x &= M64
+    return x - (1 << 64) if x >> 63 else x
+
+
+def _redc_wide(p, q, k):
+    p &= (1 << 128) - 1
+    m4 = (p & M64) * ((k << 2) & M64) & M64
+    return ((p >> 62) + ((m4 * q) >> 64) + (m4 != 0)) & M64
+
+
+def _redc_sum_signed(x, f, q, k):
+    x &= (1 << 128) - 1
+    return _s64(_redc_wide(((x >> 64) ^ (1 << 63)) * f + (x & M64), q, k)
+                - (f << 1))
+
+
+def _redc_by(x, c, q, k):
+    return _s64(_redc_wide(((x & M64) ^ (1 << 63)) * c, q, k) - (c << 1))
+
+
+def _canon(a, q):
+    a = a + q if a < 0 else a
+    return a if a < q else a - q
+
+
+def _main_classes():
+    with open(os.path.join(_cuda_host.CSRC, "matmul.cu")) as f:
+        return int(re.search(r"#define TT_MM_MAIN (\d+)", f.read()).group(1))
+
+
+def test_class_sums_stay_in_the_reduction_domain():
+    """The kernel's epilogue (``MmReduce``, 62-bit lane) as an integer
+    model, for XL = 3..8 residue bytes and L = 1..8 weight bytes over a
+    run of ``matmul_run(L)`` features: every class sum's bound fits an
+    int32; the classes below ``TT_MM_MAIN``, shifted and added with an
+    accumulator word, keep ``redc_sum_signed``'s high word inside its
+    domain (|hi| <= H, H (q - 1) + 2^64 <= q 2^62) for the largest and
+    least modulus of XL bytes below 2^60; the classes above fit the 64-bit
+    word; and the model on the class sums at their extremes (and random)
+    gives the exact residue."""
+    main = _main_classes()
+    rng = np.random.default_rng(9)
+    for XL in range(3, 9):
+        qs = [(1 << (8 * XL - 8)) + 1, min((1 << (8 * XL)) - 1, 2**60 - 1)]
+        for L in range(1, 9):
+            run = mm.matmul_run(L)
+            NS = XL + L - 1
+            count = [sum(1 for a in range(XL) if 0 <= s - a < L)
+                     for s in range(NS)]
+            bound = [c * 255 * 128 * run for c in count]
+            assert max(bound) < 2**31, (XL, L)
+            top = sum(b << (8 * s) for s, b in enumerate(bound[:main]))
+            hi = (top + 2**62) >> 64
+            h = sum(b << (8 * (s - main)) for s, b in enumerate(bound)
+                    if s >= main)
+            assert h < 2**63, (XL, L)
+            for q in qs:
+                q |= 1
+                assert hi * (q - 1) + 2**64 <= q * 2**62, (XL, L, q)
+                k = ((1 << 62) * pow(1 << 62, -1, q) - 1) // q
+                f, r2 = (1 << 64) % q, (1 << 124) % q
+                c96 = _canon(_redc_by(1 << 34, r2, q, k), q)
+                cases = [[b for b in bound], [-b for b in bound],
+                         [b if s % 2 else -b for s, b in enumerate(bound)],
+                         [int(rng.integers(-b, b + 1)) for b in bound]]
+                for T in cases:
+                    acc = q - 1
+                    t = sum(v << (8 * s) for s, v in enumerate(T[:main]))
+                    v = _redc_sum_signed(t + acc, f, q, k)
+                    if NS > main:
+                        v += _redc_by(sum(x << (8 * (s - main)) for s, x
+                                          in enumerate(T) if s >= main),
+                                      c96, q, k)
+                    got = _canon(_redc_by(v, r2, q, k), q)
+                    want = (acc + sum(x << (8 * s) for s, x in
+                                      enumerate(T))) % q
+                    assert got == want, (XL, L, q)
 
 
 def test_wrappers_refuse_what_the_kernel_does_not_take(lane):
@@ -260,14 +373,17 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(lane):
     bad = [
         (TypeError, lambda: mm.matmul(x.to(other), x.to(other), wl, lp)),
         (ValueError, lambda: mm.matmul(x[:, :2], x[:, :2], wl, lp)),
-        (ValueError, lambda: mm.matmul(x[..., :32], x[..., :32], wl, lp)),
+        (ValueError, lambda: mm.matmul(x[..., :16], x[..., :16], wl, lp)),
+        (ValueError, lambda: mm.matmul(x[..., :48].contiguous(),
+                                       x[..., :48].contiguous(), wl, lp)),
         (ValueError, lambda: mm.matmul(x.transpose(1, 2).contiguous()
                                        .transpose(1, 2), x, wl, lp)),
         (ValueError, lambda: mm.matmul(x, x[:3], wl, lp)),
         (ValueError, lambda: mm.matmul(x, x, wl[:, :3], lp)),
-        (ValueError, lambda: mm.matmul(x, x, wl.float(), lp)),
-        (ValueError, lambda: mm.matmul(x, x, wl.transpose(1, 2)
-                                       .contiguous().transpose(1, 2), lp)),
+        (ValueError, lambda: mm.matmul(x, x, wl.long(), lp)),
+        (ValueError, lambda: mm.matmul(x, x, wl.transpose(1, 2), lp)),
+        (ValueError, lambda: mm.matmul(x, x, torch.zeros(
+            (9, 4, 2), dtype=torch.int8), lp)),
         (ValueError, lambda: mm.matmul(x, x, wl, lp,
                                        acc=(acc[0][:1], acc[1][:1]))),
         (TypeError, lambda: mm.matmul(x, x, wl, lp,
@@ -306,33 +422,57 @@ def host_launch(host_matmul, monkeypatch):
 
 def test_kernel_source_matches_plain(lane, host_launch):
     """The kernel through the wrapper, byte for byte the plain version:
-    40-, 41- and 60-bit channels (or the 30-bit chain's), two, one and
-    three limbs a weight (the largest two and three hold), 70 outputs (a
-    ragged second tile), residues q - 1, an accumulator updated in place,
-    and a sum of two runs."""
+    40-, 41- and 60-bit channels (or the 30-bit chain's), one to eight
+    bytes a weight (the largest and least five and eight hold), 70
+    outputs (a ragged second tile), weights read 16 bytes at a time (F_in
+    a multiple of 16) and byte by byte, two stages, residues q - 1, an
+    accumulator updated in place; weights laid out F_out fastest and cut
+    along F_in; then a sum of two runs at the bound of
+    eight bytes (the second launch starting mid-row, byte by byte); the
+    engagement counters at every launch."""
     lp, q = _edge_lp(lane, [14, 15, 16] if lane == 62 else [0, 1, 16])
     dt = lp.pack.dtype
     qt = torch.tensor(q)[:, None]
+    sfx = LANES[lane][1]
+    key = "matmul" + sfx
+    start = mm.INT8_PRODUCTS[key], mm.MOD_PRODUCTS[key]
     gen = torch.Generator().manual_seed(5)
 
-    def residues(F, N=64):
+    def residues(q, F, N=32):
+        qt = torch.tensor(q)[:, None]
         x = torch.randint(0, 1 << 62, (F, len(q), N), generator=gen) % qt
         x[0] = qt - 1
         return x.to(dt)
 
+    def counted(x, W, q, launches):
+        """The products the launches issue: a stage of 64 features, a
+        block of 64 outputs, every channel's residue bytes."""
+        F_in, F_out = W.shape
+        L = mm.weight_limbs(W).shape[0]
+        per = -(-F_out // 64) * 64 * 2 * x.shape[2]
+        xl = sum(mm.residue_bytes(v) for v in q)
+        runs = [min(mm.matmul_run(L), F_in - k0)
+                for k0 in range(0, F_in, mm.matmul_run(L))]
+        return (sum(-(-k // 64) * 64 for k in runs) * xl * L * per
+                * launches, F_in * F_out * 2 * x.shape[2] * len(q)
+                * launches)
+
     cases = {
-        "two limbs": (residues(9), torch.randint(
+        "five bytes": (residues(q, 9), torch.randint(
             -(1 << 38), 1 << 38, (9, 70), generator=gen)),
-        "one limb": (residues(12, 128), torch.randint(
-            -(1 << 20), (1 << 20) + 1, (12, 5), generator=gen)),
-        "largest": (residues(8), torch.tensor(
-            [[mm.limb_max(2), -mm.limb_max(2) - 1]] * 8)),
-        "three limbs": (residues(10), torch.randint(
-            -(1 << 50), 1 << 50, (10, 66), generator=gen)),
-        "largest three": (residues(8), torch.tensor(
-            [[mm.MAX_WEIGHT, -mm.MAX_WEIGHT - 1, 1]] * 8)),
+        "one byte": (residues(q, 12, 128), torch.randint(
+            -128, 128, (12, 5), generator=gen)),
+        "largest five, 16 at a time": (residues(q, 16), torch.tensor(
+            [[mm.limb_max(5), mm.limb_min(5)]] * 16)),
+        "three bytes, 16 at a time": (residues(q, 64), torch.randint(
+            -(1 << 23), 1 << 23, (64, 33), generator=gen)),
+        "eight bytes": (residues(q, 10), torch.randint(
+            -(1 << 62), 1 << 62, (10, 66), generator=gen)),
+        "largest eight, two stages": (residues(q, 80), torch.tensor(
+            [[mm.MAX_WEIGHT, -2**63, 1]] * 80)),
     }
     launches = 0
+    int8, mod = 0, 0
     for name, (x, W) in cases.items():
         wl = mm.weight_limbs(W)
         y = x.flip(0).clone()
@@ -347,20 +487,38 @@ def test_kernel_source_matches_plain(lane, host_launch):
                                                          for w in want))
         assert all(torch.equal(g, w) for g, w in zip(again, twice)), name
         launches += 2
-    # two runs: the second launch adds into the first's output
-    lp1 = types.SimpleNamespace(pack=lp.pack[2:], fold=lp.fold[2:],
-                                Rs=lp.Rs[2:])
-    F = mm.matmul_run(2) + 3
-    x = residues(F)[:, 2:].contiguous()
-    W = torch.full((F, 2), mm.limb_max(2))
-    W[:, 1] = -mm.limb_max(2)
+        i8, md = counted(x, W, q, 2)
+        int8, mod = int8 + i8, mod + md
+        assert (mm.INT8_PRODUCTS[key] - start[0],
+                mm.MOD_PRODUCTS[key] - start[1]) == (int8, mod), name
+    # weights laid out F_out fastest and cut to the first 7 input
+    # features, as a caller may slice them: read F_in fastest all the same
+    x, W = cases["five bytes"][0][:7], cases["five bytes"][1][:7]
+    wl = mm.weight_limbs(cases["five bytes"][1]).contiguous()[:, :7]
+    got = mm.matmul(x, x, wl, lp)
+    assert all(torch.equal(g, w) for g, w in
+               zip(got, mm.matmul_plain(x, x, wl, lp)))
+    launches += 1
+    i8, md = counted(x, W, q, 1)
+    int8, mod = int8 + i8, mod + md
+    # two runs of eight-byte weights at the bound, residues q - 1 and the
+    # largest weights: the second launch adds into the first's output
+    lp1 = types.SimpleNamespace(pack=lp.pack[:1], fold=lp.fold[:1],
+                                Rs=lp.Rs[:1])
+    F = mm.matmul_run(8) + 3
+    x = (qt[:1] - 1).expand(F, 1, 32).clone().to(dt)
+    W = torch.full((F, 2), mm.MAX_WEIGHT)
+    W[:, 1] = -2**63
     wl = mm.weight_limbs(W)
     got = mm.matmul(x, x, wl, lp1)
     assert all(torch.equal(g, w) for g, w in
                zip(got, mm.matmul_plain(x, x, wl, lp1)))
     launches += 2
+    i8, md = counted(x, W, q[:1], 1)
+    assert (mm.INT8_PRODUCTS[key] - start[0],
+            mm.MOD_PRODUCTS[key] - start[1]) == (int8 + i8, mod + md)
     assert {k: v for k, v in K.LAUNCHES.items() if v} == {
-        "matmul" + LANES[lane][1]: launches}
+        "matmul" + sfx: launches}
 
 
 # ----------------------------------------------------------------------

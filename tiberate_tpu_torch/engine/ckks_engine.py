@@ -90,9 +90,9 @@ logger = logging.getLogger("tiberate_tpu_torch")
 
 class MatrixWeights(NamedTuple):
     """A weight matrix encoded for :meth:`CkksEngine.mult_matrix` at one
-    level: ``limbs`` the limbs (``ops/matmul.weight_limbs``), on the
-    engine's device, of each weight's signed integer, as ``mult_scalar``
-    encodes a scalar there."""
+    level: ``limbs`` the balanced bytes [L, F_in, F_out] int8, stored F_in
+    fastest (``ops/matmul.weight_limbs``), on the engine's device, of each
+    weight's signed integer, as ``mult_scalar`` encodes a scalar there."""
 
     level: int
     limbs: torch.Tensor
@@ -2070,7 +2070,7 @@ class CkksEngine:
         """``weight`` [F_in, F_out] (real) for :meth:`mult_matrix` on
         ciphertexts at ``level``: each weight the integer
         ``int(w * scale * sqrt(dev[level + 1]) + 0.5)``, as
-        :meth:`mult_scalar` encodes a scalar, split into limbs once and
+        :meth:`mult_scalar` encodes a scalar, split into bytes once and
         kept on the device.  Any integer below 2^62 in magnitude: |w| up
         to about 2^22 at a 2^40 scale."""
         w = np.asarray(weight, dtype=np.float64)

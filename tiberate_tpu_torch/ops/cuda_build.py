@@ -61,10 +61,10 @@ _LANED = {
     # the engine's elementwise ops (G4): op, then as the glue's
     "tt_modew": [_I, _P, _L, _P, _L, _P, _I, _I, _I, _P, _L, _P, _P, _P],
     # the stacked linear op (matmul.cu): x0, x1, feature stride, the weight
-    # limbs and their limb stride, L, F_in, F_out, acc0, acc1, out0, out1,
-    # C, N, q, k, 2^64 mod q, 2^124 mod q, stream
-    "tt_matmul": [_P, _P, _L, _P, _L, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P,
-                  _P, _P, _P, _P],
+    # bytes, their limb and row strides, L, F_in, F_out, acc0, acc1, out0,
+    # out1, C, N, q, k, 2^64 mod q, 2^124 mod q, stream
+    "tt_matmul": [_P, _P, _L, _P, _L, _L, _I, _I, _I, _P, _P, _P, _P, _I, _I,
+                  _P, _P, _P, _P, _P],
 }
 # Every C entry point -> argument types.  The fold-rate probe takes its
 # constants by value in its lane's word, and its Shoup fold has no 30-bit
